@@ -4,27 +4,40 @@ Run from the repository root on a machine with one NVIDIA GPU::
 
     python3 chip_smoke.py
 
-It drives the port's main path (the vectorized best-effort engine with the
-hand-written CUDA ``duct_window`` / ``duct_commit`` kernels) and fails with
-a non-zero exit code if any phase fails:
+It drives the port's main paths (the vectorized best-effort engine on the
+dense layout with the hand-written CUDA ``duct_window`` / ``duct_commit``
+kernels, on the edge-major layout with the ``duct_exchange`` kernel, with
+the graph-coloring app's int32 halos and the evo app's float32 halos) and
+fails with a non-zero exit code if any phase fails:
 
   1. card      the ``nvidia-smi`` name and power limit
-  2. build     both kernels from ``csrc/`` into ``build/`` (one nvcc per
-               source, started together)
-  3. kernels   each kernel against its plain torch version on the same
-               CUDA inputs at the main path's shapes, bitwise, with median
-               CUDA-event times of both
-  4. oracle    dyadic 16-process scenarios: the torch engine on the card
-               gives the event simulator's ``qos_signature``
-  5. card=cpu  torus-1024 (64 simels, L=8) and smallworld-1024 on the card
-               (kernels) and on the CPU (plain versions): equal SimResults
-  6. full size torus 64x64 = 4096 processes, 1 simel, buffer 64, duration
-               0.02, best-effort, per-window and --superstep-windows 8;
-               launch counters are zeroed before and read after
+  2. build     the three kernels from ``csrc/`` into ``build/`` (one nvcc
+               per source, started together)
+  3. kernels   each kernel, and each float32 entry point, against its plain
+               torch version on the same CUDA inputs at the main paths'
+               shapes, bitwise, with the device time of both
+               (torch.profiler), their time per call with launch overhead
+               (CUDA events) and the bound; ``duct_exchange`` in its full and both
+               degenerate (drain-only, send-only) forms
+  4. oracle    dyadic 16-process scenarios on both duct layouts: the torch
+               engine on the card gives the event simulator's
+               ``qos_signature``
+  5. card=cpu  torus-1024 (64 simels, L=8), smallworld-1024, torus-1024 on
+               the edge layout, and evo on a 64-process torus (dense, W=4,
+               edge) on the card (kernels) and on the CPU (plain
+               versions): equal SimResults
+  6. full size graph coloring on the torus 64x64 = 4096 processes, 1
+               simel, buffer 64, duration 0.02, best-effort: per-window
+               dense, --superstep-windows 8 and --layout edge (all three
+               equal); evo at the paper's 3600 cells per process on the
+               torus-1024, duration 0.005: per-window dense,
+               --superstep-windows 8 and --layout edge (all three equal).
+               Launch counters are zeroed just before each path and read
+               just after it
 
 It imports nothing of JAX or of the JAX package.  The line before the last
-is a JSON object with one record per kernel; the last line is
-``{"ok": true, "device": {...}}``.
+is a JSON object with one record per kernel and float32 entry point; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -38,6 +51,7 @@ import zlib
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
@@ -52,6 +66,12 @@ from repro_torch.kernels.duct_exchange import kernel as K  # noqa: E402
 from repro_torch.kernels.duct_exchange.ops import (  # noqa: E402
     duct_commit,
     duct_commit_torch,
+    duct_drain,
+    duct_drain_torch,
+    duct_exchange,
+    duct_exchange_torch,
+    duct_send,
+    duct_send_torch,
     duct_window,
     duct_window_torch,
 )
@@ -135,13 +155,21 @@ def build():
     secs = K.build()
     for name in K.SOURCES:
         check(K.library_path(name).exists(), f"{name} library missing")
+    check(len(K.SOURCES) == 3, f"expected three kernels, got {K.SOURCES}")
     print(f"built {sorted(K.SOURCES)} in {secs:.1f}s into {K.BUILD_DIR}")
 
 
 # ---------------------------------------------------------------------------
 # 3. kernels vs plain, bitwise, with times
 # ---------------------------------------------------------------------------
-def window_state(rng, n, d, C, L, cap, dev):
+def payload(rng, shape, dtype):
+    """Random payloads: small ints for int32, normals for float32."""
+    if dtype == np.float32:
+        return rng.standard_normal(shape, dtype=np.float32)
+    return rng.integers(0, 99, shape).astype(np.int32)
+
+
+def window_state(rng, n, d, C, L, cap, dev, pay=np.int32):
     """Random dense ring state as the tests build it (vectorized): live
     FIFO prefixes from a random head, an engine-style staged push."""
     head = rng.integers(0, C, (n, d)).astype(np.int32)
@@ -150,35 +178,72 @@ def window_state(rng, n, d, C, L, cap, dev):
     live = off < size[..., None]
     qa = np.where(live, rng.random((n, d, C)) * 2, np.inf).astype(np.float32)
     qt = np.where(live, rng.integers(0, 50, (n, d, C)), 0).astype(np.int32)
-    qp = np.where(live[..., None], rng.integers(0, 99, (n, d, C, L)),
-                  0).astype(np.int32)
+    qp = np.where(live[..., None], payload(rng, (n, d, C, L), pay),
+                  0).astype(pay)
     pacc = (rng.random((n, d)) < 0.7) & (size < cap)
     ppos = ((head + size) % C).astype(np.int32)
     size = (size + pacc).astype(np.int32)
     pav = (rng.random((n, d)) * 2).astype(np.float32)
     ptch = rng.integers(0, 50, (n, d)).astype(np.int32)
-    ppay = rng.integers(0, 99, (n, d, L)).astype(np.int32)
+    ppay = payload(rng, (n, d, L), pay)
     rnow = (rng.random(n) * 2).astype(np.float32)
     ract = rng.random(n) < 0.8
     return [torch.as_tensor(a, device=dev) for a in
             (qa, qt, qp, head, size, ppos, pacc, pav, ptch, ppay, rnow, ract)]
 
 
-def commit_state(rng, R, C, L, W, dev):
+def commit_state(rng, R, C, L, W, dev, pay=np.int32):
     qa = (rng.random((R, C)) * 2).astype(np.float32)
     qt = rng.integers(0, 50, (R, C)).astype(np.int32)
-    qp = rng.integers(0, 99, (R, C, L)).astype(np.int32)
+    qp = payload(rng, (R, C, L), pay)
     head = rng.integers(0, C, R).astype(np.int32)
     size0 = rng.integers(0, C, R).astype(np.int32)
     cnt = np.minimum(rng.integers(0, W + 1, R), C - size0).astype(np.int32)
     pa = (rng.random((R, W)) * 2).astype(np.float32)
     pt = rng.integers(0, 50, (R, W)).astype(np.int32)
-    pp = rng.integers(0, 99, (R, W, L)).astype(np.int32)
+    pp = payload(rng, (R, W, L), pay)
     return [torch.as_tensor(a, device=dev) for a in
             (qa, qt, qp, head, size0, cnt, pa, pt, pp)]
 
 
-def median_ms(fn, runs=30, warmup=3):
+def exchange_state(rng, E, C, dev):
+    """Random edge-major rings (a quarter of them full) with random
+    receiver and sender activity."""
+    head = rng.integers(0, C, E).astype(np.int32)
+    size = rng.integers(0, C + 1, E)
+    size = np.where(rng.random(E) < 0.25, C, size).astype(np.int32)
+    off = (np.arange(C)[None, :] - head[:, None]) % C
+    live = off < size[:, None]
+    qa = np.where(live, rng.random((E, C)) * 2, np.inf).astype(np.float32)
+    qt = np.where(live, rng.integers(0, 50, (E, C)), 0).astype(np.int32)
+    return [torch.as_tensor(a, device=dev) for a in (
+        qa, qt, head, size, (rng.random(E) * 2).astype(np.float32),
+        rng.random(E) < 0.8, (rng.random(E) * 2).astype(np.float32),
+        rng.random(E) < 0.7, (rng.random(E) * 0.5).astype(np.float32),
+        rng.integers(0, 50, E).astype(np.int32))]
+
+
+def device_ms(fn, runs=20, warmup=3):
+    """Device time per call: the CUDA kernel time torch.profiler records
+    over ``runs`` calls, divided by ``runs``.  Host-side launch overhead is
+    excluded, so a small kernel is not timed as its wrapper's Python."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(us > 0, "torch.profiler recorded no device time")
+    return us / 1e3 / runs
+
+
+def call_ms(fn, runs=30, warmup=3):
+    """Median time per call between CUDA events around it, host launch
+    overhead included (what the engine pays per call)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -210,56 +275,84 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def measure(label, run_kernel, run_plain, inputs, ops, hbm):
+    """Hold one kernel call against its plain version (0 mismatching
+    elements), time both (device time, and per call with the launch
+    overhead), and compute the bound for the same work: each
+    input read once and each output written once over the HBM rate, or
+    the integer operations over the float32 peak, whichever is longer."""
+    want = run_plain()
+    got = run_kernel()
+    torch.cuda.synchronize()
+    bad, err = compare(want, got)
+    check(bad == 0, f"{label}: {bad} mismatching elements")
+    ms = device_ms(run_kernel)
+    plain = device_ms(run_plain)
+    call, plain_call = call_ms(run_kernel), call_ms(run_plain)
+    moved = nbytes(*inputs) + nbytes(*got)
+    t_bytes, t_ops = moved / hbm, ops / PEAK_OPS_PER_S
+    bound = max(t_bytes, t_ops) * 1e3
+    print(f"{label}: 0 mismatches, kernel {ms:.4f} ms, plain {plain:.4f} "
+          f"ms (device time), bound {bound:.4f} ms, {ms / bound:.1f}x "
+          f"bound ({moved / 1e6:.1f} MB moved); per call with launch "
+          f"overhead: kernel {call:.4f} ms, plain {plain_call:.4f} ms",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 @phase("kernels")
 def kernels(hbm):
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
     records = {}
-    # (label, n, d, C, L, max_pops): torus-4096 buckets at L = 1 (the main
-    # path's shape) and L = 8, and a degree-8 bucket
-    for label, n, d, C, L, pops in (("torus4096-L1", 4096, 4, 64, 1, 16),
-                                    ("torus4096-L8", 4096, 4, 64, 8, 16),
-                                    ("deg8-L1", 2048, 8, 64, 1, 16)):
-        args = window_state(rng, n, d, C, L, 64, dev)
-        want = duct_window_torch(*args, max_pops=pops)
-        got = duct_window(*args, max_pops=pops)
-        torch.cuda.synchronize()
-        bad, err = compare(want, got)
-        check(bad == 0, f"duct_window {label}: {bad} mismatching elements")
-        ms = median_ms(lambda: duct_window(*args, max_pops=pops))
-        plain = median_ms(lambda: duct_window_torch(*args, max_pops=pops))
-        moved = nbytes(*args) + nbytes(*got)
-        ops = n * d * C * (8 + 2 * L)
-        bound = max(moved / hbm, ops / PEAK_OPS_PER_S) * 1e3
-        print(f"duct_window {label}: 0 mismatches, kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, bound {bound:.4f} ms "
-              f"({moved / 1e6:.1f} MB moved)", flush=True)
-        if label == "torus4096-L1":
-            records["duct_window"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by="bytes" if moved / hbm >= ops / PEAK_OPS_PER_S
-                else "operations")
-    for label, R, C, L, W in (("R16384-W8", 16384, 64, 1, 8),
-                              ("R16384-W8-L8", 16384, 64, 8, 8)):
-        args = commit_state(rng, R, C, L, W, dev)
-        want = duct_commit_torch(*args)
-        got = duct_commit(*args)
-        torch.cuda.synchronize()
-        bad, err = compare(want, got)
-        check(bad == 0, f"duct_commit {label}: {bad} mismatching elements")
-        ms = median_ms(lambda: duct_commit(*args))
-        plain = median_ms(lambda: duct_commit_torch(*args))
-        moved = nbytes(*args) + nbytes(*got)
-        ops = R * C * (6 + L)
-        bound = max(moved / hbm, ops / PEAK_OPS_PER_S) * 1e3
-        print(f"duct_commit {label}: 0 mismatches, kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, bound {bound:.4f} ms "
-              f"({moved / 1e6:.1f} MB moved)", flush=True)
-        if label == "R16384-W8":
-            records["duct_commit"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by="bytes" if moved / hbm >= ops / PEAK_OPS_PER_S
-                else "operations")
+    # duct_window (label, n, d, C, L, max_pops, payload): torus-4096 buckets
+    # at L = 1 (graph coloring's shape) and L = 8, a degree-8 bucket, and
+    # evo's torus-1024 float32 halos (3600 cells, L = 60)
+    for label, n, d, C, L, pops, pay, rec in (
+            ("torus4096-L1", 4096, 4, 64, 1, 16, np.int32, "duct_window"),
+            ("torus4096-L8", 4096, 4, 64, 8, 16, np.int32, None),
+            ("deg8-L1", 2048, 8, 64, 1, 16, np.int32, None),
+            ("evo-torus1024-L60-f32", 1024, 4, 64, 60, 16, np.float32,
+             "duct_window_f32")):
+        args = window_state(rng, n, d, C, L, 64, dev, pay)
+        r = measure(f"duct_window {label}",
+                    lambda: duct_window(*args, max_pops=pops),
+                    lambda: duct_window_torch(*args, max_pops=pops),
+                    args, n * d * C * (8 + 2 * L), hbm)
+        if rec:
+            records[rec] = r
+    # duct_commit (label, R, C, L, W, payload): torus-4096 rings at W = 8,
+    # L = 1 and 8, and evo's torus-1024 float32 rings
+    for label, R, C, L, W, pay, rec in (
+            ("R16384-W8", 16384, 64, 1, 8, np.int32, "duct_commit"),
+            ("R16384-W8-L8", 16384, 64, 8, 8, np.int32, None),
+            ("evo-R4096-W8-L60-f32", 4096, 64, 60, 8, np.float32,
+             "duct_commit_f32")):
+        args = commit_state(rng, R, C, L, W, dev, pay)
+        r = measure(f"duct_commit {label}", lambda: duct_commit(*args),
+                    lambda: duct_commit_torch(*args), args,
+                    R * C * (6 + L), hbm)
+        if rec:
+            records[rec] = r
+    # duct_exchange at the torus-4096 edge layout (E = 16384, C = 64): the
+    # fused form, and the two forms the edge-major window launches
+    E, C, pops = 16384, 64, 16
+    args = exchange_state(rng, E, C, dev)
+    ops = E * C * 10
+    records["duct_exchange"] = measure(
+        "duct_exchange E16384-C64 full",
+        lambda: duct_exchange(*args, capacity=C, max_pops=pops),
+        lambda: duct_exchange_torch(*args, capacity=C, max_pops=pops),
+        args, ops, hbm)
+    measure("duct_exchange E16384-C64 drain",
+            lambda: duct_drain(*args[:6], max_pops=pops),
+            lambda: duct_drain_torch(*args[:6], max_pops=pops),
+            args, ops, hbm)
+    measure("duct_exchange E16384-C64 send",
+            lambda: duct_send(*args[:4], *args[6:], capacity=C),
+            lambda: duct_send_torch(*args[:4], *args[6:], capacity=C),
+            args, ops, hbm)
     return records
 
 
@@ -300,16 +393,19 @@ def oracle():
 
         want = qos_signature(make_engine(
             "event", gc_app(16, topology, seed), cfg, faults()).run())
-        got = qos_signature(make_engine(
-            "torch", gc_app(16, topology, seed), cfg, faults(),
-            max_pops=EXACT_MAX_POPS, chunk=64, device="cuda").run())
         want.pop("quality")
-        got.pop("quality")
-        check(got == want, f"{name}: torch on the card != event oracle")
-        check(sum(got["updates"]) > 0, f"{name}: no updates")
-        print(f"{name}: qos_signature == event oracle "
-              f"({sum(got['updates'])} updates, {got['sent']} sent)",
-              flush=True)
+        for layout in ("dense", "edge"):
+            got = qos_signature(make_engine(
+                RunConfig(engine="torch", layout=layout),
+                gc_app(16, topology, seed), cfg, faults(),
+                max_pops=EXACT_MAX_POPS, chunk=64, device="cuda").run())
+            got.pop("quality")
+            check(got == want,
+                  f"{name}: torch {layout} on the card != event oracle")
+            check(sum(got["updates"]) > 0, f"{name}: no updates")
+            print(f"{name} {layout}: qos_signature == event oracle "
+                  f"({sum(got['updates'])} updates, {got['sent']} sent)",
+                  flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -317,82 +413,141 @@ def oracle():
 # ---------------------------------------------------------------------------
 @phase("card_vs_cpu")
 def card_vs_cpu():
-    for topology, simels in (("torus", 64), ("smallworld", 1)):
+    cases = [("graphcolor", "torus", 1024, 64, {}),
+             ("graphcolor", "smallworld", 1024, 1, {}),
+             ("graphcolor", "torus", 1024, 1, {"layout": "edge"}),
+             ("evo", "torus", 64, 64, {}),
+             ("evo", "torus", 64, 64, {"superstep_windows": 4}),
+             ("evo", "torus", 64, 64, {"layout": "edge"})]
+    for app_name, topology, n, simels, kw in cases:
         seed = case_seed(topology)
         cfg = dyadic_cfg(seed=seed)
+        label = (f"{app_name} {topology}-{n} simels={simels} "
+                 f"{json.dumps(kw)}")
         sig = {}
         for device in ("cuda", "cpu"):
             K.reset_launches()
             t0 = time.perf_counter()
-            res = make_engine("torch", gc_app(1024, topology, seed, simels),
+            res = make_engine(RunConfig(engine="torch", **kw),
+                              experiments.make_app(app_name, n, simels,
+                                                   make_topology(topology, n),
+                                                   seed),
                               cfg, chunk=64, device=device).run()
             dt = time.perf_counter() - t0
             sig[device] = qos_signature(res)
             launched = sum(K.LAUNCHES.values())
             check((launched > 0) == (device == "cuda"),
-                  f"{topology} on {device}: {launched} kernel launches")
-            print(f"{topology}-1024 simels={simels} {device}: "
-                  f"{sum(res.updates)} updates, quality {res.quality}, "
-                  f"{dt:.1f}s wall, {launched} kernel launches", flush=True)
+                  f"{label} on {device}: {launched} kernel launches")
+            print(f"{label} {device}: {sum(res.updates)} updates, quality "
+                  f"{res.quality}, {dt:.1f}s wall, {launched} kernel "
+                  f"launches", flush=True)
         check(sig["cuda"] == sig["cpu"],
-              f"{topology}-1024: card and CPU SimResults differ")
-        print(f"{topology}-1024: card == CPU (full SimResult incl. quality)")
+              f"{label}: card and CPU SimResults differ")
+        print(f"{label}: card == CPU (full SimResult incl. quality)")
 
 
 # ---------------------------------------------------------------------------
-# 6. full size: the paper's experiment at the headline scale
+# 6. full size: the paper's experiments at full width
 # ---------------------------------------------------------------------------
-@phase("full_size")
-def full_size(records):
+def drive(label, app_name, n, simels, duration, kw, chunk=256):
+    """One main-path run through the CLI's configuration, with the launch
+    counters set to 0 just before it and read just after it."""
     argv = ["--engine", "torch", "--device", "cuda", "--topology", "torus",
-            "--procs", "4096", "--simels", "1", "--buffer", "64",
-            "--duration", "0.02"]
+            "--procs", str(n), "--simels", str(simels), "--buffer", "64",
+            "--duration", str(duration)]
     args = experiments.build_parser().parse_args(argv)
-    n = 4096
-    topo = make_topology("torus", n)
     cfg = experiments._sim_config(args, n)
-    runs = {}
-    K.reset_launches()           # zeroed just before the main path
-    for label, w in (("window", 1), ("superstep8", 8)):
-        before = dict(K.LAUNCHES)
-        eng = make_engine(RunConfig(engine="torch", superstep_windows=w),
-                          experiments.make_app("graphcolor", n, 1, topo,
-                                               args.seed), cfg,
-                          device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
-        dist = aggregate_reports(res.qos)
-        updates = sum(res.updates)
-        runs[label] = res
-        med = {m: dist[m]["median"] for m in dist}
-        windows = eng.windows[-1]
-        kernel_ms = sum(launches[k] * records[k]["ms"] for k in launches)
-        print(f"full size {label}: {updates} updates, "
-              f"{updates / wall:.0f} updates/s, {wall:.2f}s wall, "
-              f"{windows} windows ({wall * 1e3 / windows:.3f} ms/window), "
-              f"delivery failure rate {res.delivery_failure_rate:.4f}, "
-              f"launches {launches}, duct kernels ~{kernel_ms:.1f} ms "
-              f"({100 * kernel_ms / (wall * 1e3):.2f}% of wall)",
-              flush=True)
-        print(f"full size {label} QoS medians: {json.dumps(med)}",
-              flush=True)
-        # the per-window path drains through duct_window; the W-fused
-        # path drains frozen rings + pushbuf and commits with duct_commit
-        used = "duct_commit" if w > 1 else "duct_window"
+    eng = make_engine(RunConfig(engine="torch", **kw),
+                      experiments.make_app(app_name, n, simels,
+                                           make_topology("torus", n),
+                                           args.seed), cfg,
+                      chunk=chunk, device="cuda")
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    updates = sum(res.updates)
+    windows = eng.windows[-1]
+    dist = aggregate_reports(res.qos)
+    med = {m: dist[m]["median"] for m in dist}
+    print(f"full size {label}: {updates} updates, {updates / wall:.0f} "
+          f"updates/s, {wall:.2f}s wall, {windows} windows "
+          f"({wall * 1e3 / windows:.3f} ms/window), delivery failure rate "
+          f"{res.delivery_failure_rate:.4f}, quality {res.quality}, "
+          f"launches {launches}", flush=True)
+    print(f"full size {label} QoS medians: {json.dumps(med)}", flush=True)
+    return res, windows, launches
+
+
+@phase("full_size")
+def full_size():
+    """Graph coloring at the headline scale on both layouts and both
+    schedulers, then evo at the paper's 3600 cells per process.  Returns
+    each kernel entry's launch count from its main path."""
+    # (label, app, n, simels, duration, run kwargs, chunk, kernel the
+    # path must launch)
+    paths = [
+        ("graphcolor torus-4096 window", "graphcolor", 4096, 1, 0.02, {},
+         256, "duct_window"),
+        ("graphcolor torus-4096 superstep8", "graphcolor", 4096, 1, 0.02,
+         {"superstep_windows": 8}, 256, "duct_commit"),
+        ("graphcolor torus-4096 edge", "graphcolor", 4096, 1, 0.02,
+         {"layout": "edge"}, 256, "duct_exchange"),
+        # evo cut to 0.005 virtual s (about 300 updates per process) and
+        # probed every 64 windows: a window costs tens of ms here
+        ("evo torus-1024 3600 cells window", "evo", 1024, 3600, 0.005, {},
+         64, "duct_window"),
+        ("evo torus-1024 3600 cells superstep8", "evo", 1024, 3600, 0.005,
+         {"superstep_windows": 8}, 64, "duct_commit"),
+        ("evo torus-1024 3600 cells edge", "evo", 1024, 3600, 0.005,
+         {"layout": "edge"}, 64, "duct_exchange"),
+    ]
+    sigs, launched = {}, {}
+    for label, app_name, n, simels, duration, kw, chunk, used in paths:
+        res, windows, launches = drive(label, app_name, n, simels, duration,
+                                       kw, chunk)
         check(launches[used] > 0, f"{label}: {used} never launched")
-    launched = dict(K.LAUNCHES)  # read just after the main path
-    check(runs["window"].updates == runs["superstep8"].updates,
-          "W-invariance: per-window and superstep updates differ")
-    same = qos_signature(runs["window"]) == qos_signature(runs["superstep8"])
-    print(f"W-invariance: updates equal; full signature equal: {same}")
-    check(same, "W-invariance: per-window and superstep SimResults differ")
-    for k, v in launched.items():
-        check(v > 0, f"{k} was launched no time on the main path")
+        if used == "duct_exchange":
+            # the edge-major window drains and sends with one launch each
+            check(launches[used] == 2 * windows,
+                  f"{label}: {launches[used]} duct_exchange launches in "
+                  f"{windows} windows")
+        # evo's halos are float32: its launches are the f32 entry points
+        entry = used + ("_f32" if app_name == "evo" and used != "duct_exchange"
+                        else "")
+        launched.setdefault(entry, launches[used])
+        sigs[label] = qos_signature(res)
+    for app_name, base in (("graphcolor", "graphcolor torus-4096"),
+                           ("evo", "evo torus-1024 3600 cells")):
+        want = sigs[f"{base} window"]
+        for other in ("superstep8", "edge"):
+            got = sigs[f"{base} {other}"]
+            check(got["updates"] == want["updates"],
+                  f"{base}: {other} updates differ from per-window")
+            check(got == want,
+                  f"{base}: {other} SimResult differs from per-window")
+        print(f"{base}: per-window == superstep8 == edge (full SimResult "
+              f"incl. quality)", flush=True)
     return launched
+
+
+#: each kernel entry point of the kernels JSON line: (name, kernel source
+#: key, TPU kernel it replaces)
+ENTRIES = (
+    ("duct_window", "duct_window",
+     "src/repro/kernels/duct_exchange/kernel.py:81"),
+    ("duct_window_f32", "duct_window",
+     "src/repro/kernels/duct_exchange/kernel.py:81"),
+    ("duct_commit", "duct_commit",
+     "src/repro/kernels/duct_exchange/kernel.py:197"),
+    ("duct_commit_f32", "duct_commit",
+     "src/repro/kernels/duct_exchange/kernel.py:197"),
+    ("duct_exchange", "duct_exchange",
+     "src/repro/kernels/duct_exchange/kernel.py:31"),
+)
 
 
 def main():
@@ -405,17 +560,15 @@ def main():
     records = kernels(hbm)
     oracle()
     card_vs_cpu()
-    launched = full_size(records)
+    launched = full_size()
     kernels_line = []
-    for kname, replaces in (
-            ("duct_window", "src/repro/kernels/duct_exchange/kernel.py:81"),
-            ("duct_commit", "src/repro/kernels/duct_exchange/kernel.py:197")):
-        rec = records[kname]
+    for entry, kname, replaces in ENTRIES:
+        rec = records[entry]
         kernels_line.append(dict(
-            name=kname, route="cuda",
+            name=entry, route="cuda",
             source=f"src/repro_torch/kernels/duct_exchange/csrc/"
                    f"{K.SOURCES[kname]}",
-            replaces=replaces, launches=launched[kname],
+            replaces=replaces, launches=launched[entry],
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=None))

@@ -15,7 +15,10 @@
 // `%` truncates toward zero); slots with j < pb_cnt[r] take pushbuf entry
 // j, every other slot keeps its value bit for bit.  pb_cnt <= W holds on
 // the engine's path; j is clamped to W - 1 like the plain version's
-// gather, so both agree on any input.
+// gather, so both agree on any input.  Payloads are copied, int32 (graph
+// coloring, duct_commit_i32) or float32 (evo, duct_commit_f32).  At evo's
+// torus-1024 shape (R = 4096, C = 64, W = 8, L = 60) the rings and the
+// pushbuf are ~138 MB read and written together, ~41 us at 3.35 TB/s.
 #include <cuda_runtime.h>
 
 namespace {
@@ -51,23 +54,46 @@ __global__ void duct_commit_kernel(
   }
 }
 
+template <typename P>
+int launch(const void* q_avail, const void* q_touch, const void* q_pay,
+           const void* head, const void* size0, const void* pb_cnt,
+           const void* pb_avail, const void* pb_touch, const void* pb_pay,
+           void* qa_out, void* qt_out, void* qp_out, long long R, int C,
+           int W, int L, void* stream) {
+  if (R <= 0 || C <= 0 || W <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const long long blocks = (R * C + threads - 1) / threads;
+  duct_commit_kernel<P><<<(unsigned)blocks, threads, 0,
+                          (cudaStream_t)stream>>>(
+      (const float*)q_avail, (const int*)q_touch, (const P*)q_pay,
+      (const int*)head, (const int*)size0, (const int*)pb_cnt,
+      (const float*)pb_avail, (const int*)pb_touch, (const P*)pb_pay,
+      (float*)qa_out, (int*)qt_out, (P*)qp_out, R, C, W, L);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// int32 payloads (graph coloring); float32 payloads arrive with the evo app.
+// int32 payloads (graph coloring).
 extern "C" int duct_commit_i32(
     const void* q_avail, const void* q_touch, const void* q_pay,
     const void* head, const void* size0, const void* pb_cnt,
     const void* pb_avail, const void* pb_touch, const void* pb_pay,
     void* qa_out, void* qt_out, void* qp_out, long long R, int C, int W,
     int L, void* stream) {
-  if (R <= 0 || C <= 0 || W <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const long long blocks = (R * C + threads - 1) / threads;
-  duct_commit_kernel<int><<<(unsigned)blocks, threads, 0,
-                            (cudaStream_t)stream>>>(
-      (const float*)q_avail, (const int*)q_touch, (const int*)q_pay,
-      (const int*)head, (const int*)size0, (const int*)pb_cnt,
-      (const float*)pb_avail, (const int*)pb_touch, (const int*)pb_pay,
-      (float*)qa_out, (int*)qt_out, (int*)qp_out, R, C, W, L);
-  return (int)cudaGetLastError();
+  return launch<int>(q_avail, q_touch, q_pay, head, size0, pb_cnt, pb_avail,
+                     pb_touch, pb_pay, qa_out, qt_out, qp_out, R, C, W, L,
+                     stream);
+}
+
+// float32 payloads (evo).
+extern "C" int duct_commit_f32(
+    const void* q_avail, const void* q_touch, const void* q_pay,
+    const void* head, const void* size0, const void* pb_cnt,
+    const void* pb_avail, const void* pb_touch, const void* pb_pay,
+    void* qa_out, void* qt_out, void* qp_out, long long R, int C, int W,
+    int L, void* stream) {
+  return launch<float>(q_avail, q_touch, q_pay, head, size0, pb_cnt,
+                       pb_avail, pb_touch, pb_pay, qa_out, qt_out, qp_out, R,
+                       C, W, L, stream);
 }

@@ -1,20 +1,27 @@
-"""Hand-written CUDA kernels for the dense duct layout, bound with ctypes.
+"""Hand-written CUDA kernels for the duct ops, bound with ctypes.
 
-Two kernels, each in its own source under ``csrc/`` and compiled by
+Three kernels, each in its own source under ``csrc/`` and compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface:
 
-  duct_window  csrc/duct_window.cu -> duct_window_i32
-               replaces src/repro/kernels/duct_exchange/kernel.py
-               :_window_kernel (Pallas TPU), once per window per bucket
-  duct_commit  csrc/duct_commit.cu -> duct_commit_i32
-               replaces src/repro/kernels/duct_exchange/kernel.py
-               :_commit_kernel (Pallas TPU), once per W-window superstep
+  duct_window    csrc/duct_window.cu -> duct_window_i32 / duct_window_f32
+                 replaces src/repro/kernels/duct_exchange/kernel.py
+                 :_window_kernel (Pallas TPU), once per window per bucket
+  duct_commit    csrc/duct_commit.cu -> duct_commit_i32 / duct_commit_f32
+                 replaces src/repro/kernels/duct_exchange/kernel.py
+                 :_commit_kernel (Pallas TPU), once per W-window superstep
+  duct_exchange  csrc/duct_exchange.cu -> duct_exchange
+                 replaces src/repro/kernels/duct_exchange/kernel.py
+                 :_duct_kernel (Pallas TPU), twice per edge-major window
+                 (drain, then send)
 
-Both are bound by bytes moved (integer compares and copies over the ring
-state); the headers of the two sources give the design.  The libraries are
-built on first use into ``build/`` at the repository root, named by a hash
-of their source so an edited source is rebuilt; ``build()`` compiles every
-missing one with one ``nvcc`` per source, all started together.
+The two dense kernels take int32 (graph coloring) or float32 (evo)
+payloads, one entry point each, picked by the payload's dtype; the
+edge-major kernel carries no payload.  All three are bound by bytes moved
+(integer compares and copies over the ring state); the headers of the
+sources give the design.  The libraries are built on first use into
+``build/`` at the repository root, named by a hash of their source so an
+edited source is rebuilt; ``build()`` compiles every missing one with one
+``nvcc`` per source, all started together.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, allocate the outputs with ``torch.empty``, launch on the
@@ -36,7 +43,8 @@ from typing import Dict, Iterable, Tuple
 import torch
 
 #: kernel name -> source file under csrc/
-SOURCES = {"duct_window": "duct_window.cu", "duct_commit": "duct_commit.cu"}
+SOURCES = {"duct_window": "duct_window.cu", "duct_commit": "duct_commit.cu",
+           "duct_exchange": "duct_exchange.cu"}
 
 #: launches per kernel since the last reset_launches(); a wrapper adds one
 #: exactly where it launches its kernel
@@ -53,12 +61,22 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C signature of each library's int32-payload launcher: tensor pointers,
-#: then the shape ints, then the stream
+#: C signature of each library's launchers: tensor pointers, then the shape
+#: ints, then the stream
 _ARGTYPES = {
     "duct_window": [_P] * 21 + [_I] * 5 + [_P],
     "duct_commit": [_P] * 12 + [ctypes.c_longlong] + [_I] * 3 + [_P],
+    "duct_exchange": [_P] * 19 + [_I] * 4 + [_P],
 }
+#: each library's exported launchers (one per payload dtype where the kernel
+#: carries a payload)
+_ENTRY_POINTS = {
+    "duct_window": ("duct_window_i32", "duct_window_f32"),
+    "duct_commit": ("duct_commit_i32", "duct_commit_f32"),
+    "duct_exchange": ("duct_exchange",),
+}
+#: payload dtype -> entry-point suffix of the dense kernels
+_PAYLOAD_SUFFIX = {torch.int32: "i32", torch.float32: "f32"}
 
 
 def reset_launches() -> None:
@@ -114,11 +132,22 @@ def _lib(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        fn = getattr(lib, f"{name}_i32")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        for entry in _ENTRY_POINTS[name]:
+            fn = getattr(lib, entry)
+            fn.argtypes = _ARGTYPES[name]
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def _payload_entry(name: str, q_pay: torch.Tensor):
+    """The launcher of kernel ``name`` for ``q_pay``'s dtype; any dtype
+    but int32 and float32 raises."""
+    suffix = _PAYLOAD_SUFFIX.get(q_pay.dtype)
+    if suffix is None:
+        raise TypeError(f"{name}_cuda takes int32 or float32 payloads, got "
+                        f"{q_pay.dtype}")
+    return getattr(_lib(name), f"{name}_{suffix}")
 
 
 def _check(x: torch.Tensor, name: str, shape: Tuple[int, ...], dtype,
@@ -148,29 +177,35 @@ def duct_window_cuda(q_avail, q_touch, q_pay, head, size,
                      push_pos, push_acc, push_avail, push_touch, push_pay,
                      recv_now, recv_active, *, max_pops: int):
     """Launch the fused window kernel; returns the ``ops.WindowResult``
-    field tuple.  Rings are ``(n, d, C)``, payloads int32 ``(n, d, C, L)``."""
+    field tuple.  Rings are ``(n, d, C)``, payloads ``(n, d, C, L)`` int32
+    or float32.
+
+    The halo select copies the winning row's freshest payload, where the
+    reference's Pallas kernel and jnp twin (and ``duct_window_torch``) sum
+    a one-hot over the ring slots.  The two agree bit for bit except on a
+    float32 ``-0.0`` payload: the sum turns it into ``+0.0``, the copy
+    keeps ``-0.0`` (as the reference's numpy oracle does)."""
     dev = q_avail.device
     if dev.type != "cuda":
         raise ValueError(f"duct_window_cuda needs CUDA tensors, got {dev}")
     n, d, C = q_avail.shape
     L = q_pay.shape[-1]
-    if q_pay.dtype != torch.int32:
-        raise TypeError(f"duct_window_cuda takes int32 payloads, got "
-                        f"{q_pay.dtype}")
+    fn = _payload_entry("duct_window", q_pay)
     if d > 1024:
         raise ValueError(f"duct_window_cuda holds one receiver's {d} rows in "
                          "one block; at most 1024 rows per receiver")
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    pay = q_pay.dtype
     for x, nm, shp, dt in (
             (q_avail, "q_avail", (n, d, C), f32),
             (q_touch, "q_touch", (n, d, C), i32),
-            (q_pay, "q_pay", (n, d, C, L), i32),
+            (q_pay, "q_pay", (n, d, C, L), pay),
             (head, "head", (n, d), i32), (size, "size", (n, d), i32),
             (push_pos, "push_pos", (n, d), i32),
             (push_acc, "push_acc", (n, d), b8),
             (push_avail, "push_avail", (n, d), f32),
             (push_touch, "push_touch", (n, d), i32),
-            (push_pay, "push_pay", (n, d, L), i32),
+            (push_pay, "push_pay", (n, d, L), pay),
             (recv_now, "recv_now", (n,), f32),
             (recv_active, "recv_active", (n,), b8)):
         _check(x, nm, shp, dt, dev)
@@ -178,10 +213,10 @@ def duct_window_cuda(q_avail, q_touch, q_pay, head, size,
     def out(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    outs = (out((n, d, C), f32), out((n, d, C), i32), out((n, d, C, L), i32),
+    outs = (out((n, d, C), f32), out((n, d, C), i32), out((n, d, C, L), pay),
             out((n, d), i32), out((n, d), i32), out((n, d), i32),
-            out((n, d), i32), out((n, 4, L), i32), out((n, 4), b8))
-    _launch(_lib("duct_window").duct_window_i32,
+            out((n, d), i32), out((n, 4, L), pay), out((n, 4), b8))
+    _launch(fn,
             (q_avail, q_touch, q_pay, head, size, push_pos, push_acc,
              push_avail, push_touch, push_pay, recv_now, recv_active) + outs,
             (n, d, C, L, max_pops), dev, "duct_window")
@@ -192,32 +227,69 @@ def duct_commit_cuda(q_avail, q_touch, q_pay, head, size0, pb_cnt,
                      pb_avail, pb_touch, pb_pay):
     """Launch the superstep commit kernel; returns the
     ``ops.CommitResult`` field tuple.  Rings are ``(R, C)``, the pushbuf
-    ``(R, W)``, payloads int32."""
+    ``(R, W)``, payloads int32 or float32 (copied, never summed, so a
+    ``-0.0`` payload stays ``-0.0`` as in the reference's Pallas kernel)."""
     dev = q_avail.device
     if dev.type != "cuda":
         raise ValueError(f"duct_commit_cuda needs CUDA tensors, got {dev}")
     R, C = q_avail.shape
     W = pb_avail.shape[-1]
     L = q_pay.shape[-1]
-    if q_pay.dtype != torch.int32:
-        raise TypeError(f"duct_commit_cuda takes int32 payloads, got "
-                        f"{q_pay.dtype}")
-    i32, f32 = torch.int32, torch.float32
+    fn = _payload_entry("duct_commit", q_pay)
+    i32, f32, pay = torch.int32, torch.float32, q_pay.dtype
     for x, nm, shp, dt in (
             (q_avail, "q_avail", (R, C), f32),
             (q_touch, "q_touch", (R, C), i32),
-            (q_pay, "q_pay", (R, C, L), i32),
+            (q_pay, "q_pay", (R, C, L), pay),
             (head, "head", (R,), i32), (size0, "size0", (R,), i32),
             (pb_cnt, "pb_cnt", (R,), i32),
             (pb_avail, "pb_avail", (R, W), f32),
             (pb_touch, "pb_touch", (R, W), i32),
-            (pb_pay, "pb_pay", (R, W, L), i32)):
+            (pb_pay, "pb_pay", (R, W, L), pay)):
         _check(x, nm, shp, dt, dev)
     outs = (torch.empty((R, C), dtype=f32, device=dev),
             torch.empty((R, C), dtype=i32, device=dev),
-            torch.empty((R, C, L), dtype=i32, device=dev))
-    _launch(_lib("duct_commit").duct_commit_i32,
+            torch.empty((R, C, L), dtype=pay, device=dev))
+    _launch(fn,
             (q_avail, q_touch, q_pay, head, size0, pb_cnt, pb_avail,
              pb_touch, pb_pay) + outs,
             (R, C, W, L), dev, "duct_commit")
+    return outs
+
+
+def duct_exchange_cuda(q_avail, q_touch, head, size, recv_now, recv_active,
+                       send_now, send_active, send_lat, send_touch,
+                       *, capacity: int, max_pops: int):
+    """Launch the fused edge-major drain -> send kernel; returns the
+    ``ops.ExchangeResult`` field tuple.  Rings are ``(E, C)``; the eight
+    per-edge inputs are ``(E,)``."""
+    dev = q_avail.device
+    if dev.type != "cuda":
+        raise ValueError(f"duct_exchange_cuda needs CUDA tensors, got {dev}")
+    E, C = q_avail.shape
+    if E * C >= 1 << 31:
+        raise ValueError(f"duct_exchange_cuda indexes in 32 bits; E * C = "
+                         f"{E * C} must stay below 2**31")
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    for x, nm, shp, dt in (
+            (q_avail, "q_avail", (E, C), f32),
+            (q_touch, "q_touch", (E, C), i32),
+            (head, "head", (E,), i32), (size, "size", (E,), i32),
+            (recv_now, "recv_now", (E,), f32),
+            (recv_active, "recv_active", (E,), b8),
+            (send_now, "send_now", (E,), f32),
+            (send_active, "send_active", (E,), b8),
+            (send_lat, "send_lat", (E,), f32),
+            (send_touch, "send_touch", (E,), i32)):
+        _check(x, nm, shp, dt, dev)
+
+    def out(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    outs = (out((E, C), f32), out((E, C), i32), out(E, i32), out(E, i32),
+            out(E, i32), out(E, i32), out(E, i32), out(E, b8), out(E, i32))
+    _launch(_lib("duct_exchange").duct_exchange,
+            (q_avail, q_touch, head, size, recv_now, recv_active, send_now,
+             send_active, send_lat, send_touch) + outs,
+            (E, C, capacity, max_pops), dev, "duct_exchange")
     return outs

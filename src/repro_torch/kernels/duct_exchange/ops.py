@@ -1,25 +1,60 @@
-"""Public duct-exchange wrappers for the dense layout: plain torch versions
-and device dispatch.
+"""Public duct-exchange wrappers: plain torch versions and device dispatch.
 
-``duct_window`` (push-apply -> drain -> halo select, once per window per
-degree bucket) and ``duct_commit`` (the W-fused superstep's ring commit)
-dispatch on the device of the tensors they are given, and on nothing else:
+Dense layout: ``duct_window`` (push-apply -> drain -> halo select, once per
+window per degree bucket) and ``duct_commit`` (the W-fused superstep's ring
+commit).  Edge-major layout: ``duct_drain`` and ``duct_send``, the two ring
+phases the engine runs around the application step, and ``duct_exchange``,
+their fused composition.  Every op dispatches on the device of the tensors
+it is given, and on nothing else:
 
-  cpu   the plain torch versions below (``duct_window_torch`` /
-        ``duct_commit_torch``)
+  cpu   the plain torch versions below (``*_torch``)
   cuda  the hand-written CUDA kernels in ``kernel.py`` (built from
         ``csrc/`` on first use); a kernel that cannot build or launch
-        raises, it never falls back to the plain version
+        raises, it never falls back to the plain version.  The three
+        edge-major ops all launch the one ``duct_exchange`` kernel: the
+        drain with every sender inactive, the send with every receiver
+        inactive.
 
-Both plain versions are slot-exact twins of the numpy oracles in the
-reference package (``duct_window_ref`` / ``duct_commit_ref``), including
-the ``+inf`` written into popped ring slots.
+Every plain version is a slot-exact twin of the numpy oracles in the
+reference package (``duct_window_ref`` / ``duct_commit_ref`` /
+``duct_exchange_ref``), including the ``+inf`` written into popped ring
+slots.  Payloads are int32 (graph coloring) or float32 (evo).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+
+class DrainResult(NamedTuple):
+    q_avail: torch.Tensor     # (E, C)
+    q_touch: torch.Tensor     # (E, C)
+    head: torch.Tensor        # (E,)
+    size: torch.Tensor        # (E,)
+    drained: torch.Tensor     # (E,) i32 messages popped
+    recv_touch: torch.Tensor  # (E,) i32 touch of freshest popped (0 if none)
+    pop_pos: torch.Tensor     # (E,) i32 ring slot of freshest popped
+
+
+class SendResult(NamedTuple):
+    q_avail: torch.Tensor     # (E, C)
+    q_touch: torch.Tensor     # (E, C)
+    size: torch.Tensor        # (E,)
+    accepted: torch.Tensor    # (E,) bool: push accepted (False = dropped)
+    push_pos: torch.Tensor    # (E,) i32 ring slot the push landed in
+
+
+class ExchangeResult(NamedTuple):
+    q_avail: torch.Tensor
+    q_touch: torch.Tensor
+    head: torch.Tensor
+    size: torch.Tensor
+    drained: torch.Tensor
+    recv_touch: torch.Tensor
+    pop_pos: torch.Tensor
+    accepted: torch.Tensor
+    push_pos: torch.Tensor
 
 
 class WindowResult(NamedTuple):
@@ -73,6 +108,67 @@ def dense_stage(head, size, active, *, capacity: int):
     accepted = active & (size < capacity)
     pos = (head + size) % capacity
     return pos, accepted
+
+
+def duct_drain_torch(q_avail, q_touch, head, size, recv_now, recv_active,
+                     *, max_pops: int) -> DrainResult:
+    """Plain torch version of the edge-major drain: pop the longest
+    available FIFO prefix of every ring (head-blocking, at most
+    ``max_pops``, only where ``recv_active``), in the blocked-offset
+    row-min formulation of the reference's Pallas ``_duct_kernel``.
+
+    Popped slots are always set to ``+inf``, as the kernel does.  The
+    reference engine's edge drain skips that reset (``clear_popped=False``
+    in its ``WindowCore.drain``); the two differ only in slots outside
+    ``[head, head + size)``, which nothing reads, so a run's ``SimResult``
+    is the same either way."""
+    E, C = q_avail.shape
+    col = torch.arange(C, dtype=torch.int32, device=q_avail.device)[None, :]
+    off = (col - head[:, None]) % C              # floor-mod, as in JAX
+    valid = off < size[:, None]
+    blocked = valid & (q_avail > recv_now[:, None])
+    blocked_off = torch.where(blocked, off, C).amin(dim=1)
+    dr = torch.minimum(torch.minimum(blocked_off, size),
+                       torch.full_like(size, max_pops))
+    dr = torch.where(recv_active, dr, 0).to(torch.int32)
+    popped = valid & (off < dr[:, None])
+    recv_touch = torch.where(popped & (off == dr[:, None] - 1), q_touch,
+                             0).sum(dim=1, dtype=torch.int32)
+    pop_pos = torch.where(dr > 0, (head + dr - 1) % C, head)
+    q_avail = torch.where(popped, torch.inf, q_avail)
+    return DrainResult(q_avail, q_touch, (head + dr) % C, size - dr, dr,
+                       recv_touch, pop_pos)
+
+
+def duct_send_torch(q_avail, q_touch, head, size,
+                    send_now, send_active, send_lat, send_touch,
+                    *, capacity: int) -> SendResult:
+    """Plain torch version of the best-effort push: accept iff the sender
+    is active and the ring holds fewer than ``capacity`` messages, then
+    stamp ``send_now + send_lat`` and ``send_touch`` at the tail slot."""
+    E, C = q_avail.shape
+    col = torch.arange(C, dtype=torch.int32, device=q_avail.device)[None, :]
+    accepted = send_active & (size < capacity)
+    pos = (head + size) % C
+    at = accepted[:, None] & (col == pos[:, None])
+    q_avail = torch.where(at, (send_now + send_lat)[:, None], q_avail)
+    q_touch = torch.where(at, send_touch[:, None], q_touch)
+    push_pos = torch.where(accepted, pos, 0)
+    return SendResult(q_avail, q_touch, size + accepted, accepted, push_pos)
+
+
+def duct_exchange_torch(q_avail, q_touch, head, size,
+                        recv_now, recv_active,
+                        send_now, send_active, send_lat, send_touch,
+                        *, capacity: int, max_pops: int) -> ExchangeResult:
+    """Fused drain -> send as the composition of the two plain phases."""
+    d = duct_drain_torch(q_avail, q_touch, head, size, recv_now,
+                         recv_active, max_pops=max_pops)
+    s = duct_send_torch(d.q_avail, d.q_touch, d.head, d.size,
+                        send_now, send_active, send_lat, send_touch,
+                        capacity=capacity)
+    return ExchangeResult(s.q_avail, s.q_touch, d.head, s.size, d.drained,
+                          d.recv_touch, d.pop_pos, s.accepted, s.push_pos)
 
 
 def duct_window_torch(q_avail, q_touch, q_pay, head, size,
@@ -175,3 +271,59 @@ def duct_commit(q_avail, q_touch, q_pay, head, size0, pb_cnt,
         return duct_commit_torch(*args)
     from repro_torch.kernels.duct_exchange.kernel import duct_commit_cuda
     return CommitResult(*duct_commit_cuda(*args))
+
+
+def duct_exchange(q_avail, q_touch, head, size,
+                  recv_now, recv_active,
+                  send_now, send_active, send_lat, send_touch,
+                  *, capacity: int, max_pops: int) -> ExchangeResult:
+    """Fused edge-major drain -> send, dispatched on the rings' device:
+    the plain torch version for a CPU tensor, the CUDA kernel for a CUDA
+    tensor."""
+    args = (q_avail, q_touch, head, size, recv_now, recv_active,
+            send_now, send_active, send_lat, send_touch)
+    if _device_kind(q_avail) == "cpu":
+        return duct_exchange_torch(*args, capacity=capacity,
+                                   max_pops=max_pops)
+    from repro_torch.kernels.duct_exchange.kernel import duct_exchange_cuda
+    return ExchangeResult(*duct_exchange_cuda(*args, capacity=capacity,
+                                              max_pops=max_pops))
+
+
+def duct_drain(q_avail, q_touch, head, size, recv_now, recv_active,
+               *, max_pops: int) -> DrainResult:
+    """Edge-major drain, dispatched on the rings' device.  On the card it
+    is the ``duct_exchange`` kernel with every sender inactive."""
+    if _device_kind(q_avail) == "cpu":
+        return duct_drain_torch(q_avail, q_touch, head, size, recv_now,
+                                recv_active, max_pops=max_pops)
+    E, C = q_avail.shape
+    zf = torch.zeros(E, dtype=torch.float32, device=q_avail.device)
+    r = duct_exchange(q_avail, q_touch, head, size, recv_now, recv_active,
+                      zf, torch.zeros(E, dtype=torch.bool,
+                                      device=q_avail.device),
+                      zf, torch.zeros_like(head), capacity=C,
+                      max_pops=max_pops)
+    return DrainResult(r.q_avail, r.q_touch, r.head, r.size, r.drained,
+                       r.recv_touch, r.pop_pos)
+
+
+def duct_send(q_avail, q_touch, head, size,
+              send_now, send_active, send_lat, send_touch,
+              *, capacity: int) -> SendResult:
+    """Best-effort edge-major push, dispatched on the rings' device.  On
+    the card it is the ``duct_exchange`` kernel with every receiver
+    inactive."""
+    if _device_kind(q_avail) == "cpu":
+        return duct_send_torch(q_avail, q_touch, head, size, send_now,
+                               send_active, send_lat, send_touch,
+                               capacity=capacity)
+    E = q_avail.shape[0]
+    r = duct_exchange(q_avail, q_touch, head, size,
+                      torch.zeros(E, dtype=torch.float32,
+                                  device=q_avail.device),
+                      torch.zeros(E, dtype=torch.bool,
+                                  device=q_avail.device),
+                      send_now, send_active, send_lat, send_touch,
+                      capacity=capacity, max_pops=0)
+    return SendResult(r.q_avail, r.q_touch, r.size, r.accepted, r.push_pos)

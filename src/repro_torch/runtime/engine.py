@@ -17,9 +17,9 @@ Registered backends:
   event   ``runtime/simulator.py`` — discrete-event heap loop; exact event
           ordering, the reference semantics and the bitwise oracle
   torch   ``runtime/engine_torch.py`` — vectorized windowed-time engine on
-          torch tensors, dense duct layout, per-window or W-fused superstep
-          scheduler; runs on CUDA (hand-written duct kernels) unless the
-          caller passes ``device="cpu"``
+          torch tensors, dense or edge-major duct layout, per-window or
+          (dense) W-fused superstep scheduler; runs on CUDA (hand-written
+          duct kernels) unless the caller passes ``device="cpu"``
 
 Callers select strategies with one frozen
 :class:`~repro_torch.runtime.config.RunConfig` value
@@ -139,9 +139,9 @@ register_engine(EngineSpec(
     name="torch",
     factory=_make_torch,
     description="vectorized windowed-time engine on torch tensors over the "
-                "dense duct layout; hand-written CUDA duct kernels on the "
-                "card, plain torch on the CPU",
-    layouts=("dense",),
+                "dense or edge-major duct layout; hand-written CUDA duct "
+                "kernels on the card, plain torch on the CPU",
+    layouts=("edge", "dense"),
     schedulers=("window", "superstep"),
     vectorized=True,
 ))
@@ -176,9 +176,7 @@ def _validate(spec: EngineSpec, kwargs: dict) -> dict:
                 f"{spec.name} engine has none — use --engine torch")
         raise ValueError(
             f"unknown layout {layout!r} for engine {spec.name!r}; choose "
-            f"from {('auto',) + spec.layouts}"
-            + (" (the edge-major layout is not ported to repro_torch yet)"
-               if layout == "edge" else ""))
+            f"from {('auto',) + spec.layouts}")
 
     if scheduler == "auto":
         scheduler = "superstep" if superstep > 1 else "window"

@@ -6,21 +6,26 @@ this engine advances the *entire process population per lockstep window*
 as tensors on one device: window k is every process's k-th simstep,
 executed at per-process virtual times that drift apart exactly as the
 paper describes.  Per window it composes the window-phase core
-(``runtime/window_core.py``) on the bucketed dense receiver-major duct
-layout:
+(``runtime/window_core.py``) on one of two duct layouts (``layout=``).
+The bucketed dense receiver-major layout (``auto`` picks it on every
+built-in topology):
 
   1. drain      one fused ``duct_window`` pass per degree bucket
   2. compute    the application's batched step
   3. stage      the eager send decision (capacity drop, latency stamp)
   4. close      QoS snapshots, termination, barriers, time advance
 
-With ``scheduler="superstep"`` W windows run against frozen base rings and
-one ``duct_commit`` per superstep folds their pushes into the rings; the
-trajectories are bitwise those of the per-window path.
+and the edge-major layout (``layout="edge"``), one ring per canonical
+edge: ``duct_drain``, compute, ``duct_send``, close.  Both give the same
+trajectories bitwise.
 
-On ``device="cuda"`` (the default) the two duct ops run as hand-written
-CUDA kernels; on ``device="cpu"`` as their plain torch versions.  A run is
-a pure function of ``(config, seed)`` and reproduces the JAX engine's
+With ``scheduler="superstep"`` (dense only) W windows run against frozen
+base rings and one ``duct_commit`` per superstep folds their pushes into
+the rings; the trajectories are bitwise those of the per-window path.
+
+On ``device="cuda"`` (the default) the duct ops run as hand-written CUDA
+kernels; on ``device="cpu"`` as their plain torch versions.  A run is a
+pure function of ``(config, seed)`` and reproduces the JAX engine's
 ``SimResult`` bitwise at the same seed.
 """
 from __future__ import annotations
@@ -38,6 +43,7 @@ from repro_torch.runtime.topologies import (
     OPP_IDX,
     Topology,
     canonical_edges,
+    halo_slot_map,
     plan_layout,
 )
 from repro_torch.runtime.window_core import (
@@ -47,6 +53,7 @@ from repro_torch.runtime.window_core import (
     WindowCore,
     lognormal_factor,
     make_dense_spec,
+    segment_sum,
 )
 
 
@@ -61,6 +68,14 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unknown device {device!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+def _i32(x, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.int32), device=dev)
+
+
+def _i64(x, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.int64), device=dev)
 
 
 class TorchEngine:
@@ -102,15 +117,19 @@ class TorchEngine:
         self.bapp = app.batched(dev)
         self.core = WindowCore(cfg, self.bapp, n, max_pops=max_pops)
 
-        def i32(x):
-            return torch.as_tensor(np.asarray(x, np.int32), device=dev)
-
-        def i64(x):
-            return torch.as_tensor(np.asarray(x, np.int64), device=dev)
-
         # --- static edge plumbing (numpy, built once) ---------------------
-        esrc, edst, _ = canonical_edges(topo)
-        E = len(esrc)
+        esrc, edst, index = canonical_edges(topo)
+        slot_maps = [halo_slot_map(topo.neighbors[p]) for p in range(n)]
+        slot = [slot_maps[d][s] for s, d in zip(esrc, edst)]
+        self.E = E = len(esrc)
+        self._esrc = _i64(esrc, dev)
+        self._edst = _i64(edst, dev)
+        # flattened (dst, slot) key: several in-edges may share one halo
+        # slot; delivery ties go to the highest edge index (segment max)
+        self._halo_key = _i64([d * 4 + s for d, s in zip(edst, slot)], dev)
+        self._out_slot = _i64([OPP_IDX[s] for s in slot], dev)
+        self._rev = _i64([index[(d, s)] for s, d in zip(esrc, edst)], dev)
+        self._eids = torch.arange(E, dtype=torch.int32, device=dev)
         self._pids = torch.arange(n, dtype=torch.int32, device=dev)
         lat = np.empty(E, np.float32)
         loss = np.empty(E, np.float32)
@@ -131,31 +150,55 @@ class TorchEngine:
         self._has_faults = bool(loss.any() or flap.any() or dead.any())
         self._any_crashed = bool(crashed_np.any())
         self._crashed = torch.as_tensor(crashed_np, device=dev)
-        self._deg = i32([topo.degree(p) for p in range(n)])
+        self._deg = _i32([topo.degree(p) for p in range(n)], dev)
         self._cfactor = torch.as_tensor(np.asarray(
             [self.faults.compute_factor(p) for p in range(n)], np.float32),
             device=dev)
+        self._lat_base = torch.as_tensor(lat, device=dev)
+        if self._has_faults:
+            self._loss = torch.as_tensor(loss, device=dev)
+            self._flap = torch.as_tensor(flap, device=dev)
+            self._dead = torch.as_tensor(dead, device=dev)
 
-        # --- duct layout: the bucketed dense receiver-major layout --------
+        # --- duct layout: bucketed dense receiver-major, or edge-major ----
         lp = plan_layout(topo, layout)
         self.layout = lp.kind
-        if self.layout != "dense":
-            raise ValueError(
-                "the torch engine has only the dense duct layout; the "
-                "edge-major layout is not ported yet (drop --layout edge)")
+        if scheduler not in ("window", "superstep"):
+            raise ValueError(f"the torch engine has no {scheduler!r} "
+                             "scheduler (offers: window, superstep)")
+        if self.layout == "dense":
+            self._init_dense(lp, lat, loss, flap, dead)
+        elif scheduler == "superstep":
+            raise ValueError("scheduler='superstep' needs the dense layout "
+                             "(pass layout='auto' or 'dense')")
+        self.S = self.core.S
+        self._max_windows = self.core.default_max_windows
+        #: lockstep windows each run of this engine executed, in order
+        self.windows: List[int] = []
+        if scheduler == "superstep":
+            W = self.superstep_windows
+            self._windows_per_call = max(1, self.chunk // W) * W
+        else:
+            self._windows_per_call = self.chunk
+
+    def _init_dense(self, lp, lat, loss, flap, dead):
+        """Row tables of the bucketed dense layout and the superstep
+        scheduler's checks."""
+        cfg, n, dev = self.cfg, self.n, self.device
+
         self._spec = make_dense_spec(lp, dev)
         self.R = R = int(lp.n_rows)
         # flat (R,) row tables; dead padding rows carry sentinel
         # src == n / eid == E and live == False
         j = np.arange(R) - lp.row_start[lp.dst]
-        self._d_src = i64(lp.src)
-        self._d_dst = i64(lp.dst)
-        self._d_rev = i64(lp.rev)
-        self._d_eid = i32(lp.eid)
+        self._d_src = _i64(lp.src, dev)
+        self._d_dst = _i64(lp.dst, dev)
+        self._d_rev = _i64(lp.rev, dev)
+        self._d_eid = _i32(lp.eid, dev)
         self._d_live = torch.as_tensor(lp.live, device=dev)
         # row j of a receiver block feeds halo slot j % 4, so the sender
         # writes the opposite slot
-        self._d_out_slot = i64(np.asarray(OPP_IDX, np.int64)[j % 4])
+        self._d_out_slot = _i64(np.asarray(OPP_IDX, np.int64)[j % 4], dev)
         self._d_src_c = self._d_src.clamp(0, n - 1)
 
         def per_row(x, fill):
@@ -166,7 +209,7 @@ class TorchEngine:
             self._d_loss = torch.as_tensor(per_row(loss, 0), device=dev)
             self._d_flap = torch.as_tensor(per_row(flap, 0), device=dev)
             self._d_dead = torch.as_tensor(per_row(dead, False), device=dev)
-        if scheduler == "superstep":
+        if self.scheduler == "superstep":
             w = self.superstep_windows
             if w < 2:
                 raise ValueError(
@@ -178,26 +221,15 @@ class TorchEngine:
                     f"buffer_capacity={cfg.buffer_capacity}: the compact "
                     "pushbuf commits at most one slot per window into the "
                     "ring tail")
-        elif scheduler != "window":
-            raise ValueError(f"the torch engine has no {scheduler!r} "
-                             "scheduler (offers: window, superstep)")
-
-        self.S = self.core.S
-        self._max_windows = self.core.default_max_windows
-        #: lockstep windows each run of this engine executed, in order
-        self.windows: List[int] = []
-        if scheduler == "superstep":
-            W = self.superstep_windows
-            self._windows_per_call = max(1, self.chunk // W) * W
-        else:
-            self._windows_per_call = self.chunk
 
     # ------------------------------------------------------------------
     def _step_factor(self, seed, steps):
         return self.core.step_factor(seed, steps, self._pids, self._cfactor)
 
     def _edge_state(self) -> Dict[str, torch.Tensor]:
-        """Fresh (empty-ring) duct state for the scheduler."""
+        """Fresh (empty-ring) duct state for the layout and scheduler."""
+        if self.layout == "edge":
+            return self.core.edge_rings(self.E, self.device)
         if self.scheduler == "superstep":
             return self.core.superstep_rings(self.R, self.superstep_windows,
                                              self.device)
@@ -248,6 +280,68 @@ class TorchEngine:
         )
 
     # ------------------------------------------------------------------
+    def _window_body(self, carry):
+        """One lockstep window on the edge-major layout: the core's drain
+        -> compute -> send phases over the full-population edge tables;
+        returns the new carry."""
+        cfg, n = self.cfg, self.n
+        core = self.core
+        comm = cfg.mode != AsyncMode.NO_COMM
+        esrc, edst = self._esrc, self._edst
+        seed, t = carry["seed"], carry["t"]
+        active = ~carry["done"] & ~carry["waiting"]
+        if self._any_crashed:
+            active = active & ~self._crashed
+        drained_r = torch.zeros(n, dtype=torch.int32, device=self.device)
+        u = dict(carry)
+
+        if comm:
+            upd, drained_r = core.drain(
+                carry, t[edst], active[edst], halo_key=self._halo_key,
+                n_halo=n * 4, dst=edst, n_dst=n)
+            u.update(upd)
+
+        app_state, edges_out, steps = core.compute(
+            carry, active, u["halo"], self._pids)
+        u.update(app=app_state, steps=steps)
+
+        if comm:
+            # latency draws are keyed by (canonical edge, sender step
+            # count), as on the dense layout
+            lat = self._lat_base * lognormal_factor(
+                cfg.latency_sigma, seed, STREAM_LAT, self._eids, steps[esrc])
+            act_e = active[esrc]
+            send_act = act_e
+            if self._has_faults:
+                # a lost / flapped / dead-bound send is killed before the
+                # ring: it still counts attempted + dropped, and the
+                # per-cause sums attribute it
+                loss_kill, dead_kill = core.fault_masks(
+                    seed, t[esrc], steps[esrc], self._eids,
+                    self._loss, self._flap, self.faults.flap_period,
+                    self._dead)
+                send_act = act_e & ~(loss_kill | dead_kill)
+            sp = core.send_edge(
+                u, t[esrc], send_act, lat, u["ptouch"][self._rev],
+                edges_out[esrc, self._out_slot], esrc, n)
+            u.update(sp.rings)
+            if self._has_faults:
+                kill_cols = torch.stack(
+                    [(act_e & loss_kill).to(torch.int32),
+                     (act_e & dead_kill).to(torch.int32)], dim=1)
+                ks = segment_sum(kill_cols, esrc, n)
+                killed = ks[:, 0] + ks[:, 1]
+                u.update(c_att=carry["c_att"] + sp.sums[:, 0] + killed,
+                         c_ok=carry["c_ok"] + sp.sums[:, 1],
+                         c_drop=carry["c_drop"] + sp.sums[:, 2] + killed,
+                         c_loss=carry["c_loss"] + ks[:, 0],
+                         c_dead=carry["c_dead"] + ks[:, 1])
+            else:
+                u.update(c_att=carry["c_att"] + sp.sums[:, 0],
+                         c_ok=carry["c_ok"] + sp.sums[:, 1],
+                         c_drop=carry["c_drop"] + sp.sums[:, 2])
+        return self._finish_window(u, active, drained_r)
+
     def _window_body_dense(self, carry, fused: bool = False):
         """One lockstep window on the dense bucketed layout; returns the new
         carry.  With ``fused`` the drain runs against frozen base rings via
@@ -313,13 +407,15 @@ class TorchEngine:
 
     def _run_chunk(self, carry):
         """``_windows_per_call`` windows: whole supersteps under the
-        superstep scheduler, single windows otherwise."""
+        superstep scheduler, single windows of the layout otherwise."""
         if self.scheduler == "superstep":
             for _ in range(self._windows_per_call // self.superstep_windows):
                 carry = self._superstep_body(carry)
         else:
+            body = (self._window_body if self.layout == "edge"
+                    else self._window_body_dense)
             for _ in range(self._windows_per_call):
-                carry = self._window_body_dense(carry)
+                carry = body(carry)
         return carry
 
     # ------------------------------------------------------------------
@@ -360,4 +456,5 @@ class TorchEngine:
             carry, np.asarray(self._deg.cpu().numpy(), np.int64),
             self.bapp.quality(app_state),
             app_state=(self.bapp.export_state(app_state)
-                       if self.cfg.carry_app_state else None))
+                       if self.cfg.carry_app_state
+                       and hasattr(self.bapp, "export_state") else None))

@@ -21,11 +21,13 @@ event`` (the discrete-event reference).  ``--device`` picks where the torch
 engine runs: ``cuda`` (the default; the duct phases run as hand-written
 CUDA kernels) or ``cpu`` (their plain torch versions); asking for ``cuda``
 without a card raises.  ``--superstep-windows W`` fuses W windows per ring
-commit (bitwise-identical trajectories), ``--replicates R`` sweeps R seeds
-(run one after another), and ``--qos-interval`` pins the snapshot spacing
-of the time-resolved ``qos_timeseries`` every row carries.  The ``serve``
-family and the ``evo`` app are not ported yet and are refused with a
-pointer to the reference.
+commit (bitwise-identical trajectories), ``--layout edge`` runs the
+edge-major duct layout (one ring per edge), ``--replicates R`` sweeps R
+seeds (run one after another), and ``--qos-interval`` pins the snapshot
+spacing of the time-resolved ``qos_timeseries`` every row carries.
+``--app`` picks graph coloring or digital evolution (``evo``, float32
+halos).  The ``serve`` family and ``--shards`` > 1 are not ported yet and
+are refused with a pointer to the reference.
 
 CLI::
 
@@ -64,9 +66,6 @@ NOT_PORTED = {
              "churn epochs, SLO verdicts), which is not ported to repro_torch "
              "yet; run it on the reference: python -m "
              "repro.runtime.experiments --family serve",
-    "evo": "--app evo (float32 payloads) is not ported to repro_torch yet; "
-           "use --app graphcolor, or run evo on the reference: python -m "
-           "repro.runtime.experiments --app evo",
 }
 
 
@@ -78,7 +77,12 @@ def make_app(name: str, n: int, simels: int, topology: Optional[Topology],
             GraphColorConfig(n_processes=n, nodes_per_process=simels,
                              seed=seed), topology=topology,
             initial_state=initial_state)
-    raise ValueError(f"unknown app {name!r} (graphcolor)")
+    if name == "evo":
+        # evo carries no state across service epochs; it restarts fresh
+        from repro_torch.apps.evo import EvoApp, EvoConfig
+        return EvoApp(EvoConfig(n_processes=n, cells_per_process=simels,
+                                seed=seed), topology=topology)
+    raise ValueError(f"unknown app {name!r} (graphcolor|evo)")
 
 
 def _sim_config(args, n: int, mode: AsyncMode = AsyncMode.BEST_EFFORT,
@@ -314,8 +318,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "dense", "edge"],
                    help="duct ring layout for --engine torch: dense = the "
                         "degree-bucketed receiver-major layout (auto "
-                        "resolves to it on every built-in topology); the "
-                        "edge-major layout is not ported yet")
+                        "resolves to it on every built-in topology), edge "
+                        "= one ring per canonical edge (per-window "
+                        "scheduler only)")
+    p.add_argument("--shards", type=int, default=1,
+                   help="device-mesh partitions; the sharded engine is not "
+                        "ported yet, so only 1 is accepted")
     p.add_argument("--qos-interval", type=float, default=None,
                    help="QoS snapshot spacing in virtual seconds for the "
                         "time-resolved stream (default: duration/12)")
@@ -325,7 +333,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "families use the first)")
     p.add_argument("--app", default="graphcolor",
                    choices=["graphcolor", "evo"],
-                   help="application (evo is not ported yet)")
+                   help="application: graphcolor (int32 halos) or evo "
+                        "(digital evolution, float32 halos)")
     p.add_argument("--simels", type=int, default=1,
                    help="simulation elements per process (1 = maximal "
                         "communication intensivity)")
@@ -369,8 +378,6 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     args = parser.parse_args(argv)
     if args.family == "serve":
         parser.error(NOT_PORTED["serve"])
-    if args.app == "evo":
-        parser.error(NOT_PORTED["evo"])
     # one frozen strategy carrier for every family, checked once against
     # the engine registry before any app or tensor is built
     try:

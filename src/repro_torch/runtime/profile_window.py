@@ -2,10 +2,14 @@
 engine's lockstep windows.
 
     python -m repro_torch.runtime.profile_window [--procs 4096] [--windows 64]
-        [--superstep-windows 1] [--simels 1]
+        [--superstep-windows 1] [--simels 1] [--layout auto|dense|edge]
+        [--app graphcolor|evo]
 
 Builds the experiments CLI's configuration (torus, buffer 64, duration
-0.02, best-effort), warms the engine up for a few windows, then profiles
+0.02, best-effort) for the given app and duct layout (``--app evo
+--simels 3600`` is the paper's digital-evolution workload; ``--layout
+edge`` the edge-major window), warms the engine up for a few windows, then
+profiles
 ``--windows`` windows (whole supersteps with ``--superstep-windows W``) and
 prints, as one JSON line: wall seconds per window (profiler on), CUDA
 kernel launches per window, the device's busy time per window (the sum of
@@ -34,6 +38,10 @@ def main(argv=None) -> dict:
     p.add_argument("--simels", type=int, default=1)
     p.add_argument("--windows", type=int, default=64)
     p.add_argument("--superstep-windows", type=int, default=1)
+    p.add_argument("--layout", default="auto",
+                   choices=["auto", "dense", "edge"])
+    p.add_argument("--app", default="graphcolor",
+                   choices=["graphcolor", "evo"])
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_window needs a CUDA device")
@@ -42,14 +50,17 @@ def main(argv=None) -> dict:
          str(a.simels), "--buffer", "64", "--duration", "0.02"])
     cfg = experiments._sim_config(args, a.procs)
     W = a.superstep_windows
-    eng = make_engine(RunConfig(engine="torch", superstep_windows=W),
-                      experiments.make_app("graphcolor", a.procs, a.simels,
+    eng = make_engine(RunConfig(engine="torch", layout=a.layout,
+                                superstep_windows=W),
+                      experiments.make_app(a.app, a.procs, a.simels,
                                            make_topology("torus", a.procs),
                                            args.seed), cfg, device="cuda")
 
     def step(carry):
         if W > 1:
             return eng._superstep_body(carry)
+        if eng.layout == "edge":
+            return eng._window_body(carry)
         return eng._window_body_dense(carry)
 
     carry = eng._init_carry(args.seed)
@@ -71,7 +82,8 @@ def main(argv=None) -> dict:
     launches = sum(e.count for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
     out = dict(
-        procs=a.procs, superstep_windows=W, windows=windows,
+        procs=a.procs, app=a.app, simels=a.simels, layout=eng.layout,
+        superstep_windows=W, windows=windows,
         wall_ms_per_window=wall * 1e3 / windows,
         kernel_launches_per_window=launches / windows,
         device_busy_ms_per_window=busy_us / 1e3 / windows,

@@ -1,8 +1,9 @@
-"""Window-phase core of the torch engine (dense layout).
+"""Window-phase core of the torch engine.
 
 The PyTorch counterpart of the reference's ``runtime/window_core.py``.  The
 torch engine (``runtime/engine_torch.py``) advances the whole process
-population per lockstep window through the same phases:
+population per lockstep window through the same phases, on either duct
+layout.  Dense (receiver-major, degree-bucketed):
 
   drain      one fused ``duct_window`` pass per degree bucket applies the
              previous window's staged sends, pops every ring's available
@@ -13,6 +14,12 @@ population per lockstep window through the same phases:
              ring writes ride into the next window's ``duct_window``
   close      QoS snapshots, termination, barriers and quarantine, and the
              virtual-time advance
+
+Edge-major (one ring per canonical edge): ``drain`` pops every ring with
+``duct_drain`` and merges the halos with a segment max over (receiver,
+slot) keys; after ``compute``, ``send_edge`` pushes with ``duct_send`` and
+scatters the payloads into the accepted slots.  Both layouts give the same
+trajectories bitwise.
 
 With the W-fused superstep scheduler the drain walks frozen base rings
 plus a compact pushbuf (``window_dense_fused``) and ``commit_superstep``
@@ -39,6 +46,8 @@ from repro_torch.kernels.duct_exchange.ops import (
     dense_halo_select,
     dense_stage,
     duct_commit,
+    duct_drain,
+    duct_send,
     duct_window,
 )
 from repro_torch.runtime.faults import STREAM_FLAP, STREAM_LOSS
@@ -52,9 +61,9 @@ BARRIER_MODES = (AsyncMode.BARRIER_EVERY_STEP, AsyncMode.ROLLING_BARRIER,
 # Counter-based RNG: splitmix-style 32-bit finalizer chains, pure functions
 # of their integer keys.  torch has few uint32 operations, so every value is
 # an int64 holding a uint32 in [0, 2**32): shifts are then logical, and no
-# product leaves the int64 range (see _mul32).
+# product leaves the int64 range (see mul32).
 # ---------------------------------------------------------------------------
-_M32 = 0xFFFFFFFF
+M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 
 # stream tags keep independent draws independent
@@ -68,20 +77,20 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def _mul32(x, c: int):
+def mul32(x, c: int):
     """``(x * c) mod 2**32`` for ``x`` in [0, 2**32) and a 32-bit ``c``.
     A constant at or above 2**31 is replaced by ``c - 2**32`` (the same
     residue), so ``|x * c| < 2**63`` and the int64 product never
-    overflows; ``& _M32`` takes the two's-complement residue."""
+    overflows; ``& M32`` takes the two's-complement residue."""
     if c >= 1 << 31:
         c -= 1 << 32
-    return (x * c) & _M32
+    return (x * c) & M32
 
 
 def _mix32(x):
     """32-bit splitmix-style finalizer (lowbias32 constants)."""
-    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
-    x = _mul32(x ^ (x >> 15), 0x846CA68B)
+    x = mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = mul32(x ^ (x >> 15), 0x846CA68B)
     return x ^ (x >> 16)
 
 
@@ -89,8 +98,8 @@ def _u32(k):
     """A key as the uint32 it wraps to (``astype(uint32)`` semantics: a
     negative int32 wraps modulo 2**32), held in int64."""
     if isinstance(k, torch.Tensor):
-        return k.to(torch.int64) & _M32
-    return int(k) & _M32
+        return k.to(torch.int64) & M32
+    return int(k) & M32
 
 
 def hash_u32(*keys) -> torch.Tensor:
@@ -99,7 +108,7 @@ def hash_u32(*keys) -> torch.Tensor:
     h = _GOLDEN
     for k in keys:
         k = _u32(k)
-        h = _mix32(h ^ ((k + _GOLDEN + ((h << 6) & _M32) + (h >> 2)) & _M32))
+        h = _mix32(h ^ ((k + _GOLDEN + ((h << 6) & M32) + (h >> 2)) & M32))
     if not isinstance(h, torch.Tensor):
         h = torch.tensor(h, dtype=torch.int64)
     return h
@@ -148,6 +157,13 @@ class LocalRelease:
 
 #: the default strategy (one device holds the whole population)
 LOCAL_RELEASE = LocalRelease()
+
+
+class SendPhase(NamedTuple):
+    """Result of one edge-major send attempt over a block of rings."""
+    rings: Dict[str, torch.Tensor]   # q_avail / q_touch / q_size / q_pay
+    accepted: torch.Tensor           # (rows,) bool push accepted
+    sums: torch.Tensor               # (n, 3) attempted/ok/dropped per process
 
 
 class BucketSlab(NamedTuple):
@@ -217,6 +233,15 @@ def _scatter_add(x, members, vals, n_dst):
 
 def _i32_sum(x, dim):
     return x.sum(dim=dim, dtype=torch.int32)
+
+
+def segment_sum(x, seg, n_seg):
+    """``jax.ops.segment_sum(x, seg, num_segments=n_seg + 1)[:n_seg]``:
+    rows of ``x`` summed per segment id; sentinel ids (``== n_seg``) land
+    in the spare segment that is sliced off."""
+    zeros = torch.zeros((n_seg,) + tuple(x.shape[1:]), dtype=x.dtype,
+                        device=x.device)
+    return _scatter_add(zeros, seg, x, n_seg)
 
 
 # ---------------------------------------------------------------------------
@@ -345,6 +370,49 @@ class WindowCore:
     # ------------------------------------------------------------------
     # Phase 1: drain
     # ------------------------------------------------------------------
+    def drain(self, carry, t_rows, act_rows, *, halo_key, n_halo, dst,
+              n_dst):
+        """Edge-major drain: bounded FIFO pops of every ring at its
+        receiver's clock, halo-winner select, and the three receiver-side
+        QoS counter columns.  Returns ``(carry updates, drained_r)``.
+
+        ``halo_key`` flattens (receiver, slot); several in-edges may share
+        one halo slot, and delivery ties resolve to the highest row index
+        (rows are in ascending canonical-edge order), so the merge is
+        deterministic on every device.  Popped slots read ``+inf`` after
+        the drain, where the reference leaves them (see
+        ``ops.duct_drain_torch``); nothing reads them."""
+        rows_n = t_rows.shape[0]
+        rows = torch.arange(rows_n, dtype=torch.int32, device=t_rows.device)
+        d = duct_drain(carry["q_avail"], carry["q_touch"],
+                       carry["q_head"], carry["q_size"],
+                       t_rows, act_rows, max_pops=self.max_pops)
+        delivered = d.drained > 0
+        payload = carry["q_pay"][rows.long(), d.pop_pos.long()]  # (E, L)
+        L = carry["halo"].shape[-1]
+        new_touch = d.recv_touch + 1
+        dtouch = torch.where(delivered, new_touch - carry["ptouch"], 0)
+        ptouch = torch.where(delivered, new_touch, carry["ptouch"])
+        recv_cols = torch.stack([d.drained, delivered.to(torch.int32),
+                                 dtouch], dim=1)
+        # segment max over (receiver, slot) keys, spare segment n_halo
+        winner = torch.full((n_halo + 1,), -1, dtype=torch.int32,
+                            device=rows.device).scatter_reduce_(
+            0, halo_key, torch.where(delivered, rows, -1), "amax")[:n_halo]
+        has_win = winner >= 0
+        fresh = payload[torch.where(has_win, winner, 0).long()]
+        halo = torch.where(has_win[:, None], fresh,
+                           carry["halo"].reshape(n_halo, L)).reshape(
+            n_dst, 4, L)
+        recv_sums = segment_sum(recv_cols, dst, n_dst)
+        return dict(
+            halo=halo, ptouch=ptouch,
+            c_msgs=carry["c_msgs"] + recv_sums[:, 0],
+            c_laden=carry["c_laden"] + recv_sums[:, 1],
+            c_touch=carry["c_touch"] + recv_sums[:, 2],
+            q_avail=d.q_avail, q_touch=d.q_touch,
+            q_head=d.head, q_size=d.size), recv_sums[:, 0]
+
     def _merge_buckets(self, spec: DenseSpec, halo, delivered, payload,
                        recv_cols):
         """Bucket-sliced halo merge + receiver counter reduction over flat
@@ -564,7 +632,34 @@ class WindowCore:
         return app_state, edges_out, carry["steps"] + active
 
     # ------------------------------------------------------------------
-    # Phase 3: stage (dense layout)
+    # Phase 3: send (edge-major)
+    # ------------------------------------------------------------------
+    def send_edge(self, rings, now, act, lat, touch, payload, src,
+                  n_src) -> SendPhase:
+        """Best-effort push attempt over the edge-major rings (drop iff the
+        post-drain ring is full) plus the sender-side counter columns,
+        summed per source process.  The payload is written only into the
+        accepted rows' push slots; the other rows' writes go to a spare
+        row that is sliced off."""
+        rows_n = rings["q_avail"].shape[0]
+        rows = torch.arange(rows_n, dtype=torch.int64, device=now.device)
+        s = duct_send(rings["q_avail"], rings["q_touch"],
+                      rings["q_head"], rings["q_size"],
+                      now, act, lat, touch,
+                      capacity=self.cfg.buffer_capacity)
+        q_pay = torch.cat([rings["q_pay"], rings["q_pay"][:1]])
+        q_pay[torch.where(s.accepted, rows, rows_n), s.push_pos.long()] = \
+            payload
+        send_cols = torch.stack([
+            act.to(torch.int32), (act & s.accepted).to(torch.int32),
+            (act & ~s.accepted).to(torch.int32)], dim=1)
+        return SendPhase(
+            rings=dict(q_avail=s.q_avail, q_touch=s.q_touch,
+                       q_size=s.size, q_pay=q_pay[:rows_n]),
+            accepted=s.accepted, sums=segment_sum(send_cols, src, n_src))
+
+    # ------------------------------------------------------------------
+    # Phase 3': stage (dense layout)
     # ------------------------------------------------------------------
     def stage_dense(self, carry, u, t, active, edges_out, lat,
                     *, src, rev, out_slot, live, deg, spec: DenseSpec,

@@ -4,7 +4,11 @@ The port's plain torch versions of the dense-layout window and commit ops
 (``duct_window_torch`` / ``duct_commit_torch``) must be slot-exact (bitwise,
 ``+inf`` writes included) against the reference's numpy oracles, its jnp
 twins, and its Pallas kernels run in interpret mode, on the same random
-ring states made with numpy.  On the CPU the public ``duct_window`` /
+ring states made with numpy, with int32 (graph coloring) and float32 (evo)
+payloads.  A float32 ``-0.0`` payload is where select and one-hot sum
+part: the window's halo select sums in the Pallas kernel, the jnp twin and
+the plain version (``+0.0``) and copies in the numpy oracle and the CUDA
+kernel (``-0.0``).  On the CPU the public ``duct_window`` /
 ``duct_commit`` take the plain versions and never reach the CUDA kernel
 loader; the kernels themselves are held against the plain versions on the
 card by the ``cuda``-marked tests at the end, which need no JAX (run them
@@ -26,14 +30,22 @@ from repro_torch.kernels.duct_exchange.ops import (  # noqa: E402
     duct_window,
     duct_window_torch,
 )
+from torch_cases import assert_bits_equal  # noqa: E402
 
 
-def random_window_state(rng, n, d, C, L, cap):
+def random_payload(rng, shape, dtype):
+    """Random payload rows: small ints for int32, normals for float32."""
+    if np.dtype(dtype) == np.float32:
+        return rng.standard_normal(shape).astype(np.float32)
+    return rng.integers(0, 99, shape).astype(np.int32)
+
+
+def random_window_state(rng, n, d, C, L, cap, pay_dtype=np.int32):
     """A random dense ring state with an engine-style staged push (eager
     drop-iff-full against the carried size, already counted in size)."""
     qa = np.full((n, d, C), np.inf, np.float32)
     qt = np.zeros((n, d, C), np.int32)
-    qp = np.zeros((n, d, C, L), np.int32)
+    qp = np.zeros((n, d, C, L), pay_dtype)
     head = rng.integers(0, C, (n, d)).astype(np.int32)
     size = np.zeros((n, d), np.int32)
     for p in range(n):
@@ -44,29 +56,29 @@ def random_window_state(rng, n, d, C, L, cap):
                 pos = (head[p, j] + k) % C
                 qa[p, j, pos] = rng.random() * 2
                 qt[p, j, pos] = rng.integers(0, 50)
-                qp[p, j, pos] = rng.integers(0, 99, L)
+                qp[p, j, pos] = random_payload(rng, L, pay_dtype)
     pacc = (rng.random((n, d)) < 0.7) & (size < cap)
     ppos = ((head + size) % C).astype(np.int32)
     size = (size + pacc).astype(np.int32)
     pav = (rng.random((n, d)) * 2).astype(np.float32)
     ptch = rng.integers(0, 50, (n, d)).astype(np.int32)
-    ppay = rng.integers(0, 99, (n, d, L)).astype(np.int32)
+    ppay = random_payload(rng, (n, d, L), pay_dtype)
     rnow = (rng.random(n) * 2).astype(np.float32)
     ract = rng.random(n) < 0.8
     return (qa, qt, qp, head, size, ppos, pacc, pav, ptch, ppay, rnow, ract)
 
 
-def random_commit_state(rng, R, C, L, W):
+def random_commit_state(rng, R, C, L, W, pay_dtype=np.int32):
     qa = (rng.random((R, C)) * 2).astype(np.float32)
     qt = rng.integers(0, 50, (R, C)).astype(np.int32)
-    qp = rng.integers(0, 99, (R, C, L)).astype(np.int32)
+    qp = random_payload(rng, (R, C, L), pay_dtype)
     head = rng.integers(0, C, R).astype(np.int32)
     size0 = rng.integers(0, C, R).astype(np.int32)
     # the engine guarantees pb_cnt pushes fit behind the frozen tail
     cnt = np.minimum(rng.integers(0, W + 1, R), C - size0).astype(np.int32)
     pa = (rng.random((R, W)) * 2).astype(np.float32)
     pt = rng.integers(0, 50, (R, W)).astype(np.int32)
-    pp = rng.integers(0, 99, (R, W, L)).astype(np.int32)
+    pp = random_payload(rng, (R, W, L), pay_dtype)
     return (qa, qt, qp, head, size0, cnt, pa, pt, pp)
 
 
@@ -150,6 +162,107 @@ def test_duct_commit_bitwise_vs_reference(case, ref):
     _assert_fields_equal(got, duct_commit(*_t(args)), "dispatch")
 
 
+#: float32 payloads: evo's halo rows at small widths and its L = 60
+F32_WINDOW_CASES = [(6, 4, 8, 8, 8, 3), (5, 8, 6, 4, 6, 64),
+                    (4, 4, 64, 60, 64, 16)]
+F32_COMMIT_CASES = [(24, 6, 5, 5), (16, 64, 60, 8)]
+
+
+@pytest.mark.parametrize("case", F32_WINDOW_CASES,
+                         ids=["n{}-d{}-C{}-L{}-cap{}-pops{}".format(*c)
+                              for c in F32_WINDOW_CASES])
+def test_duct_window_f32_bitwise_vs_reference(case, ref):
+    n, d, C, L, cap, max_pops = case
+    rng = np.random.default_rng(3000 + sum(case))
+    args = random_window_state(rng, n, d, C, L, cap, np.float32)
+    got = duct_window_torch(*_t(args), max_pops=max_pops)
+    assert got.q_pay.dtype == got.halo_pay.dtype == torch.float32
+    assert bool(got.halo_win.any())
+    jargs = [ref.jnp.asarray(a) for a in args]
+    assert_bits_equal(
+        ref.duct_window(*jargs, max_pops=max_pops, use_pallas=True,
+                        interpret=True), got, "pallas interpret")
+    assert_bits_equal(ref.duct_window_jnp(*jargs, max_pops=max_pops), got,
+                       "jnp twin")
+    assert_bits_equal(ref.duct_window_ref(*args, max_pops=max_pops), got,
+                       "numpy ref")
+    assert_bits_equal(got, duct_window(*_t(args), max_pops=max_pops),
+                       "dispatch")
+
+
+@pytest.mark.parametrize("case", F32_COMMIT_CASES,
+                         ids=["R{}-C{}-L{}-W{}".format(*c)
+                              for c in F32_COMMIT_CASES])
+def test_duct_commit_f32_bitwise_vs_reference(case, ref):
+    R, C, L, W = case
+    rng = np.random.default_rng(4000 + sum(case))
+    args = random_commit_state(rng, R, C, L, W, np.float32)
+    got = duct_commit_torch(*_t(args))
+    assert got.q_pay.dtype == torch.float32
+    jargs = [ref.jnp.asarray(a) for a in args]
+    assert_bits_equal(ref.duct_commit(*jargs, use_pallas=True,
+                                       interpret=True), got,
+                       "pallas interpret")
+    assert_bits_equal(ref.duct_commit_jnp(*jargs), got, "jnp twin")
+    assert_bits_equal(ref.duct_commit_ref(*args), got, "numpy ref")
+    assert_bits_equal(got, duct_commit(*_t(args)), "dispatch")
+
+
+def negative_zero_window_state():
+    """One receiver of degree 4 whose row 0 holds one available message
+    with payload ``[-0.0, 1.5, -0.0]``; the drain pops it into halo slot
+    0."""
+    n, d, C, L = 1, 4, 8, 3
+    qa = np.full((n, d, C), np.inf, np.float32)
+    qa[0, 0, 0] = 0.0
+    qp = np.zeros((n, d, C, L), np.float32)
+    qp[0, 0, 0] = [-0.0, 1.5, -0.0]
+    size = np.zeros((n, d), np.int32)
+    size[0, 0] = 1
+    z = np.zeros((n, d), np.int32)
+    return (qa, np.zeros((n, d, C), np.int32), qp, z, size, z,
+            np.zeros((n, d), bool), np.zeros((n, d), np.float32), z,
+            np.zeros((n, d, L), np.float32), np.ones(n, np.float32),
+            np.ones(n, bool))
+
+
+def negative_zero_commit_state():
+    """Two rings whose pushbuf entries carry ``-0.0`` payload lanes."""
+    R, C, L, W = 2, 4, 2, 2
+    pp = np.full((R, W, L), -0.0, np.float32)
+    pp[:, :, 1] = 2.5
+    return (np.full((R, C), np.inf, np.float32), np.zeros((R, C), np.int32),
+            np.ones((R, C, L), np.float32), np.array([0, 3], np.int32),
+            np.array([1, 2], np.int32), np.array([2, 1], np.int32),
+            np.zeros((R, W), np.float32), np.ones((R, W), np.int32), pp)
+
+
+def test_negative_zero_payloads(ref):
+    """The window's halo select: the plain version sums a one-hot as the
+    Pallas kernel does (``-0.0`` comes out ``+0.0``); the numpy oracle
+    copies (``-0.0`` stays).  The commit copies everywhere but in the jnp
+    twin, so the plain version keeps ``-0.0`` as the Pallas kernel does."""
+    args = negative_zero_window_state()
+    got = duct_window_torch(*_t(args), max_pops=4)
+    assert bool(got.halo_win[0, 0])
+    assert not np.signbit(got.halo_pay[0, 0].numpy()).any()
+    jargs = [ref.jnp.asarray(a) for a in args]
+    assert_bits_equal(ref.duct_window(*jargs, max_pops=4, use_pallas=True,
+                                       interpret=True), got,
+                       "pallas interpret")
+    want = ref.duct_window_ref(*args, max_pops=4)
+    assert np.signbit(want.halo_pay[0, 0, [0, 2]]).all()
+    np.testing.assert_array_equal(got.halo_pay.numpy(), want.halo_pay)
+
+    cargs = negative_zero_commit_state()
+    got = duct_commit_torch(*_t(cargs))
+    assert np.signbit(got.q_pay.numpy()[0, 1, 0])
+    assert_bits_equal(ref.duct_commit(*[ref.jnp.asarray(a) for a in cargs],
+                                       use_pallas=True, interpret=True), got,
+                       "pallas interpret")
+    assert_bits_equal(ref.duct_commit_ref(*cargs), got, "numpy ref")
+
+
 @pytest.mark.parametrize("d", [1, 2, 4, 7, 8])
 def test_dense_halo_select_matches_jax(d, ref):
     rng = np.random.default_rng(30 + d)
@@ -195,7 +308,8 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
     tkernel.reset_launches()
     duct_window(*wargs, max_pops=4)
     duct_commit(*cargs)
-    assert tkernel.LAUNCHES == {"duct_window": 0, "duct_commit": 0}
+    assert tkernel.LAUNCHES == {"duct_window": 0, "duct_commit": 0,
+                                "duct_exchange": 0}
     with pytest.raises(ValueError, match="CUDA tensors"):
         tkernel.duct_window_cuda(*wargs, max_pops=4)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -246,3 +360,63 @@ def test_duct_commit_kernel_matches_plain_on_card(case, cuda_device):
     assert tkernel.LAUNCHES["duct_commit"] == before + 1
     for name, a, b in zip(want._fields, want, got):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_WINDOW_CASES,
+                         ids=["n{}-d{}-C{}-L{}-cap{}-pops{}".format(*c)
+                              for c in F32_WINDOW_CASES])
+def test_duct_window_f32_kernel_matches_plain_on_card(case, cuda_device):
+    n, d, C, L, cap, max_pops = case
+    rng = np.random.default_rng(3000 + sum(case))
+    args = _t(random_window_state(rng, n, d, C, L, cap, np.float32),
+              cuda_device)
+    want = duct_window_torch(*args, max_pops=max_pops)
+    got = duct_window(*args, max_pops=max_pops)
+    torch.cuda.synchronize()
+    assert_bits_equal(want, got, "duct_window_f32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_COMMIT_CASES,
+                         ids=["R{}-C{}-L{}-W{}".format(*c)
+                              for c in F32_COMMIT_CASES])
+def test_duct_commit_f32_kernel_matches_plain_on_card(case, cuda_device):
+    R, C, L, W = case
+    rng = np.random.default_rng(4000 + sum(case))
+    args = _t(random_commit_state(rng, R, C, L, W, np.float32), cuda_device)
+    want = duct_commit_torch(*args)
+    got = duct_commit(*args)
+    torch.cuda.synchronize()
+    assert_bits_equal(want, got, "duct_commit_f32")
+
+
+@pytest.mark.cuda
+def test_negative_zero_payloads_on_card(cuda_device):
+    """The CUDA window kernel copies the winning payload, so ``-0.0``
+    stays ``-0.0`` (equal as a number to the plain version's ``+0.0``);
+    the CUDA commit kernel copies like the plain version."""
+    args = _t(negative_zero_window_state(), cuda_device)
+    want = duct_window_torch(*args, max_pops=4)
+    got = duct_window(*args, max_pops=4)
+    torch.cuda.synchronize()
+    hp = got.halo_pay[0, 0].cpu().numpy()
+    np.testing.assert_array_equal(np.signbit(hp), [True, False, True])
+    for name, a, b in zip(want._fields, want, got):
+        assert torch.equal(a, b), name
+    cargs = _t(negative_zero_commit_state(), cuda_device)
+    assert_bits_equal(duct_commit_torch(*cargs), duct_commit(*cargs),
+                       "duct_commit_f32")
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_other_payload_dtypes(cuda_device):
+    rng = np.random.default_rng(9)
+    wargs = _t(random_window_state(rng, 2, 4, 8, 2, 8), cuda_device)
+    wargs[2], wargs[9] = wargs[2].double(), wargs[9].double()
+    with pytest.raises(TypeError, match="int32 or float32"):
+        tkernel.duct_window_cuda(*wargs, max_pops=4)
+    cargs = _t(random_commit_state(rng, 4, 6, 2, 3), cuda_device)
+    cargs[2], cargs[8] = cargs[2].long(), cargs[8].long()
+    with pytest.raises(TypeError, match="int32 or float32"):
+        tkernel.duct_commit_cuda(*cargs)

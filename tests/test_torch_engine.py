@@ -6,8 +6,9 @@
   each side must leave every carry key bitwise equal.
 * Scheduler: the torch engine's W-fused superstep path reproduces its
   per-window path bitwise.
-* CLI: ``python -m repro_torch.runtime.experiments`` runs on the CPU and
-  refuses what is not ported with an actionable message.
+* CLI: ``python -m repro_torch.runtime.experiments`` runs on the CPU, on
+  both duct layouts and with both apps, and refuses what is not ported
+  with an actionable message.
 * Imports: no module of the port (nor ``chip_smoke.py``) imports ``jax``
   or ``repro``, checked on the parsed import statements.
 
@@ -156,8 +157,8 @@ def test_superstep_bitwise_vs_per_window(topology):
 def test_engine_validation_errors():
     cfg = torch_cfg(jittered_cfg(0.01))
     app = torch_app(8, "ring", 0)
-    with pytest.raises(ValueError, match="edge-major layout is not ported"):
-        make_engine("torch", app, cfg, layout="edge", device="cpu")
+    assert make_engine("torch", app, cfg, layout="edge",
+                       device="cpu").layout == "edge"
     with pytest.raises(ValueError, match="superstep_windows > 1"):
         make_engine("torch", app, cfg, scheduler="superstep", device="cpu")
     with pytest.raises(ValueError, match="must not exceed"):
@@ -201,9 +202,8 @@ def test_cli_runs_on_cpu_and_prints_the_metrics():
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--layout", "edge"], "edge-major layout is not ported"),
     (["--family", "serve"], "--family serve needs the service slice"),
-    (["--app", "evo"], "--app evo"),
+    (["--shards", "2"], "sharded engine, which is not ported"),
 ])
 def test_cli_refuses_unported_paths(argv, needle, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -211,6 +211,21 @@ def test_cli_refuses_unported_paths(argv, needle, capsys):
                   *argv])
     assert exc.value.code == 2
     assert needle in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--layout", "edge"],
+    ["--app", "evo", "--simels", "16"],
+    ["--app", "evo", "--simels", "16", "--layout", "edge"],
+], ids=["edge", "evo", "evo-edge"])
+def test_cli_runs_edge_and_evo_on_cpu(argv, capsys):
+    rows = cli_main(["--device", "cpu", "--procs", "16", "--duration",
+                     "0.004", *argv])
+    assert rows[0]["updates"] > 0
+    assert rows[0]["run"]["layout"] == ("edge" if "edge" in argv else "auto")
+    out = capsys.readouterr().out
+    assert "delivery_failure_rate" in out
+    assert f"app={'evo' if 'evo' in argv else 'graphcolor'}" in out
 
 
 def test_cli_families_run_on_cpu(capsys):
