@@ -7,18 +7,23 @@ Run from the repository root on a machine with one NVIDIA GPU::
 It drives the port's main paths (the vectorized best-effort engine on the
 dense layout with the hand-written CUDA ``duct_window`` / ``duct_commit``
 kernels, on the edge-major layout with the ``duct_exchange`` kernel, with
-the graph-coloring app's int32 halos and the evo app's float32 halos) and
-fails with a non-zero exit code if any phase fails:
+the graph-coloring app's int32 halos and the evo app's float32 halos; and
+the dense LM's serving path, prefill through the ``flash_attention`` kernel
+and greedy decode through the ``decode_attention`` kernel) and fails with
+a non-zero exit code if any phase fails:
 
   1. card      the ``nvidia-smi`` name and power limit
-  2. build     the three kernels from ``csrc/`` into ``build/`` (one nvcc
+  2. build     the five kernels from ``csrc/`` into ``build/`` (one nvcc
                per source, started together)
   3. kernels   each kernel, and each float32 entry point, against its plain
                torch version on the same CUDA inputs at the main paths'
-               shapes, bitwise, with the device time of both
-               (torch.profiler), their time per call with launch overhead
-               (CUDA events) and the bound; ``duct_exchange`` in its full and both
-               degenerate (drain-only, send-only) forms
+               shapes, with the device time of both (torch.profiler), their
+               time per call with launch overhead (CUDA events) and the
+               bound: the duct kernels bitwise, ``duct_exchange`` in its
+               full and both degenerate (drain-only, send-only) forms; the
+               attention kernels within a stated tolerance, with the time
+               of the one PyTorch call that computes the same function
+               (``scaled_dot_product_attention``) beside them
   4. oracle    dyadic 16-process scenarios on both duct layouts: the torch
                engine on the card gives the event simulator's
                ``qos_signature``
@@ -34,6 +39,16 @@ fails with a non-zero exit code if any phase fails:
                --superstep-windows 8 and --layout edge (all three equal).
                Launch counters are zeroed just before each path and read
                just after it
+  7. lm card=cpu  the reduced qwen2-1.5b and qwen3-0.6b (2 layers) served
+               on the card (kernels) and on the CPU (plain versions) from
+               the same seeded weights: logits at every step with teacher
+               forcing, equal greedy tokens in float32
+  8. lm full size  qwen2-1.5b at full width in bf16 through
+               ``repro_torch.launch.serve``: batch 8, prompt 2048, 32 new
+               tokens; 28 flash launches per prefill, 28 decode launches
+               per step; prefill of the prompt plus k generated tokens
+               gives decode step k's logits; a second serve gives the same
+               tokens
 
 It imports nothing of JAX or of the JAX package.  The line before the last
 is a JSON object with one record per kernel and float32 entry point; the
@@ -41,6 +56,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -51,6 +67,7 @@ import zlib
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -62,7 +79,14 @@ from repro_torch.apps.graphcolor import (  # noqa: E402
 )
 from repro_torch.core.modes import AsyncMode  # noqa: E402
 from repro_torch.core.qos import aggregate_reports, qos_signature  # noqa: E402
-from repro_torch.kernels.duct_exchange import kernel as K  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.smoke import reduce_for_smoke  # noqa: E402
+from repro_torch.kernels import build as K  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_partials,
+    decode_attention_partials_torch,
+    decode_attention_torch,
+)
 from repro_torch.kernels.duct_exchange.ops import (  # noqa: E402
     duct_commit,
     duct_commit_torch,
@@ -75,6 +99,12 @@ from repro_torch.kernels.duct_exchange.ops import (  # noqa: E402
     duct_window,
     duct_window_torch,
 )
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_grouped,
+    flash_attention_torch,
+)
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.runtime import experiments  # noqa: E402
 from repro_torch.runtime.config import RunConfig  # noqa: E402
 from repro_torch.runtime.engine import make_engine  # noqa: E402
@@ -90,8 +120,12 @@ from repro_torch.runtime.topologies import make_topology  # noqa: E402
 HBM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12,
                    "H100": 3.35e12, "H200": 4.8e12}
 #: float32 peak outside the tensor cores (H100 SXM data sheet); the duct
-#: kernels' integer compares and copies are counted against it
+#: kernels' integer compares and copies are counted against it, and so are
+#: the attention kernels' float32 entry points
 PEAK_OPS_PER_S = 67e12
+#: bf16 dense tensor-core peak (H100 SXM data sheet): the attention
+#: kernels' bf16 bound, whatever units they run on
+PEAK_BF16_FLOPS = 989e12
 
 #: dyadic timing constants (power-of-two, no stochastic clocks): float32
 #: and float64 clock arithmetic are exact, so every engine agrees bitwise
@@ -155,7 +189,7 @@ def build():
     secs = K.build()
     for name in K.SOURCES:
         check(K.library_path(name).exists(), f"{name} library missing")
-    check(len(K.SOURCES) == 3, f"expected three kernels, got {K.SOURCES}")
+    check(len(K.SOURCES) == 5, f"expected five kernels, got {K.SOURCES}")
     print(f"built {sorted(K.SOURCES)} in {secs:.1f}s into {K.BUILD_DIR}")
 
 
@@ -275,30 +309,146 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def measure(label, run_kernel, run_plain, inputs, ops, hbm):
+def compare_close(want, got, rtol, atol):
+    """(elements that disagree, max |difference|) over every output field.
+    An element agrees when it equals the plain one (equal infinities
+    included) or when both are finite and |got - want| <= atol + rtol
+    |want|.  A NaN, or an infinity on one side only, disagrees and makes
+    the max |difference| NaN or infinite."""
+    bad, err = 0, 0.0
+    for a, b in zip(want, got):
+        a, b = a.double(), b.double()
+        same = a == b
+        d = torch.where(same, 0.0, (a - b).abs())
+        close = torch.isfinite(a) & torch.isfinite(b) & (
+            d <= atol + rtol * a.abs())
+        bad += int((~(same | close)).sum())
+        e = float(d.max())
+        err = e if (e != e or e > err) else err     # a NaN stays
+    return bad, err
+
+
+def fields(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
+            peak=PEAK_OPS_PER_S, tol=None, library=None):
     """Hold one kernel call against its plain version (0 mismatching
-    elements), time both (device time, and per call with the launch
-    overhead), and compute the bound for the same work: each
+    elements, or with ``tol = (rtol, atol)`` every element within it), time
+    both (device time, and per call with the launch overhead), time
+    ``library`` (the one PyTorch call that computes the same function,
+    where there is one), and compute the bound for the same work: each
     input read once and each output written once over the HBM rate, or
-    the integer operations over the float32 peak, whichever is longer."""
-    want = run_plain()
-    got = run_kernel()
+    the operations over ``peak``, whichever is longer."""
+    want = fields(run_plain())
+    got = fields(run_kernel())
     torch.cuda.synchronize()
-    bad, err = compare(want, got)
-    check(bad == 0, f"{label}: {bad} mismatching elements")
+    if tol is None:
+        bad, err = compare(want, got)
+        check(bad == 0, f"{label}: {bad} mismatching elements")
+        agree = "0 mismatches"
+    else:
+        bad, err = compare_close(want, got, *tol)
+        check(bad == 0, f"{label}: {bad} elements outside rtol, atol = "
+                        f"{tol} (max |difference| {err:.3g})")
+        agree = f"max |difference| {err:.3g} within rtol, atol = {tol}"
     ms = device_ms(run_kernel)
     plain = device_ms(run_plain)
     call, plain_call = call_ms(run_kernel), call_ms(run_plain)
+    lib = device_ms(library) if library is not None else None
     moved = nbytes(*inputs) + nbytes(*got)
-    t_bytes, t_ops = moved / hbm, ops / PEAK_OPS_PER_S
+    t_bytes, t_ops = moved / hbm, ops / peak
     bound = max(t_bytes, t_ops) * 1e3
-    print(f"{label}: 0 mismatches, kernel {ms:.4f} ms, plain {plain:.4f} "
-          f"ms (device time), bound {bound:.4f} ms, {ms / bound:.1f}x "
-          f"bound ({moved / 1e6:.1f} MB moved); per call with launch "
+    lib_txt = f", library {lib:.4f} ms" if lib is not None else ""
+    print(f"{label}: {agree}, kernel {ms:.4f} ms, plain {plain:.4f} "
+          f"ms{lib_txt} (device time), bound {bound:.4f} ms, "
+          f"{ms / bound:.1f}x bound ({moved / 1e6:.1f} MB moved, "
+          f"{ops / 1e9:.2f} G operations); per call with launch "
           f"overhead: kernel {call:.4f} ms, plain {plain_call:.4f} ms",
           flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=lib)
+
+
+#: attention tolerances (rtol, atol) against the plain versions on the
+#: card.  Float32 differs only in the order of the sums (online softmax over
+#: tiles and chunks).  In bf16 both sides compute in float32 and round once
+#: to bf16, so they differ by at most one bf16 ulp, which is at most 2^-7
+#: of the value; atol covers the float32 sums' own error where the output
+#: is near 0
+ATTN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-5)}
+#: max |SDPA - plain version|, which shows that the library call times the
+#: same function: SDPA rounds its bf16 probabilities, the plain version
+#: does not
+SDPA_TOL = {torch.float32: 4e-4, torch.bfloat16: 8e-2}
+
+
+def attention_kernels(hbm):
+    """flash_attention at the qwen2-1.5b prefill shape (B*KH = 16, G = 6,
+    S = 2048, hd = 128, bf16) plus a ragged S and a float32 case;
+    decode_attention at the decode shape (B = 8, KH = 2, G = 6, hd = 128)
+    over a 2080-key cache with kv_len 2049, 2080 and 1."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2025)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    records = {}
+    bf16, f32 = torch.bfloat16, torch.float32
+    for label, BK, G, S, hd, dtype, rec in (
+            ("(16,6,2048,128) bf16", 16, 6, 2048, 128, bf16,
+             "flash_attention"),
+            ("(16,6,2047,128) bf16 ragged", 16, 6, 2047, 128, bf16, None),
+            ("(16,6,1024,128) f32", 16, 6, 1024, 128, f32, None)):
+        q = randn((BK, G, S, hd), dtype)
+        k, v = randn((BK, S, hd), dtype), randn((BK, S, hd), dtype)
+        flops = 4 * hd * BK * G * (S * (S + 1) // 2)
+        peak = PEAK_BF16_FLOPS if dtype == bf16 else PEAK_OPS_PER_S
+
+        def library(q=q, k=k, v=v):
+            return F.scaled_dot_product_attention(
+                q, k[:, None], v[:, None], is_causal=True, enable_gqa=True)
+        want = flash_attention_torch(q, k, v)
+        err = float((library() - want).abs().max())
+        check(err <= SDPA_TOL[dtype],
+              f"flash {label}: SDPA is not the same function ({err})")
+        r = measure(f"flash_attention {label}",
+                    lambda q=q, k=k, v=v: flash_attention_grouped(q, k, v),
+                    lambda q=q, k=k, v=v: flash_attention_torch(q, k, v),
+                    (q, k, v), flops, hbm, peak=peak, tol=ATTN_TOL[dtype],
+                    library=library)
+        if rec:
+            records[rec] = r
+    B, KH, G, S, hd, bc = 8, 2, 6, 2080, 128, 512
+    q = randn((B, KH, G, hd), bf16)
+    k, v = randn((B, S, KH, hd), bf16), randn((B, S, KH, hd), bf16)
+    for kv_len in (2049, 2080, 1):
+        live = (k[:, :kv_len], v[:, :kv_len])
+
+        def library(kv_len=kv_len):
+            return F.scaled_dot_product_attention(
+                q.reshape(B, KH * G, 1, hd), k[:, :kv_len].transpose(1, 2),
+                v[:, :kv_len].transpose(1, 2), enable_gqa=True)
+        want = decode_attention_torch(q, k, v, kv_len=kv_len)
+        err = float((library().reshape(B, KH, G, hd) - want).abs().max())
+        check(err <= SDPA_TOL[bf16],
+              f"decode kv_len={kv_len}: SDPA is not the same function "
+              f"({err})")
+        r = measure(
+            f"decode_attention (8,2,6,128) cache 2080 kv_len={kv_len} bf16",
+            lambda kv_len=kv_len: decode_attention_partials(
+                q, k, v, kv_len=kv_len, bc=bc),
+            lambda kv_len=kv_len: decode_attention_partials_torch(
+                q, k, v, kv_len=kv_len, bc=bc),
+            (q, *live), 4 * hd * B * KH * G * kv_len, hbm,
+            peak=PEAK_BF16_FLOPS, tol=ATTN_TOL[f32], library=library)
+        if kv_len == 2049:
+            records["decode_attention"] = r
+    return records
 
 
 @phase("kernels")
@@ -353,6 +503,7 @@ def kernels(hbm):
             lambda: duct_send(*args[:4], *args[6:], capacity=C),
             lambda: duct_send_torch(*args[:4], *args[6:], capacity=C),
             args, ops, hbm)
+    records.update(attention_kernels(hbm))
     return records
 
 
@@ -534,6 +685,133 @@ def full_size():
     return launched
 
 
+# ---------------------------------------------------------------------------
+# 7. the dense LM, card vs CPU, on the reduced configs
+# ---------------------------------------------------------------------------
+#: float32 logits, card against CPU: only the order of the sums differs
+LM_F32_TOL = 1e-4
+#: bf16 logits, card against CPU, as a share of the largest logit: the
+#: card's bf16 products (cuBLAS) round in other places than the CPU's
+LM_BF16_REL = 5e-2
+
+
+@phase("lm_card_vs_cpu")
+def lm_card_vs_cpu():
+    """The reduced qwen2-1.5b (QKV bias) and qwen3-0.6b (qk_norm), 2
+    layers, from the same seeded weights on both devices: the CPU serves
+    greedily (plain attention), the card replays the CPU's tokens (teacher
+    forcing) through the kernels; logits agree at every step and, in
+    float32, the card's greedy tokens are the CPU's."""
+    B, P, T = 4, 64, 8
+    for arch in ("qwen2-1.5b", "qwen3-0.6b"):
+        for dtype in ("float32", "bfloat16"):
+            cfg = reduce_for_smoke(get_config(arch)).replace(dtype=dtype)
+            cpu = lm.cast_params_for_compute(lm.LM(cfg, seed=0, device="cpu"))
+            card = copy.deepcopy(cpu).to("cuda")
+            gen = torch.Generator().manual_seed(1)
+            prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                                    dtype=torch.int32)
+            K.reset_launches()
+            want = serve.serve(cpu, prompts, T)
+            check(sum(K.LAUNCHES.values()) == 0,
+                  f"{arch}: the CPU run launched kernels")
+            logits, caches = lm.prefill_step(card, prompts.cuda(), P + T)
+            got = [logits[:, -1]]
+            for i in range(T - 1):
+                tok = want.seqs[:, i:i + 1].cuda()
+                nxt, logits, caches = lm.decode_step(card, tok, caches,
+                                                     P + i)
+                got.append(logits[:, -1])
+                if dtype == "float32":
+                    check(torch.equal(nxt.cpu()[:, 0], want.seqs[:, i + 1]),
+                          f"{arch}: greedy token {i + 1} differs on the card")
+            torch.cuda.synchronize()
+            launches = dict(K.LAUNCHES)
+            check(launches["flash_attention"] == cfg.num_layers and
+                  launches["decode_attention"] == cfg.num_layers * (T - 1),
+                  f"{arch} {dtype}: launches {launches}")
+            check(all(bool(torch.isfinite(g).all()) for g in got),
+                  f"{arch} {dtype}: non-finite logits on the card")
+            # stacked, so that a NaN at any step makes the max NaN
+            err = float(torch.stack([(g.cpu() - w).abs().max()
+                                     for g, w in zip(got, want.logits)]).max())
+            scale = float(torch.stack([w.abs().max()
+                                       for w in want.logits]).max())
+            if dtype == "float32":
+                check(err <= LM_F32_TOL,
+                      f"{arch}: card logits differ by {err}")
+            else:
+                check(err <= LM_BF16_REL * scale,
+                      f"{arch} bf16: card logits differ by {err} "
+                      f"(largest logit {scale})")
+            print(f"{cfg.name} {dtype}: {T} steps, card == CPU (max "
+                  f"|logit difference| {err:.3g}, largest logit "
+                  f"{scale:.3g}); launches flash {launches['flash_attention']}"
+                  f" decode {launches['decode_attention']}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 8. the dense LM at full width: qwen2-1.5b serving 8 x (2048 + 32)
+# ---------------------------------------------------------------------------
+#: prefill of prompt + k tokens against decode step k, bf16, as a share of
+#: the largest logit: two different kernels and cuBLAS shapes round the
+#: 28 layers' bf16 products in different places
+CROSS_REL = 5e-2
+
+
+@phase("lm_full_size")
+def lm_full_size():
+    """qwen2-1.5b at full width through the serving entry point, launch
+    counters zeroed just before it and read just after it.  Returns each
+    attention kernel's launches on that path."""
+    argv = ["--arch", "qwen2-1.5b", "--batch", "8", "--prompt-len", "2048",
+            "--tokens", "32", "--device", "cuda", "--seed", "0"]
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    model, prompts, res = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    cfg = model.cfg
+    L, T = cfg.num_layers, res.seqs.shape[1]
+    check(launches["flash_attention"] == L,
+          f"qwen2-1.5b: {launches['flash_attention']} flash launches, "
+          f"expected {L}")
+    check(launches["decode_attention"] == L * (T - 1),
+          f"qwen2-1.5b: {launches['decode_attention']} decode launches, "
+          f"expected {L} x {T - 1}")
+    check(all(bool(torch.isfinite(x).all()) for x in res.logits),
+          "qwen2-1.5b: non-finite logits")
+    check(tuple(res.seqs.shape) == (8, 32), f"seqs {tuple(res.seqs.shape)}")
+    print(f"full size qwen2-1.5b bf16 serve 8x(2048+32): prefill "
+          f"{res.prefill_ms:.1f} ms, decode {res.decode_ms_per_token:.3f} "
+          f"ms/token, {res.tokens_per_s:.1f} tokens/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB, launches {launches}", flush=True)
+    again = serve.serve(model, prompts, T)
+    check(torch.equal(again.seqs, res.seqs),
+          "qwen2-1.5b: a second serve gave other tokens")
+    print(f"second serve: same tokens (prefill {again.prefill_ms:.1f} ms, "
+          f"decode {again.decode_ms_per_token:.3f} ms/token)", flush=True)
+    for k in (1, T - 1):
+        full = torch.cat([prompts, res.seqs[:, :k]], dim=1)
+        logits, _ = lm.prefill_step(model, full)
+        want = res.logits[k]
+        err = float((logits[:, -1] - want).abs().max())
+        scale = float(want.abs().max())
+        same = float((logits[:, -1].argmax(-1) == want.argmax(-1))
+                     .float().mean())
+        check(err <= CROSS_REL * scale,
+              f"prefill of prompt + {k} tokens vs decode step {k}: logits "
+              f"differ by {err} (largest {scale})")
+        print(f"prefill {full.shape[1]} tokens vs decode step {k}: max "
+              f"|logit difference| {err:.4g} of largest {scale:.4g}, greedy "
+              f"tokens agree on {same:.3f} of the batch", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches["flash_attention"],
+            "decode_attention": launches["decode_attention"]}
+
+
 #: each kernel entry point of the kernels JSON line: (name, kernel source
 #: key, TPU kernel it replaces)
 ENTRIES = (
@@ -547,6 +825,10 @@ ENTRIES = (
      "src/repro/kernels/duct_exchange/kernel.py:197"),
     ("duct_exchange", "duct_exchange",
      "src/repro/kernels/duct_exchange/kernel.py:31"),
+    ("flash_attention", "flash_attention",
+     "src/repro/kernels/flash_attention/kernel.py:20"),
+    ("decode_attention", "decode_attention",
+     "src/repro/kernels/decode_attention/kernel.py:19"),
 )
 
 
@@ -561,17 +843,18 @@ def main():
     oracle()
     card_vs_cpu()
     launched = full_size()
+    lm_card_vs_cpu()
+    launched.update(lm_full_size())
     kernels_line = []
     for entry, kname, replaces in ENTRIES:
         rec = records[entry]
         kernels_line.append(dict(
             name=entry, route="cuda",
-            source=f"src/repro_torch/kernels/duct_exchange/csrc/"
-                   f"{K.SOURCES[kname]}",
+            source=f"src/repro_torch/kernels/{K.SOURCES[kname]}",
             replaces=replaces, launches=launched[entry],
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=None))
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
     print("phases: " + ", ".join(f"{p} {t:.1f}s" for p, t in PHASES))
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -1,0 +1,22 @@
+"""Architecture registry of the port — importing this package registers the
+configs copied so far: the dense family, the one the serving path runs.
+The other families' configs come with their slices (ROADMAP Queue 1)."""
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
+    ModelConfig,
+    ShapeConfig,
+    get_config,
+    list_configs,
+    register,
+    shape_applicable,
+)
+
+# importing each module registers its CONFIG
+from repro_torch.configs import (  # noqa: F401
+    minitron_8b,
+    qwen2_1p5b,
+    qwen25_3b,
+    qwen3_0p6b,
+)
+
+ARCHS = list_configs()

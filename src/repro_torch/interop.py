@@ -1,5 +1,6 @@
 """Carry state across: a vectorized engine's window carry between numpy
-and the torch engine.
+and the torch engine, and an LM's weights and KV caches between the
+reference's pytrees (as numpy arrays) and the port's modules.
 
 The reference engine's carry, after ``jax.device_get``, is a dict of numpy
 arrays (the application state nested under ``"app"``); the torch engine's
@@ -15,7 +16,7 @@ narrows int64 back to uint32.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -52,3 +53,90 @@ def carry_to_numpy(carry) -> Dict:
     int64 returned to the reference's uint32."""
     return {k: (carry_to_numpy(v) if isinstance(v, dict) else _to_numpy(v))
             for k, v in carry.items()}
+
+
+# ---------------------------------------------------------------------------
+# LM weights and caches (the model modules are imported inside the
+# functions: they import the engine module, which imports this one)
+# ---------------------------------------------------------------------------
+def _array(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor; bfloat16 (which numpy holds only
+    through an extension dtype) goes through an exact float32 copy."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.as_tensor(np.array(a, copy=True))
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def params_from_numpy(params_np, cfg, device):
+    """The reference's ``lm.init_params`` pytree, as numpy arrays, as the
+    port's ``LM`` on ``device``.  The reference stacks each period
+    position's layers as ``(P, ...)`` arrays in a tuple over positions;
+    layer ``period * len(specs) + position`` of the port's stack gets slice
+    ``period`` of position ``position``."""
+    from repro_torch.models.lm import LM
+    from repro_torch.models.transformer import block_specs
+
+    model = LM(cfg, device=device)
+    state = model.state_dict()
+    n_pos = len(block_specs(cfg))
+    flat = _flatten({k: v for k, v in params_np.items() if k != "stack"})
+    for pos, stacked in enumerate(params_np["stack"]):
+        for name, arr in _flatten(stacked).items():
+            for period in range(arr.shape[0]):
+                flat[f"stack.blocks.{period * n_pos + pos}.{name}"] = \
+                    arr[period]
+    missing = sorted(set(state) - set(flat))
+    extra = sorted(set(flat) - set(state))
+    if missing or extra:
+        raise ValueError(f"params do not match {cfg.name}: missing "
+                         f"{missing}, unexpected {extra}")
+    with torch.no_grad():
+        for name, t in state.items():
+            src = _array(flat[name])
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)}, "
+                                 f"expected {tuple(t.shape)}")
+            t.copy_(src)
+    return model
+
+
+def caches_from_numpy(caches_np, cfg, device) -> List[Dict[str, torch.Tensor]]:
+    """The reference's stacked caches (a tuple over period positions of
+    {"k", "v"} arrays ``(P, B, S, KH, hd)``) as the port's per-layer list
+    of {"k", "v"} ``(B, S, KH, hd)`` tensors on ``device``."""
+    from repro_torch.models.transformer import block_specs
+
+    n_pos = len(block_specs(cfg))
+    P = cfg.num_layers // n_pos
+    return [{name: _array(caches_np[i % n_pos][name][i // n_pos]).to(device)
+             for name in ("k", "v")}
+            for i in range(P * n_pos)]
+
+
+def caches_to_numpy(caches, cfg) -> Tuple[Dict[str, np.ndarray], ...]:
+    """The port's per-layer caches stacked as the reference's tuple over
+    period positions of ``(P, B, S, KH, hd)`` arrays; bfloat16 comes back
+    as float32 (exact)."""
+    from repro_torch.models.transformer import block_specs
+
+    n_pos = len(block_specs(cfg))
+
+    def arr(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tuple({name: np.stack([arr(caches[i][name])
+                                  for i in range(pos, len(caches), n_pos)])
+                  for name in ("k", "v")}
+                 for pos in range(n_pos))

@@ -1,3 +1,5 @@
 """Hand-written CUDA kernels of the port, each beside its plain torch
-version.  ``duct_exchange`` holds the dense duct layout's window and
-commit ops."""
+version.  ``duct_exchange`` holds the duct layouts' window, commit and
+exchange ops, ``flash_attention`` and ``decode_attention`` the LM's
+prefill and decode attention; ``build`` builds, loads and counts the
+launches of all five kernels."""

@@ -1,0 +1,176 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Every kernel package keeps its sources under its own ``csrc/``; each source
+is compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+interface, loaded with ctypes.  The libraries are built on first use into
+``build/`` at the repository root, named by a hash of their source so an
+edited source is rebuilt; ``build()`` compiles every missing one with one
+``nvcc`` per source, all started together.
+
+``LAUNCHES`` counts the launches of each kernel since the last
+``reset_launches()``; ``launch`` adds one exactly where it launches a
+kernel, and nowhere else adds to it.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from collections.abc import Mapping
+from pathlib import Path
+from typing import Dict, Iterable, Sequence, Tuple
+
+import torch
+
+_KERNELS = Path(__file__).resolve().parent
+
+#: kernel name -> its source, relative to src/repro_torch/kernels/
+SOURCES = {
+    "duct_window": "duct_exchange/csrc/duct_window.cu",
+    "duct_commit": "duct_exchange/csrc/duct_commit.cu",
+    "duct_exchange": "duct_exchange/csrc/duct_exchange.cu",
+    "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "decode_attention": "decode_attention/csrc/decode_attention.cu",
+}
+
+#: launches per kernel since the last reset_launches()
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: build/ at the repository root (src/repro_torch/kernels/..)
+BUILD_DIR = _KERNELS.parents[2] / "build"
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+class LaunchCounts(Mapping):
+    """The launch counts of some of the kernels: a live read-only view of
+    ``LAUNCHES``."""
+
+    def __init__(self, names: Iterable[str]):
+        self._names = tuple(names)
+
+    def __getitem__(self, name: str) -> int:
+        if name not in self._names:
+            raise KeyError(name)
+        return LAUNCHES[name]
+
+    def __iter__(self):
+        return iter(self._names)
+
+    def __len__(self) -> int:
+        return len(self._names)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def source_path(name: str) -> Path:
+    return _KERNELS / SOURCES[name]
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(source_path(name).read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in /usr/local/cuda/bin): the "
+            "CUDA kernels are compiled from source on first use")
+    return path
+
+
+def build(names: Iterable[str] = tuple(SOURCES)) -> float:
+    """Compile every kernel in ``names`` whose library is missing, one
+    ``nvcc`` per source, all started together.  Returns wall seconds."""
+    t0 = time.perf_counter()
+    todo = [(n, library_path(n)) for n in names]
+    todo = [(n, out) for n, out in todo if not out.exists()]
+    if not todo:
+        return time.perf_counter() - t0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[name]}:\n{err}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """Kernel ``name``'s library, built if missing, with each entry point
+    of ``signatures`` given its ctypes argument types and an int result
+    (the CUDA error code of the launch)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        for entry, argtypes in signatures.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check_tensor(x: torch.Tensor, name: str, shape: Tuple[int, ...], dtype,
+                 device: torch.device) -> None:
+    """Raise unless ``x`` lies on ``device`` with this dtype and shape and
+    is contiguous."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(fn, tensors, scalars, device: torch.device, kernel: str) -> None:
+    """Call launcher ``fn`` with the tensors' pointers, the scalars and the
+    current stream; raise if it reports a CUDA error, else count the
+    launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*[t.data_ptr() for t in tensors], *scalars, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed with CUDA error "
+                           f"{err}")
+    LAUNCHES[kernel] += 1
+
+
+def device_kind(t: torch.Tensor, what: str) -> str:
+    """``"cpu"`` (the plain torch version) or ``"cuda"`` (the hand-written
+    kernel) for ``t``'s device; any other device raises."""
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(
+            f"{what} run on cpu (plain torch) or cuda (hand-written "
+            f"kernel); got a tensor on {t.device}")
+    return kind

@@ -18,10 +18,8 @@ The two dense kernels take int32 (graph coloring) or float32 (evo)
 payloads, one entry point each, picked by the payload's dtype; the
 edge-major kernel carries no payload.  All three are bound by bytes moved
 (integer compares and copies over the ring state); the headers of the
-sources give the design.  The libraries are built on first use into
-``build/`` at the repository root, named by a hash of their source so an
-edited source is rebuilt; ``build()`` compiles every missing one with one
-``nvcc`` per source, all started together.
+sources give the design.  ``repro_torch.kernels.build`` builds the
+libraries on first use, loads them and counts the launches.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, allocate the outputs with ``torch.empty``, launch on the
@@ -32,32 +30,23 @@ to the plain torch versions before anything here is reached.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import Dict, Iterable, Tuple
 
 import torch
 
-#: kernel name -> source file under csrc/
-SOURCES = {"duct_window": "duct_window.cu", "duct_commit": "duct_commit.cu",
-           "duct_exchange": "duct_exchange.cu"}
+from repro_torch.kernels.build import (  # noqa: F401
+    LaunchCounts,
+    build,
+    check_tensor as _check,
+    launch,
+    load,
+    reset_launches,
+)
 
-#: launches per kernel since the last reset_launches(); a wrapper adds one
-#: exactly where it launches its kernel
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+#: this package's kernels (their sources are keyed in ``build.SOURCES``)
+KERNELS = ("duct_window", "duct_commit", "duct_exchange")
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-
-_CSRC = Path(__file__).resolve().parent / "csrc"
-#: build/ at the repository root (src/repro_torch/kernels/duct_exchange/..)
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
-
-_LIBS: Dict[str, ctypes.CDLL] = {}
+#: the duct kernels' launch counts: a live view of ``build.LAUNCHES``
+LAUNCHES = LaunchCounts(KERNELS)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,65 +68,8 @@ _ENTRY_POINTS = {
 _PAYLOAD_SUFFIX = {torch.int32: "i32", torch.float32: "f32"}
 
 
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def library_path(name: str) -> Path:
-    src = _CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError(
-            "nvcc not found (looked on PATH and in /usr/local/cuda/bin): the "
-            "CUDA duct kernels are compiled from source on first use")
-    return path
-
-
-def build(names: Iterable[str] = tuple(SOURCES)) -> float:
-    """Compile every kernel in ``names`` whose library is missing, one
-    ``nvcc`` per source, all started together.  Returns wall seconds."""
-    t0 = time.perf_counter()
-    todo = [(n, library_path(n)) for n in names]
-    todo = [(n, out) for n, out in todo if not out.exists()]
-    if not todo:
-        return time.perf_counter() - t0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = []
-    for name, out in todo:
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / SOURCES[name])]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
-    for name, out, tmp, proc in procs:
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{SOURCES[name]}:\n{err}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return time.perf_counter() - t0
-
-
 def _lib(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        for entry in _ENTRY_POINTS[name]:
-            fn = getattr(lib, entry)
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+    return load(name, {e: _ARGTYPES[name] for e in _ENTRY_POINTS[name]})
 
 
 def _payload_entry(name: str, q_pay: torch.Tensor):
@@ -148,29 +80,6 @@ def _payload_entry(name: str, q_pay: torch.Tensor):
         raise TypeError(f"{name}_cuda takes int32 or float32 payloads, got "
                         f"{q_pay.dtype}")
     return getattr(_lib(name), f"{name}_{suffix}")
-
-
-def _check(x: torch.Tensor, name: str, shape: Tuple[int, ...], dtype,
-           device: torch.device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _launch(fn, tensors, ints, device: torch.device, kernel: str) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*[t.data_ptr() for t in tensors], *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed with CUDA error "
-                           f"{err}")
-    LAUNCHES[kernel] += 1
 
 
 def duct_window_cuda(q_avail, q_touch, q_pay, head, size,
@@ -216,7 +125,7 @@ def duct_window_cuda(q_avail, q_touch, q_pay, head, size,
     outs = (out((n, d, C), f32), out((n, d, C), i32), out((n, d, C, L), pay),
             out((n, d), i32), out((n, d), i32), out((n, d), i32),
             out((n, d), i32), out((n, 4, L), pay), out((n, 4), b8))
-    _launch(fn,
+    launch(fn,
             (q_avail, q_touch, q_pay, head, size, push_pos, push_acc,
              push_avail, push_touch, push_pay, recv_now, recv_active) + outs,
             (n, d, C, L, max_pops), dev, "duct_window")
@@ -250,7 +159,7 @@ def duct_commit_cuda(q_avail, q_touch, q_pay, head, size0, pb_cnt,
     outs = (torch.empty((R, C), dtype=f32, device=dev),
             torch.empty((R, C), dtype=i32, device=dev),
             torch.empty((R, C, L), dtype=pay, device=dev))
-    _launch(fn,
+    launch(fn,
             (q_avail, q_touch, q_pay, head, size0, pb_cnt, pb_avail,
              pb_touch, pb_pay) + outs,
             (R, C, W, L), dev, "duct_commit")
@@ -288,7 +197,7 @@ def duct_exchange_cuda(q_avail, q_touch, head, size, recv_now, recv_active,
 
     outs = (out((E, C), f32), out((E, C), i32), out(E, i32), out(E, i32),
             out(E, i32), out(E, i32), out(E, i32), out(E, b8), out(E, i32))
-    _launch(_lib("duct_exchange").duct_exchange,
+    launch(_lib("duct_exchange").duct_exchange,
             (q_avail, q_touch, head, size, recv_now, recv_active, send_now,
              send_active, send_lat, send_touch) + outs,
             (E, C, capacity, max_pops), dev, "duct_exchange")

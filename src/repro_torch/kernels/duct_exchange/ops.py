@@ -26,6 +26,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.build import device_kind
+
 
 class DrainResult(NamedTuple):
     q_avail: torch.Tensor     # (E, C)
@@ -240,12 +242,7 @@ def duct_commit_torch(q_avail, q_touch, q_pay, head, size0, pb_cnt,
 
 
 def _device_kind(t: torch.Tensor) -> str:
-    kind = t.device.type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(
-            f"duct ops run on cpu (plain torch) or cuda (hand-written "
-            f"kernel); got a tensor on {t.device}")
-    return kind
+    return device_kind(t, "duct ops")
 
 
 def duct_window(q_avail, q_touch, q_pay, head, size,

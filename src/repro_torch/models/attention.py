@@ -1,0 +1,109 @@
+"""Grouped-query attention: prefill (causal, whole sequence) and single-token
+decode against a preallocated KV cache.  The counterpart of
+src/repro/models/attention.py.
+
+The reference computes attention in jnp; its Pallas kernels compute the
+same function.  Here attention goes through the port's kernels: prefill
+through ``flash_attention`` and decode through ``decode_attention``, which
+on a CUDA tensor are the hand-written CUDA kernels and on a CPU tensor
+their plain torch versions.  So scores, probabilities and the accumulator
+stay in float32 and only the output is rounded to the compute dtype, where
+the reference model also rounds the scores and the probabilities to it
+(ROADMAP Queue 3, known differences).  The reference's sharding
+constraints are no-ops on one device and are left out.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import layers
+
+#: keys per flash-decoding chunk (the reference kernel's default)
+DECODE_CHUNK = 512
+
+
+class Attention(nn.Module):
+    """Projections (q, k, v, o; optional QKV bias and q/k RMSNorm) of one
+    attention layer; weights are (in, out) as in the reference."""
+
+    def __init__(self, gen: torch.Generator, cfg, dtype):
+        super().__init__()
+        d, H, KH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+        dev = gen.device
+        self.cfg = cfg
+        self.wq = layers.param(layers.dense_init(gen, d, H * hd, dtype))
+        self.wk = layers.param(layers.dense_init(gen, d, KH * hd, dtype))
+        self.wv = layers.param(layers.dense_init(gen, d, KH * hd, dtype))
+        self.wo = layers.param(layers.dense_init(gen, H * hd, d, dtype))
+        if cfg.qkv_bias:
+            self.bq = layers.zeros(H * hd, dtype, dev)
+            self.bk = layers.zeros(KH * hd, dtype, dev)
+            self.bv = layers.zeros(KH * hd, dtype, dev)
+        if cfg.qk_norm:
+            self.q_norm = layers.zeros(hd, dtype, dev)
+            self.k_norm = layers.zeros(hd, dtype, dev)
+
+    def project_qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        """Returns q: (B,S,KH,G,hd), k/v: (B,S,KH,hd)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+        dt = x.dtype
+        q = x @ self.wq.to(dt)
+        k = x @ self.wk.to(dt)
+        v = x @ self.wv.to(dt)
+        if cfg.qkv_bias:
+            q = q + self.bq.to(dt)
+            k = k + self.bk.to(dt)
+            v = v + self.bv.to(dt)
+        q = q.reshape(B, S, H, hd)
+        k = k.reshape(B, S, KH, hd)
+        v = v.reshape(B, S, KH, hd)
+        if cfg.qk_norm:
+            q = layers.head_rms_norm(q, self.q_norm, cfg.norm_eps)
+            k = layers.head_rms_norm(k, self.k_norm, cfg.norm_eps)
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+        return q.reshape(B, S, KH, H // KH, hd), k, v
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """Causal self-attention over the whole sequence (prefill).
+        Returns (y, (k, v)): k/v seed the decode cache."""
+        B, S, _ = x.shape
+        q, k, v = self.project_qkv(x, positions)
+        out = flash_attention(q, k, v, causal=True)
+        out = out.reshape(B, S, self.cfg.num_heads * self.cfg.hd)
+        return out @ self.wo.to(x.dtype), (k, v)
+
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               write_idx: int) -> torch.Tensor:
+        """Single-token decode.  x: (B, 1, d); cache {"k","v"}:
+        (B, S, KH, hd).  The new token's k/v is written into the cache at
+        ``write_idx`` IN PLACE (the reference returns a new cache from
+        ``dynamic_update_slice``); attention runs over positions
+        ``<= write_idx``."""
+        cfg = self.cfg
+        B = x.shape[0]
+        positions = torch.full((B, 1), write_idx, dtype=torch.int32,
+                               device=x.device)
+        q, k_new, v_new = self.project_qkv(x, positions)
+        cache["k"][:, write_idx] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, write_idx] = v_new[:, 0].to(cache["v"].dtype)
+        k, v = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+        out = decode_attention(q[:, 0].contiguous(), k, v,
+                               kv_len=write_idx + 1, bc=DECODE_CHUNK)
+        out = out.reshape(B, 1, cfg.num_heads * cfg.hd)
+        return out @ self.wo.to(x.dtype)
+
+
+def init_kv_cache(cfg, batch: int, seq: int, dtype=torch.bfloat16,
+                  device="cuda") -> Dict[str, torch.Tensor]:
+    shape = (batch, seq, cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.modes import AsyncMode
+from repro_torch.device import resolve_device
 from repro_torch.interop import carry_to_numpy
 from repro_torch.runtime.faults import FaultModel
 from repro_torch.runtime.simulator import SimConfig, SimResult
@@ -55,19 +56,6 @@ from repro_torch.runtime.window_core import (
     make_dense_spec,
     segment_sum,
 )
-
-
-def resolve_device(device) -> torch.device:
-    """The device a torch entry point runs on: CUDA unless the caller asks
-    for the CPU.  Asking for CUDA where there is none raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' was requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' (--device cpu) to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unknown device {device!r}; use 'cuda' or 'cpu'")
-    return dev
 
 
 def _i32(x, dev) -> torch.Tensor:

@@ -387,7 +387,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         parser.error(str(e))
     if args.engine == "torch":
         # fail before any work when the card is asked for and missing
-        from repro_torch.runtime.engine_torch import resolve_device
+        from repro_torch.device import resolve_device
         resolve_device(args.device)
     families = list(FAMILIES) if args.family == "all" else [args.family]
     rows: List[dict] = []
