@@ -7,14 +7,17 @@ Run from the repository root on a machine with one NVIDIA GPU::
 It drives the port's main paths (the vectorized best-effort engine on the
 dense layout with the hand-written CUDA ``duct_window`` / ``duct_commit``
 kernels, on the edge-major layout with the ``duct_exchange`` kernel, with
-the graph-coloring app's int32 halos and the evo app's float32 halos; and
-the dense LM's serving path, prefill through the ``flash_attention`` kernel
-and greedy decode through the ``decode_attention`` kernel) and fails with
-a non-zero exit code if any phase fails:
+the graph-coloring app's int32 halos and the evo app's float32 halos; the
+dense LM's serving path, prefill through the ``flash_attention`` kernel
+and greedy decode through the ``decode_attention`` kernel; and the dense
+LM's training path in best-effort mode 3, attention through
+``flash_attention`` and the lossy cross-pod payload through the
+``quantize`` / ``dequantize`` or ``topk_compress`` kernels) and fails
+with a non-zero exit code if any phase fails:
 
   1. card      the ``nvidia-smi`` name and power limit
-  2. build     the five kernels from ``csrc/`` into ``build/`` (one nvcc
-               per source, started together)
+  2. build     the eight kernels from ``csrc/`` into ``build/`` (seven
+               sources, one nvcc each, started together)
   3. kernels   each kernel, and each float32 entry point, against its plain
                torch version on the same CUDA inputs at the main paths'
                shapes, with the device time of both (torch.profiler), their
@@ -23,7 +26,11 @@ a non-zero exit code if any phase fails:
                full and both degenerate (drain-only, send-only) forms; the
                attention kernels within a stated tolerance, with the time
                of the one PyTorch call that computes the same function
-               (``scaled_dot_product_attention``) beside them
+               (``scaled_dot_product_attention``) beside them; the
+               compression kernels bitwise at every row shape of
+               qwen2-1.5b's gradient leaves, ties and a ragged final
+               block (``q * scale`` timed beside dequantize,
+               ``torch.topk`` of |x| beside top-k)
   4. oracle    dyadic 16-process scenarios on both duct layouts: the torch
                engine on the card gives the event simulator's
                ``qos_signature``
@@ -49,6 +56,17 @@ a non-zero exit code if any phase fails:
                per step; prefill of the prompt plus k generated tokens
                gives decode step k's logits; a second serve gives the same
                tokens
+  9. train card=cpu  the reduced qwen2-1.5b and qwen3-0.6b in float32,
+               modes 0-4 at n_pods = 2 and mode 3 with int8 and with
+               top-k: 3 steps on the card (kernels) and on the CPU (plain
+               versions) from the same state agree, with exact launch
+               counts; a checkpoint saved on the card restores on the CPU
+  10. train full size  qwen2-1.5b at full width through
+               ``repro_torch.launch.train``: bf16 compute, float32
+               masters, batch 4 x seq 2048, mode 3, 6 steps with top-k
+               and 6 with int8: exact launch counts, finite and falling
+               loss; the three kernels on step 1's real gradient leaves
+               equal their plain versions
 
 It imports nothing of JAX or of the JAX package.  The line before the last
 is a JSON object with one record per kernel and float32 entry point; the
@@ -103,8 +121,24 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_grouped,
     flash_attention_torch,
 )
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch import checkpoint as ckpt  # noqa: E402
+from repro_torch.data.synthetic import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.kernels.quantize import (  # noqa: E402
+    dequantize_blocks,
+    dequantize_torch,
+    quantize_blocks,
+    quantize_torch,
+)
+from repro_torch.kernels.topk_compress import (  # noqa: E402
+    topk_compress_blocks,
+    topk_compress_torch,
+)
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+from repro_torch.optim.compression import TopKCompressor  # noqa: E402
+from repro_torch.optim.outer import OuterConfig  # noqa: E402
+from repro_torch.pytree import flatten  # noqa: E402
 from repro_torch.runtime import experiments  # noqa: E402
 from repro_torch.runtime.config import RunConfig  # noqa: E402
 from repro_torch.runtime.engine import make_engine  # noqa: E402
@@ -189,7 +223,7 @@ def build():
     secs = K.build()
     for name in K.SOURCES:
         check(K.library_path(name).exists(), f"{name} library missing")
-    check(len(K.SOURCES) == 5, f"expected five kernels, got {K.SOURCES}")
+    check(len(K.SOURCES) == 8, f"expected eight kernels, got {K.SOURCES}")
     print(f"built {sorted(K.SOURCES)} in {secs:.1f}s into {K.BUILD_DIR}")
 
 
@@ -258,21 +292,39 @@ def exchange_state(rng, E, C, dev):
 
 
 def device_ms(fn, runs=20, warmup=3):
-    """Device time per call: the CUDA kernel time torch.profiler records
-    over ``runs`` calls, divided by ``runs``.  Host-side launch overhead is
-    excluded, so a small kernel is not timed as its wrapper's Python."""
+    """(device time per call, how it was taken).  The CUDA kernel time
+    torch.profiler records over ``runs`` calls, divided by ``runs``:
+    host-side launch overhead is excluded, so a small kernel is not timed
+    as its wrapper's Python ("profiler").  A trace that records no device
+    time at all (the card's tracing sometimes delivers no kernel records)
+    is taken again, up to three times; after that, CUDA events around
+    ``runs`` back-to-back calls time it instead, launch overhead included
+    ("events"), and the kernel's record says so."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(us > 0, "torch.profiler recorded no device time")
-    return us / 1e3 / runs
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / runs, "profiler"
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(runs):
+        fn()
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / runs
+    check(ms > 0, "neither torch.profiler nor CUDA events timed the call")
+    print(f"torch.profiler recorded no device time in three traces; CUDA "
+          f"events time the call at {ms:.4f} ms", flush=True)
+    return ms, "events"
 
 
 def call_ms(fn, runs=30, warmup=3):
@@ -338,7 +390,9 @@ def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
     elements, or with ``tol = (rtol, atol)`` every element within it), time
     both (device time, and per call with the launch overhead), time
     ``library`` (the one PyTorch call that computes the same function,
-    where there is one), and compute the bound for the same work: each
+    where there is one), record how each of the three device times was
+    taken (``*_by``: "profiler" or "events", see ``device_ms``), and
+    compute the bound for the same work: each
     input read once and each output written once over the HBM rate, or
     the operations over ``peak``, whichever is longer."""
     want = fields(run_plain())
@@ -353,10 +407,10 @@ def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
         check(bad == 0, f"{label}: {bad} elements outside rtol, atol = "
                         f"{tol} (max |difference| {err:.3g})")
         agree = f"max |difference| {err:.3g} within rtol, atol = {tol}"
-    ms = device_ms(run_kernel)
-    plain = device_ms(run_plain)
+    ms, ms_by = device_ms(run_kernel)
+    plain, plain_by = device_ms(run_plain)
     call, plain_call = call_ms(run_kernel), call_ms(run_plain)
-    lib = device_ms(library) if library is not None else None
+    lib, lib_by = device_ms(library) if library is not None else (None, None)
     moved = nbytes(*inputs) + nbytes(*got)
     t_bytes, t_ops = moved / hbm, ops / peak
     bound = max(t_bytes, t_ops) * 1e3
@@ -369,7 +423,8 @@ def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
           flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=lib)
+                library_ms=lib, ms_by=ms_by, plain_ms_by=plain_by,
+                library_ms_by=lib_by)
 
 
 #: attention tolerances (rtol, atol) against the plain versions on the
@@ -451,6 +506,112 @@ def attention_kernels(hbm):
     return records
 
 
+def grad_rows(gen, nb, block, dev, ties=False):
+    """Gradient-like float32 rows made on the card: magnitudes spanning
+    1e-12 to 1e2 by row; with ``ties``, few distinct magnitudes of both
+    signs, and zeros."""
+    mag = 10.0 ** (torch.rand((nb, 1), generator=gen, device=dev) * 14 - 12)
+    x = torch.randn((nb, block), generator=gen, device=dev) * mag
+    if ties:
+        x = torch.round(x / mag * 2) / 2 * mag
+        x[:, ::7] = -x[:, ::7]
+        x[:, ::5] = 0.0
+    return x
+
+
+def held(label, got, want):
+    """Check one kernel call against its plain version: 0 mismatching
+    elements over every output field."""
+    bad, _ = compare(tuple(want), tuple(got))
+    check(bad == 0, f"{label}: {bad} mismatching elements")
+    print(f"{label}: 0 mismatches", flush=True)
+
+
+#: the top-k rows of qwen2-1.5b's gradient leaves, as TopKCompressor cuts
+#: them: (label, nb, block, k)
+TOPK_ROWS = [("gate/up/down (28,13762560) k=137625", 28, 13762560, 137625),
+             ("wq/wo (28,2359296) k=23592", 28, 2359296, 23592),
+             ("wk/wv (28,393216) k=3932", 28, 393216, 3932),
+             ("embed (151936,1536) k=15", 151936, 1536, 15),
+             ("norms/bq (28,1536) k=15", 28, 1536, 15),
+             ("bk/bv (28,256) k=2", 28, 256, 2),
+             ("final_norm (1,1536) k=15", 1, 1536, 15)]
+#: the int8 rows of qwen2-1.5b's gradient leaves: (label, nb, block)
+QUANT_ROWS = [("gate/up (43008,8960)", 43008, 8960),
+              ("down (250880,1536)", 250880, 1536),
+              ("embed (151936,1536)", 151936, 1536),
+              ("wq/wo (43008,1536)", 43008, 1536),
+              ("wk/wv (43008,256)", 43008, 256),
+              ("norms/bq (28,1536)", 28, 1536),
+              ("bk/bv (28,256)", 28, 256),
+              ("final_norm padded (2,1024)", 2, 1024)]
+
+
+def compress_kernels(hbm):
+    """quantize, dequantize and topk_compress at the training path's
+    shapes (qwen2-1.5b's float32 gradient leaves, cut into rows as the
+    compressors cut them), bitwise against their plain versions; the
+    largest shape of each is timed.  Plus ties and a ragged final
+    block."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2026)
+    records = {}
+    for i, (label, nb, block) in enumerate(QUANT_ROWS):
+        x = grad_rows(gen, nb, block, dev)
+        if i == 0:
+            n = x.numel()
+            q, scale = quantize_torch(x)
+            records["quantize"] = measure(
+                f"quantize {label} f32 +residual",
+                lambda: quantize_blocks(x, residual=True),
+                lambda: quantize_torch(x, residual=True), (x,), 4 * n, hbm)
+            # int8 times float32 promotes to float32 (exact for int8)
+            # and rounds once: the plain version's q.float() * scale
+            held(f"dequantize {label} library call q * scale",
+                 (q * scale,), (dequantize_torch(q, scale),))
+            records["dequantize"] = measure(
+                f"dequantize {label}", lambda: dequantize_blocks(q, scale),
+                lambda: dequantize_torch(q, scale), (q, scale), n, hbm,
+                library=lambda: q * scale)
+            acc = grad_rows(gen, nb, block, dev)
+            held(f"dequantize {label} accumulate",
+                 (dequantize_blocks(q, scale, out=acc.clone()),),
+                 (dequantize_torch(q, scale, out=acc.clone()),))
+            del q, scale, acc
+        else:
+            held(f"quantize {label} f32 +residual",
+                 quantize_blocks(x, residual=True),
+                 quantize_torch(x, residual=True))
+        del x
+    x = grad_rows(gen, 1000, 3000, dev, ties=True)
+    held("quantize (1000,3000) ties", quantize_blocks(x, residual=True),
+         quantize_torch(x, residual=True))
+    ragged = F.pad(x.reshape(-1)[:1536 * 1000 + 77], (0, 1024 - 77 % 1024))
+    ragged = ragged.reshape(-1, 1024)
+    held("quantize ragged final block", quantize_blocks(ragged, residual=True),
+         quantize_torch(ragged, residual=True))
+    for i, (label, nb, block, k) in enumerate(TOPK_ROWS):
+        x = grad_rows(gen, nb, block, dev)
+        if i == 0:
+            records["topk_compress"] = measure(
+                f"topk_compress {label} f32",
+                lambda: topk_compress_blocks(x, k),
+                lambda: topk_compress_torch(x, k), (x,), x.numel(), hbm,
+                library=lambda: torch.topk(x.abs(), k, dim=-1))
+        else:
+            held(f"topk_compress {label} f32", topk_compress_blocks(x, k),
+                 topk_compress_torch(x, k))
+        del x
+    for label, nb, block, k in (("(100,70001) k=700 ties", 100, 70001, 700),
+                                ("(500,1000) k=1000 ties", 500, 1000, 1000)):
+        x = grad_rows(gen, nb, block, dev, ties=True)
+        held(f"topk_compress {label}", topk_compress_blocks(x, k),
+             topk_compress_torch(x, k))
+    torch.cuda.empty_cache()
+    return records
+
+
 @phase("kernels")
 def kernels(hbm):
     dev = torch.device("cuda")
@@ -504,6 +665,7 @@ def kernels(hbm):
             lambda: duct_send_torch(*args[:4], *args[6:], capacity=C),
             args, ops, hbm)
     records.update(attention_kernels(hbm))
+    records.update(compress_kernels(hbm))
     return records
 
 
@@ -812,6 +974,218 @@ def lm_full_size():
             "decode_attention": launches["decode_attention"]}
 
 
+# ---------------------------------------------------------------------------
+# 9. dense training, card vs CPU, on the reduced configs
+# ---------------------------------------------------------------------------
+#: card against CPU, float32, after TRAIN_STEPS steps from the same state:
+#: the losses within 1e-5 relative, grad norms within 1e-4, every
+#: parameter within 5% of the steps' summed learning rates (AdamW scales
+#: each entry's update by its own gradient's size, so an entry whose
+#: gradient is float32 noise moves by its last bits; the CPU tests hold
+#: the port to the reference the same way), and without a compressor the
+#: moments and ``others`` within 1e-4 of each leaf's largest magnitude
+#: (with one, a gradient that differs in its last bits may flip a
+#: quantization level or a top-k choice)
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-5, 1e-4
+TRAIN_MOVE, TRAIN_STATE = 0.05, 1e-4
+TRAIN_STEPS, TRAIN_PODS, TRAIN_B, TRAIN_S = 3, 2, 4, 64
+TRAIN_CASES = [(0, None), (1, None), (2, None), (3, None), (3, "int8"),
+               (3, "topk"), (4, None)]
+
+
+def smoke_batches(cfg, steps, start=0):
+    src = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=2))
+    return [{k: torch.as_tensor(v).reshape(TRAIN_PODS, -1, TRAIN_S)
+             for k, v in src.batch_for_step(i).items()}
+            for i in range(start, start + steps)]
+
+
+def to_device(state, dev):
+    if isinstance(state, dict):
+        return {k: to_device(v, dev) for k, v in state.items()}
+    return state.to(dev)
+
+
+def state_agrees(label, got, want, lr_sum, compressed):
+    """Card state (got) against CPU state (want), at the tolerances
+    above; returns the largest parameter difference."""
+    want, got = flatten(want), flatten(got)
+    worst = 0.0
+    for k, w in want.items():
+        d = float((got[k].cpu().double() - w.double()).abs().max())
+        if k.startswith(("params/", "outer/")):
+            check(d <= TRAIN_MOVE * lr_sum,
+                  f"{label}: {k} differs by {d} (lr sum {lr_sum})")
+            worst = max(worst, d)
+        elif not compressed or k in ("step", "opt/step"):
+            scale = float(w.double().abs().max())
+            check(d <= TRAIN_STATE * max(scale, 1e-30),
+                  f"{label}: {k} differs by {d} (largest {scale})")
+    return worst
+
+
+def leaves_per_pod_step(cfg):
+    return len(lm.init_params(cfg, device="cpu"))
+
+
+@phase("train_card_vs_cpu")
+def train_card_vs_cpu():
+    """The reduced qwen2-1.5b and qwen3-0.6b, float32, every mode at
+    n_pods = 2 and mode 3 with each compressor: TRAIN_STEPS steps on the
+    CPU (plain versions) and on the card (kernels) from the same state
+    agree; the card's launches are counted.  Then a checkpoint saved on
+    the card restores on the CPU bitwise and both continue alike."""
+    adamw = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    for arch in ("qwen2-1.5b", "qwen3-0.6b"):
+        cfg = reduce_for_smoke(get_config(arch)).replace(dtype="float32")
+        leaves = leaves_per_pod_step(cfg)
+        for mode, comp in TRAIN_CASES:
+            spec = train.TrainSpec(mode=AsyncMode(mode), compressor=comp,
+                                   adamw=adamw,
+                                   outer=OuterConfig(sync_period=2))
+            label = f"{cfg.name} mode {mode} {comp or 'plain'}"
+            cpu = train.init_train_state(cfg, spec, TRAIN_PODS, seed=0,
+                                         device="cpu")
+            card = to_device(cpu, "cuda")
+            step = train.make_train_step(cfg, spec, TRAIN_PODS)
+            lr_sum = 0.0
+            K.reset_launches()
+            for b in smoke_batches(cfg, TRAIN_STEPS):
+                card, got = step(card, to_device(b, "cuda"))
+                cpu, want = step(cpu, b)
+                lr_sum += float(want["lr"])
+                gl, wl = float(got["loss"]), float(want["loss"])
+                check(abs(gl / wl - 1) <= TRAIN_LOSS_RTOL,
+                      f"{label}: loss {gl} on the card, {wl} on the CPU")
+                gn, wn = float(got["grad_norm"]), float(want["grad_norm"])
+                check(abs(gn / wn - 1) <= TRAIN_NORM_RTOL,
+                      f"{label}: grad norm {gn} vs {wn}")
+            torch.cuda.synchronize()
+            launches = dict(K.LAUNCHES)
+            per = TRAIN_STEPS * TRAIN_PODS
+            want_l = {n: 0 for n in launches}
+            want_l["flash_attention"] = 2 * cfg.num_layers * per
+            if comp == "int8":
+                want_l["quantize"] = want_l["dequantize"] = leaves * per
+            elif comp == "topk":
+                want_l["topk_compress"] = leaves * per
+            check(launches == want_l,
+                  f"{label}: launches {launches}, expected {want_l}")
+            worst = state_agrees(label, card, cpu, lr_sum, comp is not None)
+            used = {k: v for k, v in launches.items() if v}
+            print(f"{label}: {TRAIN_STEPS} steps card == CPU (loss "
+                  f"{wl:.6f}, largest parameter difference {worst:.3g}); "
+                  f"launches {used}", flush=True)
+    # a checkpoint from the card continues on the CPU
+    spec = train.TrainSpec(mode=AsyncMode.BEST_EFFORT, compressor="topk",
+                           adamw=adamw)
+    d = os.path.join(REPO, "build", "chip_smoke_ckpt")
+    card = to_device(train.init_train_state(cfg, spec, TRAIN_PODS,
+                                            device="cpu"), "cuda")
+    step = train.make_train_step(cfg, spec, TRAIN_PODS)
+    for b in smoke_batches(cfg, 2):
+        card, _ = step(card, to_device(b, "cuda"))
+    ckpt.save(d, card, 2)
+    cpu = ckpt.restore(d, 2, to_device(card, "cpu"))
+    for k, v in flatten(card).items():
+        check(torch.equal(flatten(cpu)[k], v.cpu()),
+              f"checkpoint: {k} differs after the round trip")
+    b = smoke_batches(cfg, 1, start=2)[0]
+    card, got = step(card, to_device(b, "cuda"))
+    cpu, want = step(cpu, b)
+    check(abs(float(got["loss"]) / float(want["loss"]) - 1)
+          <= TRAIN_LOSS_RTOL, "checkpoint: the continuations differ")
+    state_agrees("checkpoint continuation", card, cpu, float(want["lr"]),
+                 True)
+    print(f"checkpoint saved on the card at step 2 restores on the CPU "
+          f"bitwise; step 3: loss {float(got['loss']):.6f} (card), "
+          f"{float(want['loss']):.6f} (CPU)", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 10. dense training at full width: qwen2-1.5b, mode 3, top-k then int8
+# ---------------------------------------------------------------------------
+FULL_TRAIN = ["--arch", "qwen2-1.5b", "--batch", "4", "--seq", "2048",
+              "--steps", "6", "--mode", "3", "--n-pods", "1",
+              "--log-every", "1", "--device", "cuda", "--seed", "0"]
+
+
+def real_gradient_kernels(cfg):
+    """Step 1's gradient leaves of the full-size run (the same seed's
+    weights and first batch; the residuals are still 0, so the
+    compressors encode the gradients themselves) through the three
+    kernels and their plain versions: bitwise."""
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    src = SyntheticLM(DataConfig(cfg.vocab_size, 2048, 4, seed=0))
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in src.batch_for_step(0).items()}
+    grads, _ = train.pod_grads(params, batch, cfg)
+    del params
+    topk = TopKCompressor()
+    for name, g in grads.items():
+        rows = (g.reshape(g.shape[0], -1) if g.ndim > 2 else
+                g if g.ndim == 2 else g.reshape(1, -1))
+        k = topk.k_for(rows.shape[-1])
+        held(f"step-1 gradient {name} {tuple(rows.shape)} topk_compress "
+             f"k={k}", topk_compress_blocks(rows, k),
+             topk_compress_torch(rows, k))
+        qrows = (g.reshape(-1, g.shape[-1]) if g.ndim >= 2 else
+                 F.pad(g, (0, -g.numel() % 1024)).reshape(-1, 1024))
+        got = quantize_blocks(qrows, residual=True)
+        held(f"step-1 gradient {name} {tuple(qrows.shape)} quantize", got,
+             quantize_torch(qrows, residual=True))
+        held(f"step-1 gradient {name} dequantize",
+             (dequantize_blocks(got[0], got[1]),),
+             (dequantize_torch(got[0], got[1]),))
+        del got
+    del grads
+    torch.cuda.empty_cache()
+
+
+@phase("train_full_size")
+def train_full_size():
+    """qwen2-1.5b at full width through the training entry point: bf16
+    compute, float32 masters, batch 4 x seq 2048, n_pods = 1, mode 3, 6
+    steps with the top-k compressor and 6 with int8, launch counters
+    zeroed just before each run and read just after it.  Returns each new
+    kernel's launches on its run."""
+    launched = {}
+    for comp, used in (("topk", ("topk_compress",)),
+                       ("int8", ("quantize", "dequantize"))):
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        state, history = train.main(FULL_TRAIN + ["--compressor", comp])
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        cfg = train.resolve_config("qwen2-1.5b")
+        leaves, steps = len(state["params"]), len(history)
+        del state
+        torch.cuda.empty_cache()
+        want = {n: 0 for n in launches}
+        want["flash_attention"] = 2 * cfg.num_layers * steps
+        for n in used:
+            want[n] = leaves * steps
+        check(launches == want,
+              f"full-size {comp}: launches {launches}, expected {want}")
+        losses = [h["loss"] for h in history]
+        check(all(np.isfinite(losses)), f"full-size {comp}: losses {losses}")
+        check(losses[-1] < losses[0],
+              f"full-size {comp}: loss did not fall: {losses}")
+        ms = [h["ms"] for h in history]
+        steady = statistics.mean(ms[1:])
+        print(f"full size qwen2-1.5b train mode 3 {comp}: losses "
+              f"{[round(x, 4) for x in losses]}, step ms "
+              f"{[round(x, 1) for x in ms]}, "
+              f"{steady:.1f} ms/step and {4 * 2048 * 1e3 / steady:.0f} "
+              f"tokens/s after step 1, peak memory {peak / 2 ** 30:.2f} GiB, "
+              f"launches {launches}", flush=True)
+        for n in used:
+            launched[n] = launches[n]
+    real_gradient_kernels(cfg)
+    return launched
+
+
 #: each kernel entry point of the kernels JSON line: (name, kernel source
 #: key, TPU kernel it replaces)
 ENTRIES = (
@@ -829,6 +1203,10 @@ ENTRIES = (
      "src/repro/kernels/flash_attention/kernel.py:20"),
     ("decode_attention", "decode_attention",
      "src/repro/kernels/decode_attention/kernel.py:19"),
+    ("quantize", "quantize", "src/repro/kernels/quantize/kernel.py:16"),
+    ("dequantize", "dequantize", "src/repro/kernels/quantize/kernel.py:23"),
+    ("topk_compress", "topk_compress",
+     "src/repro/kernels/topk_compress/kernel.py:17"),
 )
 
 
@@ -845,6 +1223,8 @@ def main():
     launched = full_size()
     lm_card_vs_cpu()
     launched.update(lm_full_size())
+    train_card_vs_cpu()
+    launched.update(train_full_size())
     kernels_line = []
     for entry, kname, replaces in ENTRIES:
         rec = records[entry]
@@ -854,7 +1234,9 @@ def main():
             replaces=replaces, launches=launched[entry],
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            ms_by=rec["ms_by"], plain_ms_by=rec["plain_ms_by"],
+            library_ms_by=rec["library_ms_by"]))
     print("phases: " + ", ".join(f"{p} {t:.1f}s" for p, t in PHASES))
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -1,6 +1,7 @@
 """Carry state across: a vectorized engine's window carry between numpy
-and the torch engine, and an LM's weights and KV caches between the
-reference's pytrees (as numpy arrays) and the port's modules.
+and the torch engine, an LM's weights and KV caches between the
+reference's pytrees (as numpy arrays) and the port's modules, and a train
+state between the reference's pytree and the port's dicts.
 
 The reference engine's carry, after ``jax.device_get``, is a dict of numpy
 arrays (the application state nested under ``"app"``); the torch engine's
@@ -140,3 +141,41 @@ def caches_to_numpy(caches, cfg) -> Tuple[Dict[str, np.ndarray], ...]:
                                   for i in range(pos, len(caches), n_pos)])
                   for name in ("k", "v")}
                  for pos in range(n_pos))
+
+
+# ---------------------------------------------------------------------------
+# Train state
+# ---------------------------------------------------------------------------
+#: the sub-trees of the reference's train state that hold one leaf per
+#: parameter; the port keeps each as a flat {path: tensor} dict
+PARAM_TREES = ("params", "opt/m", "opt/v", "others", "residuals",
+               "outer/anchor", "outer/momentum")
+
+
+def train_state_from_numpy(state_np, device) -> Dict:
+    """The reference's ``launch.train.init_train_state`` pytree, as numpy
+    arrays (``jax.device_get``), as the port's train state on ``device``:
+    the same nesting, with each parameter tree flattened to
+    {path: tensor} (``stack/0/mixer/wq``)."""
+    from repro_torch.pytree import flatten
+
+    out: Dict = {}
+    for path, arr in flatten(state_np).items():
+        head = next((h for h in PARAM_TREES if path.startswith(h + "/")),
+                    None)
+        node = out
+        keys = (head.split("/") if head else path.split("/")[:-1])
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[path[len(head) + 1:] if head else path.split("/")[-1]] = \
+            _array(arr).to(device)
+    return out
+
+
+def train_state_to_numpy(state) -> Dict:
+    """The port's train state as the reference's pytree of numpy arrays
+    (dicts, with the layer stack a tuple over period positions)."""
+    from repro_torch.pytree import flatten, unflatten
+
+    return unflatten({k: v.detach().cpu().numpy()
+                      for k, v in flatten(state).items()})

@@ -3,9 +3,9 @@
 Every kernel package keeps its sources under its own ``csrc/``; each source
 is compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface, loaded with ctypes.  The libraries are built on first use into
-``build/`` at the repository root, named by a hash of their source so an
-edited source is rebuilt; ``build()`` compiles every missing one with one
-``nvcc`` per source, all started together.
+``build/`` at the repository root, named by the source and a hash of it
+so an edited source is rebuilt; ``build()`` compiles every missing one
+with one ``nvcc`` per source, all started together.
 
 ``LAUNCHES`` counts the launches of each kernel since the last
 ``reset_launches()``; ``launch`` adds one exactly where it launches a
@@ -27,13 +27,18 @@ import torch
 
 _KERNELS = Path(__file__).resolve().parent
 
-#: kernel name -> its source, relative to src/repro_torch/kernels/
+#: kernel name -> its source, relative to src/repro_torch/kernels/ (one
+#: source may hold several kernels: ``quantize.cu`` holds quantize and
+#: dequantize, each counted under its own name)
 SOURCES = {
     "duct_window": "duct_exchange/csrc/duct_window.cu",
     "duct_commit": "duct_exchange/csrc/duct_commit.cu",
     "duct_exchange": "duct_exchange/csrc/duct_exchange.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "decode_attention": "decode_attention/csrc/decode_attention.cu",
+    "quantize": "quantize/csrc/quantize.cu",
+    "dequantize": "quantize/csrc/quantize.cu",
+    "topk_compress": "topk_compress/csrc/topk_compress.cu",
 }
 
 #: launches per kernel since the last reset_launches()
@@ -80,8 +85,12 @@ def source_path(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source_path(name).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library built from kernel ``name``'s source, named by the
+    source's stem and a hash of its text (kernels of one source share
+    it)."""
+    src = source_path(name)
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
 def _nvcc() -> str:
@@ -97,8 +106,8 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> float:
     """Compile every kernel in ``names`` whose library is missing, one
     ``nvcc`` per source, all started together.  Returns wall seconds."""
     t0 = time.perf_counter()
-    todo = [(n, library_path(n)) for n in names]
-    todo = [(n, out) for n, out in todo if not out.exists()]
+    todo = {library_path(n): n for n in names}   # one build per source
+    todo = [(n, out) for out, n in todo.items() if not out.exists()]
     if not todo:
         return time.perf_counter() - t0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -129,11 +138,12 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        for entry, argtypes in signatures.items():
-            fn = getattr(lib, entry)
+        _LIBS[name] = lib
+    for entry, argtypes in signatures.items():
+        fn = getattr(lib, entry)
+        if fn.argtypes is None:
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        _LIBS[name] = lib
     return lib
 
 
@@ -153,12 +163,14 @@ def check_tensor(x: torch.Tensor, name: str, shape: Tuple[int, ...], dtype,
 
 
 def launch(fn, tensors, scalars, device: torch.device, kernel: str) -> None:
-    """Call launcher ``fn`` with the tensors' pointers, the scalars and the
+    """Call launcher ``fn`` with the tensors' pointers (``None`` passes a
+    null pointer, for an output the kernel may skip), the scalars and the
     current stream; raise if it reports a CUDA error, else count the
     launch."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*[t.data_ptr() for t in tensors], *scalars, stream)
+        err = fn(*[None if t is None else t.data_ptr() for t in tensors],
+                 *scalars, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error "
                            f"{err}")

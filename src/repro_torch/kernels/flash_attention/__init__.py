@@ -1,5 +1,6 @@
 from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
     flash_attention,
+    flash_attention_backward_torch,
     flash_attention_grouped,
     flash_attention_torch,
 )

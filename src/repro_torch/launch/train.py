@@ -1,0 +1,404 @@
+"""Training driver: the paper's asynchronicity modes on the pod axis.
+
+The counterpart of src/repro/launch/train.py (``TrainSpec``,
+``init_train_state``, ``make_train_step``, ``run_training``) and of
+examples/train_lm.py (``main``).  The train state is POD-STACKED as the
+reference's is: every leaf but the step counter has a leading ``n_pods``
+dim, and each parameter tree is a {path: tensor} dict in the reference's
+leaf layout (``stack/0/mixer/wq``: the layer parameters stacked over
+layers), so checkpoints and ``interop`` carry it across unchanged.  Pods
+run one after another on one device, each on its slice of the batch.
+
+  mode 0 — per-step gradient mean over the pods: params stay identical.
+  mode 1/2 — no per-step cross-pod traffic; every K steps the outer
+           optimizer syncs params (local SGD / rolling vs fixed barrier).
+  mode 3 — staleness-1 delayed cross-pod gradient sum, optionally
+           compressed (int8 / top-k with error feedback): the sum feeds
+           only the next step's update.
+  mode 4 — fully independent pods.
+
+The step updates the state IN PLACE (the reference returns a new one):
+at qwen2-1.5b's width the float32 state is 31 GB, and a second copy
+would not fit beside the activations.  On the card attention runs
+through the hand-written CUDA flash-attention kernel (forward, and its
+recompute under ``cfg.remat``) and the compressors through the int8
+quantize / dequantize and top-k kernels; on the CPU through their plain
+torch versions.
+
+Run::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch qwen2-1.5b-smoke --steps 30 --batch 8 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch qwen2-1.5b-smoke --mode 3 --n-pods 2 --compressor topk
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+        --batch 4 --seq 2048 --steps 6 --mode 3 --compressor int8   # card
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch import checkpoint as ckpt_mod
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.smoke import reduce_for_smoke
+from repro_torch.core.modes import AsyncMode
+from repro_torch.data.synthetic import DataConfig, SyntheticLM
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+from repro_torch.optim import adamw as adamw_mod
+from repro_torch.optim import outer as outer_mod
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.optim.compression import Int8Compressor, TopKCompressor
+from repro_torch.optim.outer import OuterConfig
+
+Tree = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainSpec:
+    mode: AsyncMode = AsyncMode.BARRIER_EVERY_STEP
+    adamw: AdamWConfig = AdamWConfig()
+    outer: OuterConfig = OuterConfig()
+    compressor: Optional[str] = None     # None | "int8" | "topk"
+    compress_ratio: float = 0.01         # topk ratio
+    quant_block: int = 1024
+
+
+# ---------------------------------------------------------------------------
+# State
+# ---------------------------------------------------------------------------
+def _pod_stack(tree, n_pods: int):
+    if isinstance(tree, dict):
+        return {k: _pod_stack(v, n_pods) for k, v in tree.items()}
+    if n_pods == 1:
+        return tree.unsqueeze(0)
+    return tree.unsqueeze(0).repeat(n_pods, *([1] * tree.ndim))
+
+
+def init_train_state(cfg, spec: TrainSpec, n_pods: int = 1, *,
+                     seed: int = 0, device="cuda") -> Dict:
+    """{"params", "opt": {"m", "v", "step"}, "step"} plus "others" and
+    "residuals" (mode 3, the latter with a compressor) or "outer" (modes
+    1/2), every leaf but "step" stacked over ``n_pods``; float32 masters
+    from ``seed`` on ``device`` (the card unless the caller asks for the
+    CPU)."""
+    params = lm.init_params(cfg, seed=seed, device=device)
+    state = {"params": params, "opt": adamw_mod.init_opt_state(params)}
+    if spec.mode == AsyncMode.BEST_EFFORT:
+        state["others"] = {k: torch.zeros_like(v) for k, v in params.items()}
+        if spec.compressor is not None:
+            state["residuals"] = {k: torch.zeros_like(v)
+                                  for k, v in params.items()}
+    if spec.mode in (AsyncMode.ROLLING_BARRIER, AsyncMode.FIXED_BARRIER):
+        state["outer"] = outer_mod.init_outer_state(params)
+    state = _pod_stack(state, n_pods)
+    state["step"] = torch.zeros((), dtype=torch.int32,
+                                device=params["embed"].device)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Compression along the pod-stacked dim
+# ---------------------------------------------------------------------------
+def make_compressor(spec: TrainSpec):
+    return (Int8Compressor(block=spec.quant_block) if spec.compressor == "int8"
+            else TopKCompressor(ratio=spec.compress_ratio))
+
+
+def _compressed_total(g: torch.Tensor, res: torch.Tensor, comp
+                      ) -> torch.Tensor:
+    """One leaf's cross-pod sum with a lossy payload: each pod encodes
+    its gradient plus its residual (its new residual is written into
+    ``res`` in place), and the pods' payloads are decoded and summed, pod
+    by pod.  Returns the total, (1, ...)."""
+    carry = g + res
+    payloads = []
+    for p in range(g.shape[0]):
+        payload, new_res = comp.encode(carry[p])
+        res[p].copy_(new_res)
+        payloads.append(payload)
+    del carry
+    gathered = {name: torch.stack([pl[name] for pl in payloads])
+                for name in payloads[0]}
+    return comp.decode_sum(gathered, g.shape[1:], g.dtype)[None]
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+def pod_grads(params: Tree, batch: Tree, cfg):
+    """Gradients of ``lm.loss_fn`` at one pod's leaves (float32, each the
+    leaf's shape) and its metrics {"ce", "aux"}; microbatched over
+    ``cfg.grad_accum`` as the reference's scan is."""
+    def grads_of(mb):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        loss, metrics = lm.loss_fn(leaves, mb, cfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return (dict(zip(leaves, grads)),
+                {k: v.detach() for k, v in metrics.items()})
+
+    A = cfg.grad_accum
+    if A <= 1:
+        return grads_of(batch)
+    acc_g = {k: torch.zeros_like(v, dtype=torch.float32)
+             for k, v in params.items()}
+    acc_m = {"ce": 0.0, "aux": 0.0}
+    for a in range(A):
+        mb = {k: v.reshape(A, v.shape[0] // A, *v.shape[1:])[a]
+              for k, v in batch.items()}
+        g, m = grads_of(mb)
+        for k in acc_g:
+            acc_g[k] += g[k]
+        acc_m = {k: acc_m[k] + m[k] for k in acc_m}
+    inv = 1.0 / A
+    return ({k: v * inv for k, v in acc_g.items()},
+            {k: v * inv for k, v in acc_m.items()})
+
+
+def make_update(spec: TrainSpec, n_pods: int = 1):
+    """The step after the gradients: the cross-pod exchange of
+    ``spec.mode``, AdamW per pod, and the outer sync of modes 1/2.
+    ``update(state, grads, metrics)``: grads {path: (n_pods, ...)},
+    metrics {"ce", "aux"}: (n_pods,).  Updates ``state`` in place and
+    returns (state, {"loss", "aux", "grad_norm", "lr"})."""
+    mode = spec.mode
+    comp = (make_compressor(spec) if mode == AsyncMode.BEST_EFFORT
+            and spec.compressor is not None else None)
+
+    def update(state, grads: Tree, metrics: Tree):
+        params = state["params"]
+        # ---- cross-pod exchange (along the stacked pod dim) ------------
+        if mode == AsyncMode.BARRIER_EVERY_STEP:
+            eff = {k: g.mean(0, keepdim=True).expand_as(g)
+                   for k, g in grads.items()}
+        elif mode == AsyncMode.BEST_EFFORT:
+            eff = {}
+            for k, g in grads.items():
+                total = (g.sum(0, keepdim=True) if comp is None else
+                         _compressed_total(g, state["residuals"][k], comp))
+                others = state["others"][k]
+                eff[k] = (g + others) / n_pods
+                others.copy_(total - g)
+                del total
+        else:  # modes 1, 2, 4: pod-local gradients
+            eff = grads
+
+        # ---- inner optimizer, pod by pod -------------------------------
+        opt = state["opt"]
+        norms, lrs = [], []
+        for p in range(n_pods):
+            _, _, om = adamw_mod.apply_updates(
+                {k: v[p] for k, v in params.items()},
+                {k: v[p] for k, v in eff.items()},
+                {"m": {k: v[p] for k, v in opt["m"].items()},
+                 "v": {k: v[p] for k, v in opt["v"].items()},
+                 "step": opt["step"][p]}, spec.adamw)
+            norms.append(om["grad_norm"])
+            lrs.append(om["lr"])
+        del eff
+
+        # ---- outer sync for modes 1/2 ----------------------------------
+        if mode in (AsyncMode.ROLLING_BARRIER, AsyncMode.FIXED_BARRIER):
+            period = spec.outer.sync_period
+            if int(state["step"]) % period == period - 1:
+                outer = state["outer"]
+                mean_delta = {
+                    k: (a - params[k].float()).mean(0, keepdim=True)
+                    .expand_as(a) for k, a in outer["anchor"].items()}
+                new_p, new_o = outer_mod.outer_step(params, outer,
+                                                    mean_delta, spec.outer)
+                for k in params:
+                    params[k].copy_(new_p[k])
+                    outer["anchor"][k].copy_(new_o["anchor"][k])
+                    outer["momentum"][k].copy_(new_o["momentum"][k])
+
+        state["step"].add_(1)
+        return state, {"loss": metrics["ce"].mean(),
+                       "aux": metrics["aux"].mean(),
+                       "grad_norm": torch.stack(norms).mean(),
+                       "lr": lrs[0]}
+
+    return update
+
+
+def make_train_step(cfg, spec: TrainSpec, n_pods: int = 1):
+    """``train_step(state, batch)``: batch {"tokens", "labels"}
+    (n_pods, B / n_pods, S).  Each pod's gradients at its own parameters
+    on its slice of the batch, then ``make_update``'s step; the state is
+    updated in place.  Returns (state, metrics)."""
+    update = make_update(spec, n_pods)
+
+    def train_step(state, batch):
+        params = state["params"]
+        grads: Dict[str, list] = {k: [] for k in params}
+        ces, auxes = [], []
+        for p in range(n_pods):
+            g, m = pod_grads({k: v[p] for k, v in params.items()},
+                             {k: v[p] for k, v in batch.items()}, cfg)
+            for k in params:
+                grads[k].append(g.pop(k))
+            ces.append(m["ce"])
+            auxes.append(m["aux"])
+        stacked = {k: (v[0].unsqueeze(0) if n_pods == 1 else torch.stack(v))
+                   for k, v in grads.items()}
+        del grads
+        return update(state, stacked, {"ce": torch.stack(ces),
+                                       "aux": torch.stack(auxes)})
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Training driver (checkpoint/restart)
+# ---------------------------------------------------------------------------
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_training(cfg, spec: TrainSpec, data_cfg: DataConfig, *, steps: int,
+                 ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
+                 n_pods: int = 1, log_every: int = 10, log=print,
+                 device="cuda", seed: int = 0):
+    """Train for ``steps`` steps with checkpoint/restart.
+
+    Restores from the latest checkpoint in ``ckpt_dir`` if one exists; the
+    per-step data stream (``SyntheticLM.batch_for_step``) resumes exactly.
+    Returns (state, history): one entry per logged step with the metrics
+    and ``ms``, the wall time per step since the previous entry (the host
+    clock around work that ends in a synchronize)."""
+    dev = resolve_device(device)
+    source = SyntheticLM(data_cfg)
+    state = init_train_state(cfg, spec, n_pods, seed=seed, device=dev)
+    start = 0
+    if ckpt_dir is not None:
+        last = ckpt_mod.latest_step(ckpt_dir)
+        if last is not None:
+            state = ckpt_mod.restore(ckpt_dir, last, state)
+            start = last
+            log(f"[train] restored checkpoint at step {last}")
+
+    step_fn = make_train_step(cfg, spec, n_pods)
+    history = []
+
+    def pod_batch(k):
+        return {key: torch.as_tensor(v).to(dev).reshape(
+                    n_pods, v.shape[0] // n_pods, *v.shape[1:])
+                for key, v in source.batch_for_step(k).items()}
+
+    _sync(dev)
+    t_prev, k_prev = time.perf_counter(), start
+    for k in range(start, steps):
+        state, metrics = step_fn(state, pod_batch(k))
+        if (k + 1) % log_every == 0 or k == steps - 1:
+            m = {key: float(v) for key, v in metrics.items()}
+            _sync(dev)
+            now = time.perf_counter()
+            m["ms"] = (now - t_prev) * 1e3 / (k + 1 - k_prev)
+            t_prev, k_prev = now, k + 1
+            history.append({"step": k + 1, **m})
+            log(f"[train] step {k + 1}: loss={m['loss']:.4f} "
+                f"grad_norm={m['grad_norm']:.3f} lr={m['lr']:.2e} "
+                f"{m['ms']:.1f} ms/step")
+        if ckpt_dir is not None and (k + 1) % ckpt_every == 0:
+            ckpt_mod.save(ckpt_dir, state, k + 1)
+            ckpt_mod.prune(ckpt_dir, keep=2)
+    return state, history
+
+
+# ---------------------------------------------------------------------------
+# CLI (examples/train_lm.py's driver)
+# ---------------------------------------------------------------------------
+#: examples/train_lm.py's presets: "10m" (its defaults, 8 layers of width
+#: 256) and "100m"
+PRESETS = {
+    "10m": ModelConfig(name="lm-10m", family="dense", num_layers=8,
+                       d_model=256, num_heads=4, num_kv_heads=2, d_ff=1024,
+                       vocab_size=4096, tie_embeddings=True),
+    "100m": ModelConfig(name="lm-100m", family="dense", num_layers=12,
+                        d_model=768, num_heads=12, num_kv_heads=12,
+                        d_ff=2048, vocab_size=32768, tie_embeddings=True),
+}
+
+
+def resolve_config(arch: str) -> ModelConfig:
+    """A preset (``10m``, ``100m``), a registered arch, or ``NAME-smoke``
+    for NAME's reduced config."""
+    if arch in PRESETS:
+        return PRESETS[arch]
+    if arch.endswith("-smoke"):
+        return reduce_for_smoke(get_config(arch[:-len("-smoke")]))
+    return get_config(arch)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="10m",
+                    help="10m (default) or 100m (examples/train_lm.py's "
+                         "presets), a registered dense arch, or NAME-smoke")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--mode", type=int, default=0,
+                    help="asynchronicity mode (cross-pod; needs n-pods > 1)")
+    ap.add_argument("--n-pods", type=int, default=1)
+    ap.add_argument("--compressor", default="none",
+                    choices=["none", "int8", "topk"],
+                    help="mode 3's lossy cross-pod payload")
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint (every 50 steps) and restart "
+                         "directory (default: none)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights and of the data stream")
+    return ap
+
+
+def main(argv=None):
+    """Train from the flags; print each logged step and a summary.
+    Returns (state, history)."""
+    args = build_parser().parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = resolve_config(args.arch)
+    if args.batch % args.n_pods:
+        raise ValueError(f"--batch {args.batch} must split over --n-pods "
+                         f"{args.n_pods}")
+    spec = TrainSpec(mode=AsyncMode(args.mode),
+                     adamw=AdamWConfig(lr=args.lr, warmup_steps=20,
+                                       total_steps=args.steps),
+                     compressor=(None if args.compressor == "none"
+                                 else args.compressor))
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                          global_batch=args.batch, seed=args.seed)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"[train] {cfg.name} ({cfg.dtype} compute, float32 masters) on "
+          f"{name}: batch {args.batch} x seq {args.seq}, mode "
+          f"{int(spec.mode)}, {args.n_pods} pod(s), compressor "
+          f"{args.compressor}")
+    state, history = run_training(cfg, spec, data_cfg, steps=args.steps,
+                                  ckpt_dir=args.ckpt_dir,
+                                  n_pods=args.n_pods,
+                                  log_every=args.log_every, device=dev,
+                                  seed=args.seed)
+    first, last = history[0]["loss"], history[-1]["loss"]
+    steady = history[1:] or history
+    ms = sum(h["ms"] for h in steady) / len(steady)
+    print(f"[train] done: loss {first:.3f} -> {last:.3f} "
+          f"({'improved' if last < first else 'NO IMPROVEMENT'}); "
+          f"{ms:.1f} ms/step, {args.batch * args.seq * 1e3 / ms:.0f} "
+          f"tokens/s after the first logged step")
+    return state, history
+
+
+if __name__ == "__main__":
+    main()

@@ -1,16 +1,18 @@
-"""Grouped-query attention: prefill (causal, whole sequence) and single-token
-decode against a preallocated KV cache.  The counterpart of
-src/repro/models/attention.py.
+"""Grouped-query attention: the whole-sequence causal forward (prefill and
+training) and single-token decode against a preallocated KV cache.  The
+counterpart of src/repro/models/attention.py.
 
 The reference computes attention in jnp; its Pallas kernels compute the
-same function.  Here attention goes through the port's kernels: prefill
-through ``flash_attention`` and decode through ``decode_attention``, which
-on a CUDA tensor are the hand-written CUDA kernels and on a CPU tensor
-their plain torch versions.  So scores, probabilities and the accumulator
-stay in float32 and only the output is rounded to the compute dtype, where
-the reference model also rounds the scores and the probabilities to it
-(ROADMAP Queue 3, known differences).  The reference's sharding
-constraints are no-ops on one device and are left out.
+same function.  Here attention goes through the port's kernels: the
+forward through ``flash_attention`` (differentiable: its backward
+recomputes the softmax in torch operations) and decode through
+``decode_attention``, which on a CUDA tensor are the hand-written CUDA
+kernels and on a CPU tensor their plain torch versions.  So scores,
+probabilities and the accumulator stay in float32 and only the output is
+rounded to the compute dtype, where the reference model also rounds the
+scores and the probabilities to it (ROADMAP Queue 3, known differences).
+The reference's sharding constraints are no-ops on one device and are
+left out.
 """
 from __future__ import annotations
 
@@ -27,9 +29,48 @@ from repro_torch.models import layers
 DECODE_CHUNK = 512
 
 
+def project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """Projections (q, k, v; optional QKV bias and q/k RMSNorm) and RoPE.
+    ``p`` maps the reference's leaf names ("wq", "wk", "wv", and "bq",
+    "bk", "bv", "q_norm", "k_norm" where the config has them) to weights.
+    Returns q: (B,S,KH,G,hd), k/v: (B,S,KH,hd)."""
+    B, S, _ = x.shape
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    dt = x.dtype
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KH, hd)
+    v = v.reshape(B, S, KH, hd)
+    if cfg.qk_norm:
+        q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q.reshape(B, S, KH, H // KH, hd), k, v
+
+
+def attention_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                     torch.Tensor]]:
+    """Causal self-attention over the whole sequence (prefill, and the
+    training forward: differentiable, ``flash_attention`` carries the
+    gradient).  Returns (y, (k, v)): k/v seed the decode cache."""
+    B, S, _ = x.shape
+    q, k, v = project_qkv(p, x, cfg, positions)
+    out = flash_attention(q, k, v, causal=True)
+    out = out.reshape(B, S, cfg.num_heads * cfg.hd)
+    return out @ p["wo"].to(x.dtype), (k, v)
+
+
 class Attention(nn.Module):
-    """Projections (q, k, v, o; optional QKV bias and q/k RMSNorm) of one
-    attention layer; weights are (in, out) as in the reference."""
+    """The weights of one attention layer ((in, out), as in the
+    reference), applied by ``attention_forward`` and ``decode``."""
 
     def __init__(self, gen: torch.Generator, cfg, dtype):
         super().__init__()
@@ -48,38 +89,9 @@ class Attention(nn.Module):
             self.q_norm = layers.zeros(hd, dtype, dev)
             self.k_norm = layers.zeros(hd, dtype, dev)
 
-    def project_qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        """Returns q: (B,S,KH,G,hd), k/v: (B,S,KH,hd)."""
-        cfg = self.cfg
-        B, S, _ = x.shape
-        H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-        dt = x.dtype
-        q = x @ self.wq.to(dt)
-        k = x @ self.wk.to(dt)
-        v = x @ self.wv.to(dt)
-        if cfg.qkv_bias:
-            q = q + self.bq.to(dt)
-            k = k + self.bk.to(dt)
-            v = v + self.bv.to(dt)
-        q = q.reshape(B, S, H, hd)
-        k = k.reshape(B, S, KH, hd)
-        v = v.reshape(B, S, KH, hd)
-        if cfg.qk_norm:
-            q = layers.head_rms_norm(q, self.q_norm, cfg.norm_eps)
-            k = layers.head_rms_norm(k, self.k_norm, cfg.norm_eps)
-        q = layers.apply_rope(q, positions, cfg.rope_theta)
-        k = layers.apply_rope(k, positions, cfg.rope_theta)
-        return q.reshape(B, S, KH, H // KH, hd), k, v
-
     def forward(self, x: torch.Tensor, positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-        """Causal self-attention over the whole sequence (prefill).
-        Returns (y, (k, v)): k/v seed the decode cache."""
-        B, S, _ = x.shape
-        q, k, v = self.project_qkv(x, positions)
-        out = flash_attention(q, k, v, causal=True)
-        out = out.reshape(B, S, self.cfg.num_heads * self.cfg.hd)
-        return out @ self.wo.to(x.dtype), (k, v)
+        return attention_forward(self._parameters, x, self.cfg, positions)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                write_idx: int) -> torch.Tensor:
@@ -92,7 +104,7 @@ class Attention(nn.Module):
         B = x.shape[0]
         positions = torch.full((B, 1), write_idx, dtype=torch.int32,
                                device=x.device)
-        q, k_new, v_new = self.project_qkv(x, positions)
+        q, k_new, v_new = project_qkv(self._parameters, x, cfg, positions)
         cache["k"][:, write_idx] = k_new[:, 0].to(cache["k"].dtype)
         cache["v"][:, write_idx] = v_new[:, 0].to(cache["v"].dtype)
         k, v = cache["k"].to(q.dtype), cache["v"].to(q.dtype)

@@ -3,8 +3,10 @@ embeddings.  The counterpart of src/repro/models/layers.py.
 
 Parameters are created in ``cfg.param_dtype`` (float32 masters) from an
 explicit ``torch.Generator``; ``lm.cast_params_for_compute`` casts them to
-``cfg.dtype`` (bf16) once, when a server is built.  The normalisations,
-RoPE and the logits run in float32 as in the reference.
+``cfg.dtype`` (bf16) once, when a server is built, and training casts its
+stacked leaves once per step (``lm.cast_leaves``).  The normalisations,
+RoPE and the logits run in float32 as in the reference.  Every function
+here is differentiable.
 """
 from __future__ import annotations
 
@@ -16,8 +18,8 @@ from torch import nn
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A weight of the serving path: no gradient (training is a later
-    slice)."""
+    """A weight of the serving path's modules: no gradient (training runs
+    the same functions on the train state's leaves, ``lm.forward``)."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -79,9 +81,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
+def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: ``(silu(x @ gate) * (x @ up)) @ down`` in x's dtype; ``p``
+    maps "gate", "up", "down" to (in, out) weights, as in the reference,
+    so ``x @ w``."""
+    dt = x.dtype
+    gate = x @ p["gate"].to(dt)
+    up = x @ p["up"].to(dt)
+    return (F.silu(gate) * up) @ p["down"].to(dt)
+
+
 class MLP(nn.Module):
-    """SwiGLU: ``(silu(x @ gate) * (x @ up)) @ down``; weights are
-    (in, out) as in the reference, so ``x @ w``."""
+    """The SwiGLU MLP's weights, applied by ``apply_mlp``."""
 
     def __init__(self, gen: torch.Generator, d_model: int, d_ff: int, dtype):
         super().__init__()
@@ -90,10 +101,7 @@ class MLP(nn.Module):
         self.down = param(dense_init(gen, d_ff, d_model, dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
-        gate = x @ self.gate.to(dt)
-        up = x @ self.up.to(dt)
-        return (F.silu(gate) * up) @ self.down.to(dt)
+        return apply_mlp(self._parameters, x)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,17 @@
-"""Top-level decoder-only LM: init, the compute cast, forward, prefill and
-decode.  The counterpart of src/repro/models/lm.py (``loss_fn`` comes with
-the training slice, modality frontends with the audio and VLM families).
+"""Top-level decoder-only LM: init, the compute cast, forward, loss,
+prefill and decode.  The counterpart of src/repro/models/lm.py (modality
+frontends come with the audio and VLM families).
 
-The reference casts its float32 masters to the compute dtype inside every
-step; a server here casts once, when it is built
-(``cast_params_for_compute``).  The steps run under ``torch.no_grad`` and
-write the decode caches in place.
+Serving holds the weights in an ``LM`` module, one block per layer; the
+reference casts its float32 masters to the compute dtype inside every
+step, a server here casts once, when it is built
+(``cast_params_for_compute``).  Prefill and decode run under
+``torch.no_grad`` and write the decode caches in place.
+
+Training keeps the reference's layout instead: {path: leaf} with each
+layer parameter stacked over layers (``init_params``), cast once per step
+(``cast_leaves``), and ``forward`` / ``loss_fn`` are differentiable with
+respect to those leaves.
 """
 from __future__ import annotations
 
@@ -15,9 +21,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models import layers
-from repro_torch.models.transformer import Stack
 from repro_torch.device import resolve_device
+from repro_torch.models import layers
+from repro_torch.models.transformer import Stack, block_specs, stack_forward
+from repro_torch.pytree import flatten, unflatten
 
 Caches = List[Dict[str, torch.Tensor]]
 
@@ -72,16 +79,100 @@ class LM(nn.Module):
         return self._logits(x)
 
 
+def _cast_rule(path: str, leaf_ndim: int) -> bool:
+    """The reference's rule (``lm.cast_params_for_compute``): a float32
+    leaf is cast to the compute dtype where the REFERENCE's leaf has two or
+    more dims and is not a router weight.  The reference stacks every layer
+    parameter as ``(P, ...)``, so that takes in every block parameter,
+    norm scales and biases included; only ``final_norm`` stays float32."""
+    return leaf_ndim >= 2 and "router" not in path.split("/")
+
+
 def cast_params_for_compute(model: LM) -> LM:
-    """Cast the float32 weights of two or more dims to ``cfg.dtype``, IN
-    PLACE, once (the reference casts inside every step).  1-D parameters
-    (norm scales, biases) stay float32, as in the reference; so does
-    everything when ``cfg.dtype`` is float32."""
+    """Cast the float32 weights to ``cfg.dtype``, IN PLACE, once (the
+    reference casts inside every step), under the reference's rule: every
+    parameter of the layer stack (its reference leaf is stacked over
+    layers) and the embedding tables; ``final_norm`` stays float32, and so
+    does everything when ``cfg.dtype`` is float32."""
     cd = model.compute_dtype
-    for p in model.parameters():
-        if p.dtype == torch.float32 and p.ndim >= 2:
+    if cd == torch.float32:
+        return model
+    for name, p in model.named_parameters():
+        ref_ndim = p.ndim + 1 if name.startswith("stack.") else p.ndim
+        if p.dtype == torch.float32 and _cast_rule(name.replace(".", "/"),
+                                                   ref_ndim):
             p.data = p.data.to(cd)
     return model
+
+
+# ---------------------------------------------------------------------------
+# Training: the reference's leaf layout, differentiable
+# ---------------------------------------------------------------------------
+def init_params(cfg, *, seed: int = 0, device="cuda") -> Dict[str, torch.Tensor]:
+    """Random float32 masters in the reference's layout: an ``LM`` made
+    from ``seed`` on ``device`` (the card unless the caller asks for the
+    CPU), its layers stacked as the reference stacks them.  {path: leaf}
+    in the reference's leaf order, each layer parameter stacked over
+    periods as ``(P, ...)`` (``stack/0/mixer/wq`` is ``(P, d, H * hd)``).
+    The draws differ from the reference's ``jax.random`` ones; ``interop``
+    carries weights across."""
+    model = LM(cfg, seed=seed, device=device)
+    n_pos = len(block_specs(cfg))
+    flat = {name.replace(".", "/"): p.detach()
+            for name, p in model.named_parameters()
+            if not name.startswith("stack.")}
+    for pos in range(n_pos):
+        blocks = [dict(b.named_parameters())
+                  for b in model.stack.blocks[pos::n_pos]]
+        for name in blocks[0]:
+            flat[f"stack/{pos}/{name.replace('.', '/')}"] = torch.stack(
+                [b[name].detach() for b in blocks])
+    return flatten(unflatten(flat))
+
+
+def cast_leaves(params: Dict[str, torch.Tensor], cfg
+                ) -> Dict[str, torch.Tensor]:
+    """One cast of the float32 leaves to ``cfg.dtype`` under the
+    reference's rule (every leaf of two or more dims, router excepted);
+    differentiable, so gradients reach the float32 masters."""
+    cd = getattr(torch, cfg.dtype)
+    if cd == torch.float32:
+        return params
+    return {k: v.to(cd) if v.dtype == torch.float32 and _cast_rule(k, v.ndim)
+            else v for k, v in params.items()}
+
+
+def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor, cfg
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward, differentiable.  ``params``: {path: leaf} in
+    the reference's layout (``init_params``); tokens (B, S).  Returns
+    (logits (B, S, V) float32, aux loss).  The counterpart of the
+    reference's ``lm.forward``."""
+    tree = unflatten(cast_leaves(params, cfg))
+    B, S = tokens.shape
+    x = layers.embed(tree["embed"], tokens, getattr(torch, cfg.dtype))
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device).expand(B, S)
+    x = stack_forward(tree["stack"], x, cfg, positions)
+    x = layers.rms_norm(x, tree["final_norm"], cfg.norm_eps)
+    table = tree["embed"] if cfg.tie_embeddings else tree["unembed"]
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return layers.unembed(table, x), aux
+
+
+def loss_fn(params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+            cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (logsumexp minus the gold logit, averaged
+    over the tokens whose label is >= 0) plus the aux loss.  batch:
+    {"tokens", "labels"} (B, S).  Returns (ce + aux, {"ce", "aux"}), as
+    the reference's ``lm.loss_fn``."""
+    logits, aux = forward(params, batch["tokens"], cfg)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 @torch.no_grad()

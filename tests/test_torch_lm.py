@@ -182,10 +182,86 @@ def test_greedy_serve_matches_reference_generation(ref):
 
 
 def test_cast_for_compute_keeps_scales_and_biases_float32(ref):
-    _, _, _, model = carried(ref, "qwen2-1.5b", "bfloat16")
-    for name, p in model.named_parameters():
-        want = torch.bfloat16 if p.ndim >= 2 else torch.float32
-        assert p.dtype == want, name
+    """Named for the rule this test first held, which was wrong: the
+    reference stacks every layer parameter as ``(P, ...)``, so its cast
+    (2+ dims) rounds the layers' norm scales and biases to bf16 too and
+    keeps only ``final_norm`` float32.  Leaf by leaf, the port's cast
+    weights have the reference's cast's dtypes and bits."""
+    ref_cfg, params, cfg, model = carried(ref, "qwen2-1.5b", "bfloat16")
+    rng = np.random.default_rng(5)
+    params = ref.jax.tree.map(
+        lambda a: np.asarray(a) + rng.standard_normal(a.shape).astype(
+            np.float32) * 0.3, params)
+    model = lm.cast_params_for_compute(
+        interop.params_from_numpy(params, cfg, "cpu"))
+    want = ref.jax.tree.map(np.asarray,
+                            ref.lm.cast_params_for_compute(params, ref_cfg))
+    got = dict(model.named_parameters())
+    n_pos = len(transformer.block_specs(cfg))
+    checked = 0
+    for path, leaf in flatten_ref(want).items():
+        parts = path.split("/")
+        if parts[0] == "stack":
+            pos, rest = int(parts[1]), ".".join(parts[2:])
+            slices = [(f"stack.blocks.{i * n_pos + pos}.{rest}", leaf[i])
+                      for i in range(leaf.shape[0])]
+        else:
+            slices = [(path, leaf)]
+        for name, w in slices:
+            p = got[name].detach()
+            assert str(p.dtype).removeprefix("torch.") == w.dtype.name, name
+            if p.dtype == torch.bfloat16:
+                p, w = p.float(), w.astype(np.float32)
+            np.testing.assert_array_equal(p.numpy(), w, err_msg=name)
+            checked += 1
+    assert checked == len(got)
+    assert got["final_norm"].dtype == torch.float32
+    assert got["stack.blocks.0.mixer_norm"].dtype == torch.bfloat16
+    assert got["stack.blocks.0.mixer.bq"].dtype == torch.bfloat16
+
+
+def flatten_ref(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flatten_ref(v, f"{prefix}{k}/"))
+        return out
+    if isinstance(tree, (tuple, list)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(flatten_ref(v, f"{prefix}{i}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def test_bf16_logits_follow_the_reference_norm_rounding(ref):
+    """With nonzero norm scales that bf16 cannot hold, the port's bf16
+    logits are closer to the reference's with the reference's cast rule
+    (scales rounded to bf16) than with the former rule (scales kept
+    float32): the scales enter every normalisation."""
+    ref_cfg, params, cfg, _ = carried(ref, "qwen3-0.6b", "bfloat16", seed=4)
+    rng = np.random.default_rng(4)
+
+    def scales(path, a):
+        names = [str(getattr(k, "key", "")) for k in path]
+        a = np.asarray(a)
+        if names[-1].endswith("norm") and names[-1] != "final_norm":
+            return (rng.standard_normal(a.shape) * 0.5).astype(np.float32)
+        return a
+    params = ref.jax.tree_util.tree_map_with_path(scales, params)
+    toks = tokens(cfg, seed=4)
+    want, _ = ref.lm.forward(params, ref.jnp.asarray(toks), ref_cfg)
+    want = f32(want)
+    fixed = lm.cast_params_for_compute(
+        interop.params_from_numpy(params, cfg, "cpu"))
+    former = interop.params_from_numpy(params, cfg, "cpu")
+    for name, p in former.named_parameters():    # the former rule
+        if p.ndim >= 2:
+            p.data = p.data.to(torch.bfloat16)
+    assert former.stack.blocks[0].mixer.q_norm.dtype == torch.float32
+    err_fixed = np.abs(f32(fixed(torch.as_tensor(toks))) - want).max()
+    err_former = np.abs(f32(former(torch.as_tensor(toks))) - want).max()
+    assert err_fixed < err_former, (err_fixed, err_former)
 
 
 @pytest.mark.parametrize("spec", [dict(block_pattern=("mamba",)),
