@@ -12,11 +12,13 @@ dense LM's serving path, prefill through the ``flash_attention`` kernel
 and greedy decode through the ``decode_attention`` kernel; and the dense
 LM's training path in best-effort mode 3, attention through
 ``flash_attention`` and the lossy cross-pod payload through the
-``quantize`` / ``dequantize`` or ``topk_compress`` kernels) and fails
+``quantize`` / ``dequantize`` or ``topk_compress`` kernels; the hybrid
+jamba's serving path, its Mamba prefill through the ``mamba_scan`` kernel,
+its one attention layer through the two attention kernels) and fails
 with a non-zero exit code if any phase fails:
 
   1. card      the ``nvidia-smi`` name and power limit
-  2. build     the eight kernels from ``csrc/`` into ``build/`` (seven
+  2. build     the nine kernels from ``csrc/`` into ``build/`` (eight
                sources, one nvcc each, started together)
   3. kernels   each kernel, and each float32 entry point, against its plain
                torch version on the same CUDA inputs at the main paths'
@@ -30,7 +32,10 @@ with a non-zero exit code if any phase fails:
                compression kernels bitwise at every row shape of
                qwen2-1.5b's gradient leaves, ties and a ragged final
                block (``q * scale`` timed beside dequantize,
-               ``torch.topk`` of |x| beside top-k)
+               ``torch.topk`` of |x| beside top-k); ``mamba_scan`` at
+               jamba's prefill shape (8, 2048, 8192, 16) and a ragged
+               shape within a stated tolerance (no PyTorch call computes
+               the scan)
   4. oracle    dyadic 16-process scenarios on both duct layouts: the torch
                engine on the card gives the event simulator's
                ``qos_signature``
@@ -46,10 +51,14 @@ with a non-zero exit code if any phase fails:
                --superstep-windows 8 and --layout edge (all three equal).
                Launch counters are zeroed just before each path and read
                just after it
-  7. lm card=cpu  the reduced qwen2-1.5b and qwen3-0.6b (2 layers) served
-               on the card (kernels) and on the CPU (plain versions) from
-               the same seeded weights: logits at every step with teacher
-               forcing, equal greedy tokens in float32
+  7. lm card=cpu  the reduced qwen2-1.5b and qwen3-0.6b (2 layers) and
+               jamba-v0.1-52b (one 8-layer period) served on the card
+               (kernels) and on the CPU (plain versions) from the same
+               seeded weights: logits at every step with teacher forcing,
+               exact launch counts, equal greedy tokens in float32; jamba
+               in bf16 on its caches up to the first MoE layer and on one
+               MoE layer given the same inputs (its routing makes the
+               logits discontinuous in bf16 roundings)
   8. lm full size  qwen2-1.5b at full width in bf16 through
                ``repro_torch.launch.serve``: batch 8, prompt 2048, 32 new
                tokens; 28 flash launches per prefill, 28 decode launches
@@ -67,6 +76,17 @@ with a non-zero exit code if any phase fails:
                and 6 with int8: exact launch counts, finite and falling
                loss; the three kernels on step 1's real gradient leaves
                equal their plain versions
+  11. jamba full size  one 8-layer period of jamba-v0.1-52b at full width
+               (d 4096, 16 experts top-2, 13.3 G parameters; depth cut
+               from 32) in bf16 through ``serve.serve``: batch 8, prompt
+               2048, 32 new tokens; exact launches (7 ``mamba_scan`` and 1
+               ``flash_attention`` per prefill, 1 ``decode_attention`` per
+               step), finite logits, the same tokens from a second serve;
+               the kernel against its plain version on layer 0's real scan
+               inputs; layer 0's Mamba state after a prefill of prompt + k
+               tokens equals its state after k decode steps (k = 1, 31);
+               then ``profile_serve.profile_serving`` over one prefill and
+               8 decode steps
 
 It imports nothing of JAX or of the JAX package.  The line before the last
 is a JSON object with one record per kernel and float32 entry point; the
@@ -133,8 +153,12 @@ from repro_torch.kernels.topk_compress import (  # noqa: E402
     topk_compress_blocks,
     topk_compress_torch,
 )
-from repro_torch.launch import serve, train  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.kernels.mamba_scan import (  # noqa: E402
+    mamba_scan,
+    mamba_scan_torch,
+)
+from repro_torch.launch import profile_serve, serve, train  # noqa: E402
+from repro_torch.models import layers, lm, moe, ssm, transformer  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.optim.compression import TopKCompressor  # noqa: E402
 from repro_torch.optim.outer import OuterConfig  # noqa: E402
@@ -223,7 +247,7 @@ def build():
     secs = K.build()
     for name in K.SOURCES:
         check(K.library_path(name).exists(), f"{name} library missing")
-    check(len(K.SOURCES) == 8, f"expected eight kernels, got {K.SOURCES}")
+    check(len(K.SOURCES) == 9, f"expected nine kernels, got {K.SOURCES}")
     print(f"built {sorted(K.SOURCES)} in {secs:.1f}s into {K.BUILD_DIR}")
 
 
@@ -385,7 +409,7 @@ def fields(x):
 
 
 def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
-            peak=PEAK_OPS_PER_S, tol=None, library=None):
+            peak=PEAK_OPS_PER_S, tol=None, library=None, plain_runs=None):
     """Hold one kernel call against its plain version (0 mismatching
     elements, or with ``tol = (rtol, atol)`` every element within it), time
     both (device time, and per call with the launch overhead), time
@@ -394,7 +418,9 @@ def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
     taken (``*_by``: "profiler" or "events", see ``device_ms``), and
     compute the bound for the same work: each
     input read once and each output written once over the HBM rate, or
-    the operations over ``peak``, whichever is longer."""
+    the operations over ``peak``, whichever is longer.  ``plain_runs``
+    cuts the plain version's timed calls (for a plain version that
+    launches thousands of small kernels a call)."""
     want = fields(run_plain())
     got = fields(run_kernel())
     torch.cuda.synchronize()
@@ -408,8 +434,9 @@ def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
                         f"{tol} (max |difference| {err:.3g})")
         agree = f"max |difference| {err:.3g} within rtol, atol = {tol}"
     ms, ms_by = device_ms(run_kernel)
-    plain, plain_by = device_ms(run_plain)
-    call, plain_call = call_ms(run_kernel), call_ms(run_plain)
+    plain, plain_by = device_ms(run_plain, runs=plain_runs or 20)
+    call = call_ms(run_kernel)
+    plain_call = call_ms(run_plain, runs=plain_runs or 30)
     lib, lib_by = device_ms(library) if library is not None else (None, None)
     moved = nbytes(*inputs) + nbytes(*got)
     t_bytes, t_ops = moved / hbm, ops / peak
@@ -612,6 +639,55 @@ def compress_kernels(hbm):
     return records
 
 
+#: mamba_scan against its plain version (rtol, atol): float32 on both
+#: sides, differing in the order of the sums over N and in the FMAs nvcc
+#: contracts; h carries each step's rounding over about 1 / (dt |A|) steps
+SCAN_TOL = (1e-4, 1e-4)
+
+
+def held_close(label, got, want, tol):
+    """Check one kernel call against its plain version within ``tol``
+    (rtol, atol) over every output field."""
+    bad, err = compare_close(tuple(want), tuple(got), *tol)
+    check(bad == 0, f"{label}: {bad} elements outside rtol, atol = {tol} "
+                    f"(max |difference| {err:.3g})")
+    print(f"{label}: max |difference| {err:.3g} within rtol, atol = {tol}",
+          flush=True)
+    return err
+
+
+def scan_inputs(gen, Bb, S, di, N, dev):
+    """x, dt > 0, B, C, A < 0, float32, made on the card with the
+    distributions of the repo's kernel test."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    return (randn(Bb, S, di) * 0.5, F.softplus(randn(Bb, S, di) - 1),
+            randn(Bb, S, N) * 0.5, randn(Bb, S, N) * 0.5,
+            -torch.exp(randn(di, N) * 0.3))
+
+
+def scan_kernels(hbm):
+    """mamba_scan at jamba's prefill shape, (Bb, S, di, N) = (8, 2048,
+    8192, 16) float32, timed; and at a ragged shape (S and di not
+    multiples of the 64-step chunk or the 128-channel block).  About 5
+    operations per (b, t, d, n), one of them an expf."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2027)
+    args = scan_inputs(gen, 8, 2048, 8192, 16, dev)
+    rec = measure("mamba_scan (8,2048,8192,16) f32",
+                  lambda: mamba_scan(*args), lambda: mamba_scan_torch(*args),
+                  args, 5 * 8 * 2048 * 8192 * 16, hbm, tol=SCAN_TOL,
+                  plain_runs=2)
+    del args
+    args = scan_inputs(gen, 3, 2047, 8100, 16, dev)
+    held_close("mamba_scan (3,2047,8100,16) f32 ragged", mamba_scan(*args),
+               mamba_scan_torch(*args), SCAN_TOL)
+    del args
+    torch.cuda.empty_cache()
+    return {"mamba_scan": rec}
+
+
 @phase("kernels")
 def kernels(hbm):
     dev = torch.device("cuda")
@@ -666,6 +742,7 @@ def kernels(hbm):
             args, ops, hbm)
     records.update(attention_kernels(hbm))
     records.update(compress_kernels(hbm))
+    records.update(scan_kernels(hbm))
     return records
 
 
@@ -855,17 +932,92 @@ LM_F32_TOL = 1e-4
 #: bf16 logits, card against CPU, as a share of the largest logit: the
 #: card's bf16 products (cuBLAS) round in other places than the CPU's
 LM_BF16_REL = 5e-2
+#: jamba in bf16 is held on what is continuous in its inputs.  Its MoE
+#: router picks the top 2 experts, so a bf16 rounding that moves a router
+#: logit across a near tie sends the token to another expert: on the CPU,
+#: raising 30% of layer 0's in_proj entries by one bf16 ulp moves the
+#: reduced jamba's logits by more than 20% of the largest, and under 10%
+#: with MLPs in place of its MoE layers (tests/test_torch_hybrid_lm.py::
+#: test_bf16_routing_makes_the_logits_discontinuous).  So in bf16 the
+#: card is held to the CPU on
+#: the caches of the layers up to the first MoE (the Mamba states that no
+#: routing decision reaches) and on the MoE alone given the same inputs,
+#: both within JAMBA_BF16_REL of the largest magnitude (two bf16 ulps of
+#: it, and the states carry such differences through 64 + 7 steps); the
+#: logits are printed, not held
+JAMBA_BF16_REL = 5e-2
+
+
+def moe_card_vs_cpu(cpu, card, cfg, B, P):
+    """One MoE layer of the reduced jamba on the same bf16 inputs on both
+    devices, over a sequence (grouped, with capacity drops) and one token
+    (dense): the same experts for every token, outputs within
+    JAMBA_BF16_REL of the largest magnitude."""
+    layer = next(i for i, b in enumerate(cpu.stack.blocks)
+                 if b.spec[1] == "moe")
+    pc = layers.leaves(cpu.stack.blocks[layer].ffn)
+    pg = layers.leaves(card.stack.blocks[layer].ffn)
+    gen = torch.Generator().manual_seed(3)
+    for S in (P, 1):
+        x = torch.randn((B, S, cfg.d_model), generator=gen).to(torch.bfloat16)
+        check(torch.equal(moe._route(pc, x, cfg)[2],
+                          moe._route(pg, x.cuda(), cfg)[2].cpu()),
+              f"jamba bf16 MoE S={S}: the card routes differently")
+        want = moe.apply_moe(pc, x, cfg)[0].float()
+        got = moe.apply_moe(pg, x.cuda(), cfg)[0].float().cpu()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= JAMBA_BF16_REL * scale,
+              f"jamba bf16 MoE S={S}: differs by {err} (largest {scale})")
+        print(f"jamba bf16 MoE layer {layer}, S={S}: same experts, max "
+              f"|difference| {err:.3g} of largest {scale:.3g}", flush=True)
+
+
+def upstream_caches_agree(label, got, want, cfg):
+    """The caches of the layers up to the first MoE layer (each its
+    mixer's, computed before any routing), card against CPU, within
+    JAMBA_BF16_REL of each cache's largest magnitude."""
+    first_moe = next(i for i, s in enumerate(transformer.block_specs(cfg))
+                     if s[1] == "moe")
+    worst = 0.0
+    for i in range(first_moe + 1):
+        for name, w in want[i].items():
+            w = w.float()
+            err = float((got[i][name].float().cpu() - w).abs().max())
+            scale = float(w.abs().max())
+            check(err <= JAMBA_BF16_REL * scale,
+                  f"{label}: layer {i} {name} differs by {err} (largest "
+                  f"{scale})")
+            worst = max(worst, err / scale)
+    return worst
+
+
+def expected_launches(cfg, decode_steps):
+    """The launches of one prefill and ``decode_steps`` decode steps of
+    ``cfg``: one ``flash_attention`` per attention layer, one
+    ``decode_attention`` per attention layer and step, one ``mamba_scan``
+    per Mamba layer, no other kernel."""
+    specs = transformer.block_specs(cfg)
+    mixers = [specs[i % len(specs)][0] for i in range(cfg.num_layers)]
+    want = {n: 0 for n in K.LAUNCHES}
+    want["flash_attention"] = mixers.count("attn")
+    want["decode_attention"] = mixers.count("attn") * decode_steps
+    want["mamba_scan"] = mixers.count("mamba")
+    return want
 
 
 @phase("lm_card_vs_cpu")
 def lm_card_vs_cpu():
     """The reduced qwen2-1.5b (QKV bias) and qwen3-0.6b (qk_norm), 2
-    layers, from the same seeded weights on both devices: the CPU serves
-    greedily (plain attention), the card replays the CPU's tokens (teacher
+    layers, and jamba-v0.1-52b (Mamba, attention, MoE; one 8-layer
+    period), from the same seeded weights on both devices: the CPU serves
+    greedily (plain versions), the card replays the CPU's tokens (teacher
     forcing) through the kernels; logits agree at every step and, in
-    float32, the card's greedy tokens are the CPU's."""
+    float32, the card's greedy tokens are the CPU's.  Jamba in bf16 is
+    held on its caches up to the first MoE layer and on the MoE alone
+    (JAMBA_BF16_REL says why)."""
     B, P, T = 4, 64, 8
-    for arch in ("qwen2-1.5b", "qwen3-0.6b"):
+    for arch in ("qwen2-1.5b", "qwen3-0.6b", "jamba-v0.1-52b"):
         for dtype in ("float32", "bfloat16"):
             cfg = reduce_for_smoke(get_config(arch)).replace(dtype=dtype)
             cpu = lm.cast_params_for_compute(lm.LM(cfg, seed=0, device="cpu"))
@@ -877,7 +1029,19 @@ def lm_card_vs_cpu():
             want = serve.serve(cpu, prompts, T)
             check(sum(K.LAUNCHES.values()) == 0,
                   f"{arch}: the CPU run launched kernels")
+            held = arch == "jamba-v0.1-52b" and dtype == "bfloat16"
+            if held:    # the CPU's caches, teacher-forced as the card's
+                _, cpu_caches = lm.prefill_step(cpu, prompts, P + T)
+                cpu_prefill = [{n: t.clone() for n, t in c.items()}
+                               for c in cpu_caches]
+                for i in range(T - 1):
+                    lm.decode_step(cpu, want.seqs[:, i:i + 1], cpu_caches,
+                                   P + i)
+            K.reset_launches()
             logits, caches = lm.prefill_step(card, prompts.cuda(), P + T)
+            if held:
+                worst = upstream_caches_agree(
+                    f"{arch} bf16 prefill", caches, cpu_prefill, cfg)
             got = [logits[:, -1]]
             for i in range(T - 1):
                 tok = want.seqs[:, i:i + 1].cuda()
@@ -889,8 +1053,7 @@ def lm_card_vs_cpu():
                           f"{arch}: greedy token {i + 1} differs on the card")
             torch.cuda.synchronize()
             launches = dict(K.LAUNCHES)
-            check(launches["flash_attention"] == cfg.num_layers and
-                  launches["decode_attention"] == cfg.num_layers * (T - 1),
+            check(launches == expected_launches(cfg, T - 1),
                   f"{arch} {dtype}: launches {launches}")
             check(all(bool(torch.isfinite(g).all()) for g in got),
                   f"{arch} {dtype}: non-finite logits on the card")
@@ -902,14 +1065,26 @@ def lm_card_vs_cpu():
             if dtype == "float32":
                 check(err <= LM_F32_TOL,
                       f"{arch}: card logits differ by {err}")
+            elif held:
+                worst = max(worst, upstream_caches_agree(
+                    f"{arch} bf16 after {T - 1} steps", caches, cpu_caches,
+                    cfg))
+                print(f"{cfg.name} bf16: caches up to the first MoE layer "
+                      f"agree within {worst:.3g} of their largest values "
+                      f"after prefill and after {T - 1} steps (logits, not "
+                      f"held: max |difference| {err:.3g} of largest "
+                      f"{scale:.3g})", flush=True)
+                moe_card_vs_cpu(cpu, card, cfg, B, P)
             else:
                 check(err <= LM_BF16_REL * scale,
                       f"{arch} bf16: card logits differ by {err} "
                       f"(largest logit {scale})")
-            print(f"{cfg.name} {dtype}: {T} steps, card == CPU (max "
-                  f"|logit difference| {err:.3g}, largest logit "
-                  f"{scale:.3g}); launches flash {launches['flash_attention']}"
-                  f" decode {launches['decode_attention']}", flush=True)
+            print(f"{cfg.name} {dtype}: {T} steps, launches flash "
+                  f"{launches['flash_attention']} decode "
+                  f"{launches['decode_attention']} mamba_scan "
+                  f"{launches['mamba_scan']}" + ("" if held else
+                  f"; card == CPU (max |logit difference| {err:.3g}, "
+                  f"largest logit {scale:.3g})"), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1186,6 +1361,116 @@ def train_full_size():
     return launched
 
 
+# ---------------------------------------------------------------------------
+# 11. the hybrid LM at full width: one period of jamba-v0.1-52b
+# ---------------------------------------------------------------------------
+#: layer 0's Mamba state after a prefill of prompt + k tokens against its
+#: state after the prompt's prefill and k decode steps, bf16, as a share of
+#: the largest magnitude: the two compute the same function (layer 0 reads
+#: the embeddings alone, so the MoE's capacity drops do not reach it), but
+#: prefill adds the conv taps in bf16 and decode sums them in float32, and
+#: cuBLAS rounds the (16384, 4096) and the (8, 4096) in_proj products in
+#: other places; h carries those bf16 differences through 2048+ steps
+STATE_REL = 5e-2
+JAMBA_B, JAMBA_P, JAMBA_T = 8, 2048, 32
+
+
+def layer0_state(caches):
+    return {n: caches[0][n].float().clone() for n in ("h", "conv")}
+
+
+@phase("jamba_full_size")
+def jamba_full_size():
+    """One 8-layer period of jamba-v0.1-52b at full width (the only cut is
+    depth, 32 -> 8: 51.6 G parameters do not fit the card) in bf16,
+    seeded weights, through ``serve.serve``: launch counters zeroed just
+    before it and read just after it.  Returns the scan's launches on that
+    path."""
+    dev = torch.device("cuda")
+    cfg = get_config("jamba-v0.1-52b").replace(num_layers=8)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.cast_params_for_compute(lm.LM(cfg, seed=0, device=dev))
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (JAMBA_B, JAMBA_P),
+                            generator=gen, device=dev, dtype=torch.int32)
+    print(f"jamba one period (8 layers) at full width: {n_params} "
+          f"parameters, built and cast to bf16 in {built:.1f}s (peak "
+          f"{build_peak / 2 ** 30:.2f} GiB with the float32 masters), "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    res = serve.serve(model, prompts, JAMBA_T)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_launches(cfg, JAMBA_T - 1)
+    check(launches == want, f"jamba: launches {launches}, expected {want}")
+    check(all(bool(torch.isfinite(x).all()) for x in res.logits),
+          "jamba: non-finite logits")
+    check(tuple(res.seqs.shape) == (JAMBA_B, JAMBA_T),
+          f"jamba: seqs {tuple(res.seqs.shape)}")
+    print(f"full size jamba (8 layers) bf16 serve {JAMBA_B}x({JAMBA_P}+"
+          f"{JAMBA_T}): prefill {res.prefill_ms:.1f} ms, decode "
+          f"{res.decode_ms_per_token:.3f} ms/token, {res.tokens_per_s:.1f} "
+          f"tokens/s, serving peak memory {peak / 2 ** 30:.2f} GiB, launches "
+          f"{launches}", flush=True)
+    again = serve.serve(model, prompts, JAMBA_T)
+    check(torch.equal(again.seqs, res.seqs),
+          "jamba: a second serve gave other tokens")
+    print(f"second serve: same tokens (prefill {again.prefill_ms:.1f} ms, "
+          f"decode {again.decode_ms_per_token:.3f} ms/token)", flush=True)
+    del again
+    # the kernel against its plain version on layer 0's real scan inputs
+    block = model.stack.blocks[0]
+    with torch.no_grad():
+        x = layers.rms_norm(layers.embed(model.embed, prompts,
+                                         model.compute_dtype),
+                            block.mixer_norm, cfg.norm_eps)
+        _, _, xc, dt, Bm, Cm, A = ssm.mamba_scan_inputs(
+            layers.leaves(block.mixer), x, cfg)
+        args = (xc.float(), dt, Bm.contiguous(), Cm.contiguous(), A)
+        held_close("mamba_scan on layer 0's prefill inputs "
+                   f"{tuple(xc.shape)}", mamba_scan(*args),
+                   mamba_scan_torch(*args), SCAN_TOL)
+    del x, xc, dt, Bm, Cm, A, args
+    # layer 0's state: prefill of prompt + k tokens against k decode steps
+    _, caches = lm.prefill_step(model, prompts, JAMBA_P + JAMBA_T)
+    after = {}
+    for i in range(JAMBA_T - 1):
+        lm.decode_step(model, res.seqs[:, i:i + 1], caches, JAMBA_P + i)
+        if i + 1 in (1, JAMBA_T - 1):
+            after[i + 1] = layer0_state(caches)
+    del caches
+    for k, got in after.items():
+        _, caches = lm.prefill_step(model, torch.cat([prompts,
+                                                      res.seqs[:, :k]], 1))
+        want_state = layer0_state(caches)
+        del caches
+        for name in ("h", "conv"):
+            err = float((got[name] - want_state[name]).abs().max())
+            scale = float(want_state[name].abs().max())
+            check(err <= STATE_REL * scale,
+                  f"jamba layer 0 {name}: prefill of prompt + {k} tokens vs "
+                  f"{k} decode steps differ by {err} (largest {scale})")
+            print(f"jamba layer 0 {name} after prefill of {JAMBA_P + k} "
+                  f"tokens vs after {k} decode steps: max |difference| "
+                  f"{err:.4g} of largest {scale:.4g}", flush=True)
+    torch.cuda.empty_cache()
+    profile_serve.profile_serving(model, prompts, 8)
+    del model
+    torch.cuda.empty_cache()
+    return {"mamba_scan": launches["mamba_scan"]}
+
+
 #: each kernel entry point of the kernels JSON line: (name, kernel source
 #: key, TPU kernel it replaces)
 ENTRIES = (
@@ -1207,6 +1492,7 @@ ENTRIES = (
     ("dequantize", "dequantize", "src/repro/kernels/quantize/kernel.py:23"),
     ("topk_compress", "topk_compress",
      "src/repro/kernels/topk_compress/kernel.py:17"),
+    ("mamba_scan", "mamba_scan", "src/repro/kernels/mamba_scan/kernel.py:23"),
 )
 
 
@@ -1225,6 +1511,7 @@ def main():
     launched.update(lm_full_size())
     train_card_vs_cpu()
     launched.update(train_full_size())
+    launched.update(jamba_full_size())
     kernels_line = []
     for entry, kname, replaces in ENTRIES:
         rec = records[entry]

@@ -1,6 +1,7 @@
 """Architecture registry of the port — importing this package registers the
-configs copied so far: the dense family, the one the serving path runs.
-The other families' configs come with their slices (ROADMAP Queue 1)."""
+configs copied so far: the dense family (served and trained) and jamba, the
+hybrid family (served).  The other families' configs come with their
+slices (ROADMAP Queue 1)."""
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     ModelConfig,
@@ -13,6 +14,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 # importing each module registers its CONFIG
 from repro_torch.configs import (  # noqa: F401
+    jamba_v0p1_52b,
     minitron_8b,
     qwen2_1p5b,
     qwen25_3b,

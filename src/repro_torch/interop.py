@@ -1,5 +1,5 @@
 """Carry state across: a vectorized engine's window carry between numpy
-and the torch engine, an LM's weights and KV caches between the
+and the torch engine, an LM's weights and decode caches between the
 reference's pytrees (as numpy arrays) and the port's modules, and a train
 state between the reference's pytree and the port's dicts.
 
@@ -114,21 +114,23 @@ def params_from_numpy(params_np, cfg, device):
 
 def caches_from_numpy(caches_np, cfg, device) -> List[Dict[str, torch.Tensor]]:
     """The reference's stacked caches (a tuple over period positions of
-    {"k", "v"} arrays ``(P, B, S, KH, hd)``) as the port's per-layer list
-    of {"k", "v"} ``(B, S, KH, hd)`` tensors on ``device``."""
+    dicts of ``(P, ...)`` arrays: {"k", "v"} ``(P, B, S, KH, hd)`` for an
+    attention position, {"h", "conv"} for a Mamba one) as the port's
+    per-layer list of dicts of tensors on ``device``, each with its
+    position's names."""
     from repro_torch.models.transformer import block_specs
 
     n_pos = len(block_specs(cfg))
     P = cfg.num_layers // n_pos
-    return [{name: _array(caches_np[i % n_pos][name][i // n_pos]).to(device)
-             for name in ("k", "v")}
+    return [{name: _array(arr[i // n_pos]).to(device)
+             for name, arr in caches_np[i % n_pos].items()}
             for i in range(P * n_pos)]
 
 
 def caches_to_numpy(caches, cfg) -> Tuple[Dict[str, np.ndarray], ...]:
     """The port's per-layer caches stacked as the reference's tuple over
-    period positions of ``(P, B, S, KH, hd)`` arrays; bfloat16 comes back
-    as float32 (exact)."""
+    period positions of dicts of ``(P, ...)`` arrays, each position with
+    its own names; bfloat16 comes back as float32 (exact)."""
     from repro_torch.models.transformer import block_specs
 
     n_pos = len(block_specs(cfg))
@@ -139,7 +141,7 @@ def caches_to_numpy(caches, cfg) -> Tuple[Dict[str, np.ndarray], ...]:
 
     return tuple({name: np.stack([arr(caches[i][name])
                                   for i in range(pos, len(caches), n_pos)])
-                  for name in ("k", "v")}
+                  for name in caches[pos]}
                  for pos in range(n_pos))
 
 

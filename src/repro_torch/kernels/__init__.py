@@ -3,5 +3,6 @@ version.  ``duct_exchange`` holds the duct layouts' window, commit and
 exchange ops, ``flash_attention`` and ``decode_attention`` the LM's
 prefill and decode attention, ``quantize`` and ``topk_compress`` the
 training path's lossy cross-pod payload (int8 quantize and dequantize,
-magnitude top-k); ``build`` builds, loads and counts the launches of all
-eight kernels."""
+magnitude top-k), ``mamba_scan`` the Mamba mixer's selective scan
+(jamba's prefill); ``build`` builds, loads and counts the launches of all
+nine kernels."""

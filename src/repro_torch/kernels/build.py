@@ -39,6 +39,7 @@ SOURCES = {
     "quantize": "quantize/csrc/quantize.cu",
     "dequantize": "quantize/csrc/quantize.cu",
     "topk_compress": "topk_compress/csrc/topk_compress.cu",
+    "mamba_scan": "mamba_scan/csrc/mamba_scan.cu",
 }
 
 #: launches per kernel since the last reset_launches()

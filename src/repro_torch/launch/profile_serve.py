@@ -14,6 +14,9 @@ wall ms per call (profiler on), CUDA kernel launches per call, the
 device's busy ms per call (the sum of kernel times), the busy share of the
 wall time, the kernels that take the most device time, and the host-side
 operations that take the most CPU time.  Needs a CUDA device.
+``profile_serving(model, prompts, steps)`` does the same for a model built
+by the caller (``chip_smoke.py`` profiles the one-period full-width jamba
+with it).
 """
 from __future__ import annotations
 
@@ -49,24 +52,20 @@ def _summary(prof, wall: float, calls: int, label: str) -> dict:
                       for e in top_host])
 
 
-def main(argv=None) -> list:
-    p = serve.build_parser()
-    p.prog = "python -m repro_torch.launch.profile_serve"
-    p.add_argument("--steps", type=int, default=8)
-    p.set_defaults(arch="qwen2-1.5b", batch=8, prompt_len=2048)
-    a = p.parse_args(argv)
-    if torch.device(a.device).type != "cuda":
-        p.error("profile_serve profiles the card: --device cuda")
-    model, prompts = serve.build_server(a)
-    cfg, dev = model.cfg, prompts.device
+def profile_serving(model: lm.LM, prompts: torch.Tensor, steps: int) -> list:
+    """Warm ``model`` up with one prefill of ``prompts`` (B, P) and two
+    decode steps, then profile one prefill (with the cache allocation and
+    copy) and ``steps`` decode steps; returns one summary for each (see
+    the module's docstring).  Works for any model the server serves (the
+    dense archs and jamba)."""
     B, P = prompts.shape
 
     def prefill():
-        logits, caches = lm.prefill_step(model, prompts, P + a.steps + 2)
+        logits, caches = lm.prefill_step(model, prompts, P + steps + 2)
         return logits.argmax(dim=-1).to(torch.int32), caches
 
-    def decode(tok, caches, steps, start):
-        for i in range(steps):
+    def decode(tok, caches, n, start):
+        for i in range(n):
             tok, _, caches = lm.decode_step(model, tok, caches, start + i)
         return tok
 
@@ -84,16 +83,30 @@ def main(argv=None) -> list:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode(tok, caches, a.steps, P + 2)
+        decode(tok, caches, steps, P + 2)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    out.append(_summary(prof, wall, a.steps, "decode"))
+    out.append(_summary(prof, wall, steps, "decode"))
+    cfg = model.cfg
     for rec in out:
         print(json.dumps(dict(arch=cfg.name, dtype=cfg.dtype, batch=B,
                               prompt_len=P,
-                              device=torch.cuda.get_device_name(dev),
+                              device=torch.cuda.get_device_name(
+                                  prompts.device),
                               **rec)))
     return out
+
+
+def main(argv=None) -> list:
+    p = serve.build_parser()
+    p.prog = "python -m repro_torch.launch.profile_serve"
+    p.add_argument("--steps", type=int, default=8)
+    p.set_defaults(arch="qwen2-1.5b", batch=8, prompt_len=2048)
+    a = p.parse_args(argv)
+    if torch.device(a.device).type != "cuda":
+        p.error("profile_serve profiles the card: --device cuda")
+    model, prompts = serve.build_server(a)
+    return profile_serving(model, prompts, a.steps)
 
 
 if __name__ == "__main__":

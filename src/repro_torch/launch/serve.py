@@ -1,20 +1,26 @@
-"""Serving driver: batched prefill, then greedy decode against a KV cache.
+"""Serving entry point: batched prefill, then greedy decode.
 
 The counterpart of src/repro/launch/serve.py (its step factories) and
 examples/serve_lm.py (its driver); the reference's cache sharding rules
 wait for the mesh slice.  A server builds the LM from a seed, casts it to
-the compute dtype once, prefills a batch of random prompts, allocates one
-cache per layer to ``prompt + tokens`` positions, copies the prefill's k/v
-into it and runs ``tokens - 1`` decode steps, each writing its token's k/v
-into the cache in place.  On the card, attention runs through the
-hand-written CUDA flash-attention (prefill) and flash-decoding (decode)
-kernels; on the CPU through their plain torch versions.
+the compute dtype once, prefills a batch of random prompts, allocates each
+attention layer's KV cache to ``prompt + tokens`` positions with the
+prefill's k/v in front (a Mamba layer's cache is its state, as the prompt
+leaves it) and runs ``tokens - 1`` decode steps, each writing its token's
+k/v or new state into the caches in place.  It serves the dense archs and
+jamba (``jamba-v0.1-52b``, and ``jamba-v0.1-52b-smoke``, its reduced
+8-layer config).  On the card, attention runs through the hand-written
+CUDA flash-attention (prefill) and flash-decoding (decode) kernels and
+the Mamba prefill through the selective-scan kernel; on the CPU through
+their plain torch versions.
 
 Run::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --tokens 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch qwen2-1.5b-smoke
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch jamba-v0.1-52b-smoke --dtype float32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --batch 8 --prompt-len 2048 --tokens 32          # on the card
 """
@@ -107,8 +113,9 @@ def serve(model: lm.LM, prompts: torch.Tensor, tokens: int) -> ServeResult:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default=SERVE_DEMO.name,
-                    help="serve-demo (default), a registered dense arch, or "
-                         "NAME-smoke for its reduced config")
+                    help="serve-demo (default), a registered dense arch or "
+                         "jamba-v0.1-52b, or NAME-smoke for its reduced "
+                         "config")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--tokens", type=int, default=16)

@@ -23,17 +23,34 @@ def param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
-               scale: float | None = None) -> torch.Tensor:
-    """Truncated-normal (to [-2, 2]) fan-in init by the inverse CDF, on the
-    generator's device."""
-    if scale is None:
-        scale = in_dim ** -0.5
+def truncated_normal(gen: torch.Generator, shape, scale: float,
+                     dtype) -> torch.Tensor:
+    """A normal truncated to [-2, 2] by the inverse CDF, times ``scale``,
+    on the generator's device; computed in place, so that a large weight
+    (a (16, 4096, 14336) expert stack) needs no temporaries."""
     lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, \
         (1 + math.erf(2 / math.sqrt(2))) / 2
-    u = torch.rand((in_dim, out_dim), generator=gen, device=gen.device)
-    x = torch.erfinv((lo + (hi - lo) * u) * 2 - 1) * math.sqrt(2)
-    return (x.clamp_(-2.0, 2.0) * scale).to(dtype)
+    x = torch.rand(shape, generator=gen, device=gen.device)
+    x.mul_(hi - lo).add_(lo).mul_(2).sub_(1).erfinv_().mul_(math.sqrt(2))
+    return x.clamp_(-2.0, 2.0).mul_(scale).to(dtype)
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
+               scale: float | None = None) -> torch.Tensor:
+    """Truncated-normal (to [-2, 2]) fan-in init, on the generator's
+    device."""
+    if scale is None:
+        scale = in_dim ** -0.5
+    return truncated_normal(gen, (in_dim, out_dim), scale, dtype)
+
+
+def leaves(module: nn.Module) -> dict:
+    """A module's weights under the reference's leaf names: its own
+    parameters, and each child module's leaves nested under its name."""
+    out = dict(module._parameters)
+    for name, child in module.named_children():
+        out[name] = leaves(child)
+    return out
 
 
 def zeros(n: int, dtype, device) -> nn.Parameter:

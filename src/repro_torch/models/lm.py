@@ -180,16 +180,19 @@ def prefill_step(model: LM, tokens: torch.Tensor,
                  cache_len: Optional[int] = None
                  ) -> Tuple[torch.Tensor, Caches]:
     """Prefill: logits (B, 1, V) for the last position, and one decode
-    cache {"k", "v"} (B, cache_len, KH, hd) per layer: the prompt's k/v in
-    the first S positions, zeros after them for the decode steps to fill.
-    ``cache_len`` defaults to S, the reference's prefill caches."""
+    cache per layer: an attention layer's {"k", "v"} (B, cache_len, KH,
+    hd), the prompt's k/v in the first S positions and zeros after them
+    for the decode steps to fill (``cache_len`` defaults to S, the
+    reference's prefill caches); a Mamba layer's state {"h", "conv"} as
+    the prompt leaves it."""
     x, caches = model._prefill(tokens)
     S = tokens.shape[1]
     if cache_len is not None and cache_len != S:
         if cache_len < S:
             raise ValueError(f"cache_len {cache_len} < prompt length {S}")
-        caches = [{n: F.pad(c[n], (0, 0, 0, 0, 0, cache_len - S))
-                   for n in ("k", "v")} for c in caches]
+        caches = [{n: F.pad(t, (0, 0, 0, 0, 0, cache_len - S))
+                   for n, t in c.items()} if "k" in c else c
+                  for c in caches]
     return model._logits(x[:, -1:]), caches
 
 

@@ -7,7 +7,9 @@ scans.  The serving path holds one ``Block`` per layer in an
 position ``i % len(block_specs(cfg))``; ``interop.params_from_numpy``
 unstacks); training keeps the reference's stacked leaves and reads each
 layer as a slice of them (``stack_forward``).  Both run ``block_forward``.
-So far only the dense ``('attn', 'mlp')`` block is ported.
+Serving takes the mixers ``attn`` and ``mamba`` and the FFNs ``mlp`` and
+``moe`` (the dense and the jamba blocks); training so far only the dense
+``('attn', 'mlp')`` block.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from repro_torch.models.attention import (
     attention_forward,
     init_kv_cache,
 )
+from repro_torch.models.moe import MoE, apply_moe
+from repro_torch.models.ssm import Mamba, init_mamba_state, mamba_forward
 
 
 def block_specs(cfg) -> List[Tuple[str, str]]:
@@ -53,36 +57,60 @@ def num_periods(cfg) -> int:
 
 
 #: the reference module of each block part the port does not have yet
-_UNPORTED = {"mamba": "src/repro/models/ssm.py (mamba)",
-             "mlstm": "src/repro/models/ssm.py (mlstm)",
+_UNPORTED = {"mlstm": "src/repro/models/ssm.py (mlstm)",
              "slstm": "src/repro/models/ssm.py (slstm)",
-             "moe": "src/repro/models/moe.py",
              "ffn43": "src/repro/models/transformer.py (ffn43, xLSTM)"}
+#: block parts served but not yet trained
+_UNTRAINED = {"mamba": "src/repro/models/ssm.py (mamba; the scan kernel "
+                       "has no backward yet)",
+              "moe": "src/repro/models/moe.py (the router aux loss)"}
 
 
-def check_ported(spec: Tuple[str, str]) -> None:
-    """Raise ``NotImplementedError`` for a block spec the port lacks."""
+def check_ported(spec: Tuple[str, str], training: bool = False) -> None:
+    """Raise ``NotImplementedError`` for a block spec the port lacks (for
+    training, also for the parts only served so far)."""
     for part in spec:
-        if part in _UNPORTED:
+        missing = _UNPORTED.get(part) or (training and _UNTRAINED.get(part))
+        if missing:
             raise NotImplementedError(
-                f"block spec {spec}: {part!r} is not ported yet; its "
-                f"reference is {_UNPORTED[part]} (ROADMAP Queue 1)")
+                f"block spec {spec}: {part!r} is not ported yet"
+                f"{' for training' if part in _UNTRAINED else ''}; its "
+                f"reference is {missing} (ROADMAP Queue 1)")
 
 
-def block_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor):
-    """The dense pre-norm residual block, ``x + attn(norm(x))`` then
-    ``x + mlp(norm(x))``, over the whole sequence.  ``p`` is one layer's
-    leaves under the reference's names ({"mixer_norm", "mixer": {...},
-    "ffn_norm", "ffn": {...}}).  Returns (x, (k, v)); differentiable."""
-    h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
-    y, kv = attention_forward(p["mixer"], h, cfg, positions)
-    x = x + y
+def ffn_forward(p, x: torch.Tensor, cfg, ffn: str) -> torch.Tensor:
+    """``x + ffn(norm(x))`` with the SwiGLU MLP or the MoE (whose aux loss
+    serving does not need)."""
     h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    return x + layers.apply_mlp(p["ffn"], h), kv
+    if ffn == "mlp":
+        return x + layers.apply_mlp(p["ffn"], h)
+    if ffn == "moe":
+        return x + apply_moe(p["ffn"], h, cfg)[0]
+    raise ValueError(ffn)
 
 
-def _block_output(p, x, cfg, positions):
-    return block_forward(p, x, cfg, positions)[0]
+def block_forward(p, x: torch.Tensor, cfg, spec: Tuple[str, str],
+                  positions: torch.Tensor):
+    """The pre-norm residual block, ``x + mixer(norm(x))`` then
+    ``x + ffn(norm(x))``, over the whole sequence.  ``p`` is one layer's
+    leaves under the reference's names ({"mixer_norm", "mixer": {...},
+    "ffn_norm", "ffn": {...}}); ``spec`` its (mixer, ffn).  Returns (x,
+    the mixer's decode cache: {"k", "v"} for attention, {"h", "conv"} for
+    Mamba).  Differentiable for the dense block."""
+    mixer, ffn = spec
+    h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    if mixer == "attn":
+        y, (k, v) = attention_forward(p["mixer"], h, cfg, positions)
+        cache = {"k": k, "v": v}
+    elif mixer == "mamba":
+        y, cache = mamba_forward(p["mixer"], h, cfg, return_state=True)
+    else:
+        raise ValueError(mixer)
+    return ffn_forward(p, x + y, cfg, ffn), cache
+
+
+def _block_output(p, x, cfg, spec, positions):
+    return block_forward(p, x, cfg, spec, positions)[0]
 
 
 def stack_forward(stack, x: torch.Tensor, cfg, positions: torch.Tensor
@@ -94,10 +122,11 @@ def stack_forward(stack, x: torch.Tensor, cfg, positions: torch.Tensor
     position ``i % n_pos``'s leaves (``unbind``: views, so gradients land
     in the stacked leaves).  With ``cfg.remat`` each block is recomputed
     in the backward pass (``torch.utils.checkpoint``, the counterpart of
-    the reference's ``jax.checkpoint``)."""
+    the reference's ``jax.checkpoint``).  Only the dense block trains so
+    far: Mamba and MoE blocks raise."""
     specs = block_specs(cfg)
     for spec in specs:
-        check_ported(spec)
+        check_ported(spec, training=True)
 
     def unbind(tree):
         return {k: unbind(v) if isinstance(v, dict) else v.unbind(0)
@@ -109,50 +138,47 @@ def stack_forward(stack, x: torch.Tensor, cfg, positions: torch.Tensor
 
     views = [unbind(pos) for pos in stack]
     for i in range(num_periods(cfg)):
-        for pos in range(len(specs)):
+        for pos, spec in enumerate(specs):
             p = layer(views[pos], i)
             if cfg.remat:
-                x = checkpoint(_block_output, p, x, cfg, positions,
+                x = checkpoint(_block_output, p, x, cfg, spec, positions,
                                use_reentrant=False)
             else:
-                x = _block_output(p, x, cfg, positions)
+                x = _block_output(p, x, cfg, spec, positions)
     return x
 
 
 class Block(nn.Module):
-    """The weights of one dense block, applied by ``block_forward``."""
+    """The weights of one block of spec (mixer, ffn): ``Attention`` or
+    ``Mamba``, then ``MLP`` or ``MoE``; applied by ``block_forward``."""
 
     def __init__(self, gen: torch.Generator, cfg, spec: Tuple[str, str]):
         super().__init__()
         check_ported(spec)
+        mixer, ffn = spec
         dtype = getattr(torch, cfg.param_dtype)
         dev = gen.device
-        self.cfg = cfg
+        self.cfg, self.spec = cfg, spec
         self.mixer_norm = layers.zeros(cfg.d_model, dtype, dev)
-        self.mixer = Attention(gen, cfg, dtype)
+        self.mixer = (Attention(gen, cfg, dtype) if mixer == "attn"
+                      else Mamba(gen, cfg, dtype))
         self.ffn_norm = layers.zeros(cfg.d_model, dtype, dev)
-        self.ffn = layers.MLP(gen, cfg.d_model, cfg.d_ff, dtype)
-
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
-        h = layers.rms_norm(x, self.ffn_norm, self.cfg.norm_eps)
-        return x + self.ffn(h)
-
-    def leaves(self):
-        """This layer's weights under the reference's leaf names."""
-        return {"mixer_norm": self.mixer_norm,
-                "mixer": self.mixer._parameters,
-                "ffn_norm": self.ffn_norm, "ffn": self.ffn._parameters}
+        self.ffn = (layers.MLP(gen, cfg.d_model, cfg.d_ff, dtype)
+                    if ffn == "mlp" else MoE(gen, cfg, dtype))
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor):
         """Whole-sequence forward that also returns the decode cache."""
-        x, (k, v) = block_forward(self.leaves(), x, self.cfg, positions)
-        return x, {"k": k, "v": v}
+        return block_forward(layers.leaves(self), x, self.cfg, self.spec,
+                             positions)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                write_idx: int) -> torch.Tensor:
         """Single-token decode; writes the cache in place."""
+        mixer, ffn = self.spec
         h = layers.rms_norm(x, self.mixer_norm, self.cfg.norm_eps)
-        return self._ffn(x + self.mixer.decode(h, cache, write_idx))
+        y = (self.mixer.decode(h, cache, write_idx) if mixer == "attn"
+             else self.mixer.decode(h, cache))
+        return ffn_forward(layers.leaves(self), x + y, self.cfg, ffn)
 
 
 class Stack(nn.Module):
@@ -179,10 +205,21 @@ class Stack(nn.Module):
         return x
 
 
+def init_block_cache(cfg, spec: Tuple[str, str], batch: int, seq: int,
+                     dtype=torch.bfloat16, device="cuda"
+                     ) -> Dict[str, torch.Tensor]:
+    """A zeroed decode cache for one block: {"k", "v"} (batch, seq, KH,
+    hd) for attention, {"h" (batch, di, N) float32, "conv"} for Mamba."""
+    check_ported(spec)
+    if spec[0] == "attn":
+        return init_kv_cache(cfg, batch, seq, dtype, device)
+    return init_mamba_state(cfg, batch, dtype, device)
+
+
 def init_caches(cfg, batch: int, seq: int, dtype=torch.bfloat16,
                 device="cuda") -> List[Dict[str, torch.Tensor]]:
-    """One zeroed KV cache per layer, (batch, seq, KH, hd) each."""
-    for spec in block_specs(cfg):
-        check_ported(spec)
-    return [init_kv_cache(cfg, batch, seq, dtype, device)
-            for _ in range(cfg.num_layers)]
+    """One zeroed decode cache per layer, by the layer's spec."""
+    specs = block_specs(cfg)
+    return [init_block_cache(cfg, specs[i % len(specs)], batch, seq, dtype,
+                             device)
+            for i in range(cfg.num_layers)]

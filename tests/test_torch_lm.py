@@ -264,9 +264,8 @@ def test_bf16_logits_follow_the_reference_norm_rounding(ref):
     assert err_fixed < err_former, (err_fixed, err_former)
 
 
-@pytest.mark.parametrize("spec", [dict(block_pattern=("mamba",)),
-                                  dict(num_experts=4, experts_per_tok=2,
-                                       moe_d_ff=32)])
+@pytest.mark.parametrize("spec", [dict(block_pattern=("mlstm",)),
+                                  dict(block_pattern=("slstm",))])
 def test_unported_block_spec_raises(spec):
     cfg = ModelConfig(name="t", family="hybrid", num_layers=2, d_model=32,
                       num_heads=2, num_kv_heads=1, d_ff=64, vocab_size=64,
