@@ -14,11 +14,12 @@ LM's training path in best-effort mode 3, attention through
 ``flash_attention`` and the lossy cross-pod payload through the
 ``quantize`` / ``dequantize`` or ``topk_compress`` kernels; the hybrid
 jamba's serving path, its Mamba prefill through the ``mamba_scan`` kernel,
-its one attention layer through the two attention kernels) and fails
-with a non-zero exit code if any phase fails:
+its one attention layer through the two attention kernels; xlstm-125m's
+serving path, its mLSTM prefill through the ``mlstm_attention`` kernel)
+and fails with a non-zero exit code if any phase fails:
 
   1. card      the ``nvidia-smi`` name and power limit
-  2. build     the nine kernels from ``csrc/`` into ``build/`` (eight
+  2. build     the ten kernels from ``csrc/`` into ``build/`` (nine
                sources, one nvcc each, started together)
   3. kernels   each kernel, and each float32 entry point, against its plain
                torch version on the same CUDA inputs at the main paths'
@@ -35,7 +36,10 @@ with a non-zero exit code if any phase fails:
                ``torch.topk`` of |x| beside top-k); ``mamba_scan`` at
                jamba's prefill shape (8, 2048, 8192, 16) and a ragged
                shape within a stated tolerance (no PyTorch call computes
-               the scan)
+               the scan); ``mlstm_attention`` at xlstm-125m's prefill
+               shape (8, 2048, 4, 384) bf16, at a float32 shape and at a
+               ragged one within a stated tolerance (no PyTorch call
+               computes the mLSTM's signed, max-clamped normaliser)
   4. oracle    dyadic 16-process scenarios on both duct layouts: the torch
                engine on the card gives the event simulator's
                ``qos_signature``
@@ -51,8 +55,9 @@ with a non-zero exit code if any phase fails:
                --superstep-windows 8 and --layout edge (all three equal).
                Launch counters are zeroed just before each path and read
                just after it
-  7. lm card=cpu  the reduced qwen2-1.5b and qwen3-0.6b (2 layers) and
-               jamba-v0.1-52b (one 8-layer period) served on the card
+  7. lm card=cpu  the reduced qwen2-1.5b and qwen3-0.6b (2 layers),
+               jamba-v0.1-52b (one 8-layer period) and xlstm-125m (6
+               layers; float32 only) served on the card
                (kernels) and on the CPU (plain versions) from the same
                seeded weights: logits at every step with teacher forcing,
                exact launch counts, equal greedy tokens in float32; jamba
@@ -87,6 +92,17 @@ with a non-zero exit code if any phase fails:
                tokens equals its state after k decode steps (k = 1, 31);
                then ``profile_serve.profile_serving`` over one prefill and
                8 decode steps
+  12. xlstm full size  xlstm-125m at full width and depth (12 layers, d
+               768, 155.6 M parameters; uncut) in bf16 through
+               ``repro_torch.launch.serve``: batch 8, prompt 2048, 32 new
+               tokens; exact launches (10 ``mlstm_attention`` per
+               prefill, no other kernel), finite logits, the same tokens
+               from a second serve; the kernel against its plain version
+               on layer 0's real inputs; prefill of the prompt plus k
+               generated tokens gives decode step k's logits (k = 1, 31)
+               within XLSTM_CROSS_REL; ``profile_serve.profile_serving``
+               over one prefill and 8 decode steps; then the same serve
+               in float32, prefill against decode at float32's precision
 
 It imports nothing of JAX or of the JAX package.  The line before the last
 is a JSON object with one record per kernel and float32 entry point; the
@@ -156,6 +172,10 @@ from repro_torch.kernels.topk_compress import (  # noqa: E402
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
     mamba_scan,
     mamba_scan_torch,
+)
+from repro_torch.kernels.mlstm_attention import (  # noqa: E402
+    mlstm_attention,
+    mlstm_attention_plain,
 )
 from repro_torch.launch import profile_serve, serve, train  # noqa: E402
 from repro_torch.models import layers, lm, moe, ssm, transformer  # noqa: E402
@@ -247,7 +267,7 @@ def build():
     secs = K.build()
     for name in K.SOURCES:
         check(K.library_path(name).exists(), f"{name} library missing")
-    check(len(K.SOURCES) == 9, f"expected nine kernels, got {K.SOURCES}")
+    check(len(K.SOURCES) == 10, f"expected ten kernels, got {K.SOURCES}")
     print(f"built {sorted(K.SOURCES)} in {secs:.1f}s into {K.BUILD_DIR}")
 
 
@@ -688,6 +708,63 @@ def scan_kernels(hbm):
     return {"mamba_scan": rec}
 
 
+#: mlstm_attention against its plain version (rtol, atol), as the attention
+#: kernels': float32 differs only in the order of the sums (online
+#: stabilizer over key tiles); in bf16 both sides compute in float32 and
+#: round once, so they differ by at most one bf16 ulp
+MLSTM_TOL = ATTN_TOL
+
+
+def mlstm_inputs(gen, B, S, H, hd, dtype, dev):
+    """q, k (scaled by hd**-0.5), v in ``dtype``; F = cumsum(log_sigmoid(n
+    + 3)) and I = 0.5 n float32: the model's layout (B, S, H, hd), with
+    the distributions of the repo's kernel test, made on the card."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    q = randn(B, S, H, hd).to(dtype)
+    k = (randn(B, S, H, hd) * hd ** -0.5).to(dtype)
+    v = randn(B, S, H, hd).to(dtype)
+    F_ = torch.cumsum(F.logsigmoid(randn(B, S, H) + 3.0), dim=1)
+    return q, k, v, F_, randn(B, S, H) * 0.5
+
+
+def mlstm_flops(B, S, H, hd):
+    """Two chained products of hd multiply-adds over the S (S + 1) / 2
+    causal (query, key) pairs of each (b, h)."""
+    return 2 * 2 * hd * B * H * (S * (S + 1) // 2)
+
+
+def mlstm_kernels(hbm):
+    """mlstm_attention at xlstm-125m's prefill shape, (B, S, H, hd) = (8,
+    2048, 4, 384) bf16 (BH = 32), and a float32 shape, timed; and a ragged
+    S (2047: not a multiple of the 64-row query tile or the 32-row key
+    tile) at the Pallas kernel's layout (H = 1).  No PyTorch call
+    computes this function: the library column stays empty."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2028)
+    records = {}
+    for label, shape, dtype, rec in (
+            ("(8,2048,4,384) bf16", (8, 2048, 4, 384), torch.bfloat16,
+             "mlstm_attention"),
+            ("(2,2048,4,384) f32", (2, 2048, 4, 384), torch.float32,
+             "mlstm_attention_f32")):
+        args = mlstm_inputs(gen, *shape, dtype, dev)
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_OPS_PER_S
+        records[rec] = measure(
+            f"mlstm_attention {label}", lambda: mlstm_attention(*args),
+            lambda: mlstm_attention_plain(*args), args, mlstm_flops(*shape),
+            hbm, peak=peak, tol=MLSTM_TOL[dtype], plain_runs=5)
+        del args
+    args = mlstm_inputs(gen, 6, 2047, 1, 384, torch.bfloat16, dev)
+    held_close("mlstm_attention (6,2047,1,384) bf16 ragged",
+               mlstm_attention(*args), mlstm_attention_plain(*args),
+               MLSTM_TOL[torch.bfloat16])
+    del args
+    torch.cuda.empty_cache()
+    return records
+
+
 @phase("kernels")
 def kernels(hbm):
     dev = torch.device("cuda")
@@ -743,6 +820,7 @@ def kernels(hbm):
     records.update(attention_kernels(hbm))
     records.update(compress_kernels(hbm))
     records.update(scan_kernels(hbm))
+    records.update(mlstm_kernels(hbm))
     return records
 
 
@@ -996,29 +1074,35 @@ def expected_launches(cfg, decode_steps):
     """The launches of one prefill and ``decode_steps`` decode steps of
     ``cfg``: one ``flash_attention`` per attention layer, one
     ``decode_attention`` per attention layer and step, one ``mamba_scan``
-    per Mamba layer, no other kernel."""
+    per Mamba layer, one ``mlstm_attention`` per mLSTM layer, no other
+    kernel (the sLSTM and every decode step of a recurrent layer are plain
+    torch)."""
     specs = transformer.block_specs(cfg)
     mixers = [specs[i % len(specs)][0] for i in range(cfg.num_layers)]
     want = {n: 0 for n in K.LAUNCHES}
     want["flash_attention"] = mixers.count("attn")
     want["decode_attention"] = mixers.count("attn") * decode_steps
     want["mamba_scan"] = mixers.count("mamba")
+    want["mlstm_attention"] = mixers.count("mlstm")
     return want
 
 
 @phase("lm_card_vs_cpu")
 def lm_card_vs_cpu():
     """The reduced qwen2-1.5b (QKV bias) and qwen3-0.6b (qk_norm), 2
-    layers, and jamba-v0.1-52b (Mamba, attention, MoE; one 8-layer
-    period), from the same seeded weights on both devices: the CPU serves
-    greedily (plain versions), the card replays the CPU's tokens (teacher
-    forcing) through the kernels; logits agree at every step and, in
-    float32, the card's greedy tokens are the CPU's.  Jamba in bf16 is
-    held on its caches up to the first MoE layer and on the MoE alone
-    (JAMBA_BF16_REL says why)."""
+    layers, jamba-v0.1-52b (Mamba, attention, MoE; one 8-layer period)
+    and xlstm-125m (mLSTM, sLSTM; 6 layers, float32), from the same seeded
+    weights on both devices: the CPU serves greedily (plain versions), the
+    card replays the CPU's tokens (teacher forcing) through the kernels;
+    logits agree at every step and, in float32, the card's greedy tokens
+    are the CPU's.  Jamba in bf16 is held on its caches up to the first
+    MoE layer and on the MoE alone (JAMBA_BF16_REL says why)."""
     B, P, T = 4, 64, 8
-    for arch in ("qwen2-1.5b", "qwen3-0.6b", "jamba-v0.1-52b"):
-        for dtype in ("float32", "bfloat16"):
+    for arch, dtypes in (("qwen2-1.5b", ("float32", "bfloat16")),
+                         ("qwen3-0.6b", ("float32", "bfloat16")),
+                         ("jamba-v0.1-52b", ("float32", "bfloat16")),
+                         ("xlstm-125m", ("float32",))):
+        for dtype in dtypes:
             cfg = reduce_for_smoke(get_config(arch)).replace(dtype=dtype)
             cpu = lm.cast_params_for_compute(lm.LM(cfg, seed=0, device="cpu"))
             card = copy.deepcopy(cpu).to("cuda")
@@ -1082,7 +1166,8 @@ def lm_card_vs_cpu():
             print(f"{cfg.name} {dtype}: {T} steps, launches flash "
                   f"{launches['flash_attention']} decode "
                   f"{launches['decode_attention']} mamba_scan "
-                  f"{launches['mamba_scan']}" + ("" if held else
+                  f"{launches['mamba_scan']} mlstm_attention "
+                  f"{launches['mlstm_attention']}" + ("" if held else
                   f"; card == CPU (max |logit difference| {err:.3g}, "
                   f"largest logit {scale:.3g})"), flush=True)
 
@@ -1094,6 +1179,27 @@ def lm_card_vs_cpu():
 #: the largest logit: two different kernels and cuBLAS shapes round the
 #: 28 layers' bf16 products in different places
 CROSS_REL = 5e-2
+
+
+def cross_check(label, model, prompts, res, rel):
+    """The logits of a prefill of the prompt plus k generated tokens
+    against decode step k's (k = 1 and the last), within ``rel`` of the
+    largest logit."""
+    T = res.seqs.shape[1]
+    for k in (1, T - 1):
+        full = torch.cat([prompts, res.seqs[:, :k]], dim=1)
+        logits, _ = lm.prefill_step(model, full)
+        want = res.logits[k]
+        err = float((logits[:, -1] - want).abs().max())
+        scale = float(want.abs().max())
+        same = float((logits[:, -1].argmax(-1) == want.argmax(-1))
+                     .float().mean())
+        check(err <= rel * scale,
+              f"{label}: prefill of prompt + {k} tokens vs decode step {k}: "
+              f"logits differ by {err} (largest {scale})")
+        print(f"{label} prefill {full.shape[1]} tokens vs decode step {k}: "
+              f"max |logit difference| {err:.4g} of largest {scale:.4g}, "
+              f"greedy tokens agree on {same:.3f} of the batch", flush=True)
 
 
 @phase("lm_full_size")
@@ -1129,20 +1235,7 @@ def lm_full_size():
           "qwen2-1.5b: a second serve gave other tokens")
     print(f"second serve: same tokens (prefill {again.prefill_ms:.1f} ms, "
           f"decode {again.decode_ms_per_token:.3f} ms/token)", flush=True)
-    for k in (1, T - 1):
-        full = torch.cat([prompts, res.seqs[:, :k]], dim=1)
-        logits, _ = lm.prefill_step(model, full)
-        want = res.logits[k]
-        err = float((logits[:, -1] - want).abs().max())
-        scale = float(want.abs().max())
-        same = float((logits[:, -1].argmax(-1) == want.argmax(-1))
-                     .float().mean())
-        check(err <= CROSS_REL * scale,
-              f"prefill of prompt + {k} tokens vs decode step {k}: logits "
-              f"differ by {err} (largest {scale})")
-        print(f"prefill {full.shape[1]} tokens vs decode step {k}: max "
-              f"|logit difference| {err:.4g} of largest {scale:.4g}, greedy "
-              f"tokens agree on {same:.3f} of the batch", flush=True)
+    cross_check("qwen2-1.5b", model, prompts, res, CROSS_REL)
     del model
     torch.cuda.empty_cache()
     return {"flash_attention": launches["flash_attention"],
@@ -1471,6 +1564,105 @@ def jamba_full_size():
     return {"mamba_scan": launches["mamba_scan"]}
 
 
+# ---------------------------------------------------------------------------
+# 12. xLSTM at full width and depth: xlstm-125m serving 8 x (2048 + 32)
+# ---------------------------------------------------------------------------
+#: xlstm-125m's parameters, as the reference's ``lm.param_count`` counts
+#: them (12 layers, d 768, vocab 50304, tied embeddings)
+XLSTM_PARAMS = 155_640_272
+XLSTM_ARGV = ["--arch", "xlstm-125m", "--batch", "8", "--prompt-len", "2048",
+              "--tokens", "32", "--device", "cuda", "--seed", "0"]
+#: prefill of prompt + k tokens against decode step k, as a share of the
+#: largest logit.  The two are one function (no MoE): in float32 they
+#: agree to the order of the float32 sums over 2048+ positions and 12
+#: layers (4.2e-5 seen at k = 31).  In bf16 they drift apart with k, unlike
+#: qwen2-1.5b's (CROSS_REL): prefill adds the mLSTM conv's taps in bf16 and
+#: decode sums them in float32 (the reference's two conventions, mirrored),
+#: so from layer 0 on each recurrent state differs by bf16 roundings
+#: (about 0.5% of its largest value), and the mLSTM and sLSTM states
+#: integrate those differences over the decode steps (1.4% at k = 1 and
+#: 6.3% at k = 31 seen; the same growth on the CPU at reduced width)
+XLSTM_CROSS_REL = {"float32": 2e-4, "bfloat16": 1e-1}
+
+
+def serve_xlstm(dtype):
+    """xlstm-125m through ``serve.main`` in ``dtype``, the launch counters
+    zeroed just before it and read just after it: exactly one
+    ``mlstm_attention`` per mLSTM layer (10) and no other kernel, finite
+    logits, the reference's parameter count.  Returns (model, prompts,
+    result, launches)."""
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    model, prompts, res = serve.main(XLSTM_ARGV + ["--dtype", dtype])
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    B, T = res.seqs.shape
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == XLSTM_PARAMS, f"xlstm-125m: {n_params} parameters")
+    want = expected_launches(model.cfg, T - 1)
+    check(launches == want and want["mlstm_attention"] == 10,
+          f"xlstm-125m {dtype}: launches {launches}, expected {want}")
+    check(all(bool(torch.isfinite(x).all()) for x in res.logits),
+          f"xlstm-125m {dtype}: non-finite logits")
+    check((B, T) == (8, 32), f"xlstm-125m: seqs {(B, T)}")
+    print(f"full size xlstm-125m ({n_params} parameters) {dtype} serve "
+          f"8x(2048+32): prefill {res.prefill_ms:.1f} ms, decode "
+          f"{res.decode_ms_per_token:.3f} ms/token, {res.tokens_per_s:.1f} "
+          f"tokens/s, peak memory {peak / 2 ** 30:.2f} GiB, launches "
+          f"{launches}", flush=True)
+    return model, prompts, res, launches
+
+
+@phase("xlstm_full_size")
+def xlstm_full_size():
+    """xlstm-125m at full width and depth (no cut) through the serving
+    entry point: in bf16 (the config's compute dtype; a second serve, the
+    kernel on layer 0's real inputs, prefill against decode, the profile)
+    and in float32 (prefill against decode at float32's precision).
+    Returns each mLSTM entry point's launches on its run."""
+    model, prompts, res, launches = serve_xlstm("bfloat16")
+    again = serve.serve(model, prompts, res.seqs.shape[1])
+    check(torch.equal(again.seqs, res.seqs),
+          "xlstm-125m: a second serve gave other tokens")
+    print(f"second serve: same tokens (prefill {again.prefill_ms:.1f} ms, "
+          f"decode {again.decode_ms_per_token:.3f} ms/token)", flush=True)
+    del again
+    # the kernel against its plain version on layer 0's real inputs
+    cfg, block = model.cfg, model.stack.blocks[0]
+    with torch.no_grad():
+        x = layers.rms_norm(layers.embed(model.embed, prompts,
+                                         model.compute_dtype),
+                            block.mixer_norm, cfg.norm_eps)
+        q, k, v, log_i, log_f, _, _ = ssm._mlstm_qkv_gates(
+            layers.leaves(block.mixer), x, cfg)
+        args = (q, k, v, torch.cumsum(log_f, dim=1), log_i.contiguous())
+        held_close(f"mlstm_attention on layer 0's prefill inputs "
+                   f"{tuple(q.shape)}", mlstm_attention(*args),
+                   mlstm_attention_plain(*args), MLSTM_TOL[torch.bfloat16])
+    del x, q, k, v, log_i, log_f, args
+    cross_check("xlstm-125m bf16", model, prompts, res,
+                XLSTM_CROSS_REL["bfloat16"])
+    torch.cuda.empty_cache()
+    pre, dec = profile_serve.profile_serving(model, prompts, 8)
+    print(f"[serve] xlstm-125m bf16 profiled: prefill "
+          f"{pre['wall_ms_per_call']:.1f} ms "
+          f"({pre['kernel_launches_per_call']:.0f} launches, device busy "
+          f"{pre['device_busy_share']:.3f}), decode "
+          f"{dec['wall_ms_per_call']:.3f} ms/step "
+          f"({dec['kernel_launches_per_call']:.0f} launches/step, device "
+          f"busy {dec['device_busy_share']:.3f})", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    model, prompts, res, launches_f32 = serve_xlstm("float32")
+    cross_check("xlstm-125m float32", model, prompts, res,
+                XLSTM_CROSS_REL["float32"])
+    del model
+    torch.cuda.empty_cache()
+    return {"mlstm_attention": launches["mlstm_attention"],
+            "mlstm_attention_f32": launches_f32["mlstm_attention"]}
+
+
 #: each kernel entry point of the kernels JSON line: (name, kernel source
 #: key, TPU kernel it replaces)
 ENTRIES = (
@@ -1493,6 +1685,10 @@ ENTRIES = (
     ("topk_compress", "topk_compress",
      "src/repro/kernels/topk_compress/kernel.py:17"),
     ("mamba_scan", "mamba_scan", "src/repro/kernels/mamba_scan/kernel.py:23"),
+    ("mlstm_attention", "mlstm_attention",
+     "src/repro/kernels/mlstm_attention/kernel.py:26"),
+    ("mlstm_attention_f32", "mlstm_attention",
+     "src/repro/kernels/mlstm_attention/kernel.py:26"),
 )
 
 
@@ -1512,6 +1708,7 @@ def main():
     train_card_vs_cpu()
     launched.update(train_full_size())
     launched.update(jamba_full_size())
+    launched.update(xlstm_full_size())
     kernels_line = []
     for entry, kname, replaces in ENTRIES:
         rec = records[entry]

@@ -115,7 +115,9 @@ def params_from_numpy(params_np, cfg, device):
 def caches_from_numpy(caches_np, cfg, device) -> List[Dict[str, torch.Tensor]]:
     """The reference's stacked caches (a tuple over period positions of
     dicts of ``(P, ...)`` arrays: {"k", "v"} ``(P, B, S, KH, hd)`` for an
-    attention position, {"h", "conv"} for a Mamba one) as the port's
+    attention position, {"h", "conv"} for a Mamba one, {"C", "n", "m",
+    "conv"} for an mLSTM one, {"c", "n", "h", "m"} for an sLSTM one) as
+    the port's
     per-layer list of dicts of tensors on ``device``, each with its
     position's names."""
     from repro_torch.models.transformer import block_specs

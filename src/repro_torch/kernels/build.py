@@ -40,6 +40,7 @@ SOURCES = {
     "dequantize": "quantize/csrc/quantize.cu",
     "topk_compress": "topk_compress/csrc/topk_compress.cu",
     "mamba_scan": "mamba_scan/csrc/mamba_scan.cu",
+    "mlstm_attention": "mlstm_attention/csrc/mlstm_attention.cu",
 }
 
 #: launches per kernel since the last reset_launches()

@@ -16,7 +16,7 @@ wall time, the kernels that take the most device time, and the host-side
 operations that take the most CPU time.  Needs a CUDA device.
 ``profile_serving(model, prompts, steps)`` does the same for a model built
 by the caller (``chip_smoke.py`` profiles the one-period full-width jamba
-with it).
+with it).  ``--arch xlstm-125m`` profiles xLSTM at full width and depth.
 """
 from __future__ import annotations
 
@@ -57,7 +57,7 @@ def profile_serving(model: lm.LM, prompts: torch.Tensor, steps: int) -> list:
     decode steps, then profile one prefill (with the cache allocation and
     copy) and ``steps`` decode steps; returns one summary for each (see
     the module's docstring).  Works for any model the server serves (the
-    dense archs and jamba)."""
+    dense archs, jamba and xLSTM)."""
     B, P = prompts.shape
 
     def prefill():

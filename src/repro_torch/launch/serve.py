@@ -7,12 +7,14 @@ the compute dtype once, prefills a batch of random prompts, allocates each
 attention layer's KV cache to ``prompt + tokens`` positions with the
 prefill's k/v in front (a Mamba layer's cache is its state, as the prompt
 leaves it) and runs ``tokens - 1`` decode steps, each writing its token's
-k/v or new state into the caches in place.  It serves the dense archs and
+k/v or new state into the caches in place.  It serves the dense archs,
 jamba (``jamba-v0.1-52b``, and ``jamba-v0.1-52b-smoke``, its reduced
-8-layer config).  On the card, attention runs through the hand-written
-CUDA flash-attention (prefill) and flash-decoding (decode) kernels and
-the Mamba prefill through the selective-scan kernel; on the CPU through
-their plain torch versions.
+8-layer config) and xLSTM (``xlstm-125m``, and ``xlstm-125m-smoke``, its
+reduced 6-layer config).  On the card, attention runs through the
+hand-written CUDA flash-attention (prefill) and flash-decoding (decode)
+kernels, the Mamba prefill through the selective-scan kernel and the
+mLSTM prefill through the mLSTM kernel; on the CPU through their plain
+torch versions.  The sLSTM is plain torch on both.
 
 Run::
 
@@ -21,7 +23,11 @@ Run::
         --arch qwen2-1.5b-smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch jamba-v0.1-52b-smoke --dtype float32
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch xlstm-125m-smoke --dtype float32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+        --batch 8 --prompt-len 2048 --tokens 32          # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
         --batch 8 --prompt-len 2048 --tokens 32          # on the card
 """
 from __future__ import annotations
@@ -113,9 +119,9 @@ def serve(model: lm.LM, prompts: torch.Tensor, tokens: int) -> ServeResult:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default=SERVE_DEMO.name,
-                    help="serve-demo (default), a registered dense arch or "
-                         "jamba-v0.1-52b, or NAME-smoke for its reduced "
-                         "config")
+                    help="serve-demo (default), a registered dense arch, "
+                         "jamba-v0.1-52b or xlstm-125m, or NAME-smoke for "
+                         "its reduced config")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--tokens", type=int, default=16)

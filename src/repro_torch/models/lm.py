@@ -183,8 +183,9 @@ def prefill_step(model: LM, tokens: torch.Tensor,
     cache per layer: an attention layer's {"k", "v"} (B, cache_len, KH,
     hd), the prompt's k/v in the first S positions and zeros after them
     for the decode steps to fill (``cache_len`` defaults to S, the
-    reference's prefill caches); a Mamba layer's state {"h", "conv"} as
-    the prompt leaves it."""
+    reference's prefill caches); a recurrent layer's state as the prompt
+    leaves it (Mamba {"h", "conv"}, mLSTM {"C", "n", "m", "conv"}, sLSTM
+    {"c", "n", "h", "m"})."""
     x, caches = model._prefill(tokens)
     S = tokens.shape[1]
     if cache_len is not None and cache_len != S:

@@ -101,7 +101,9 @@ def _moe_groups(p, x: torch.Tensor, cfg, capacity: int):
     comb = (w.to(cd) * keep).float()               # weight in cd, as ref
     picked = ye[torch.where(keep, slot, 0)].float()  # (G, T, k, d)
     y = (comb[..., None] * picked).sum(-2).to(cd)
-    ce = F.one_hot(idx, E).sum(dim=(1, 2)) / (T * k)     # (G, E)
+    # the reference sums a one-hot in the compute dtype, so a count above
+    # 256 is rounded in bf16 (513 -> 512), and divides in that dtype
+    ce = F.one_hot(idx, E).sum(dim=(1, 2)).to(cd) / (T * k)   # (G, E)
     aux = (E * (probs.mean(dim=1) * ce).sum(-1)).mean()
     return y, aux
 

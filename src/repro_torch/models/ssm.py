@@ -1,18 +1,22 @@
-"""Mamba (the selective SSM), jamba's sequence mixer: the whole-sequence
-forward (prefill) and the O(1)-state decode step.  The counterpart of the
-Mamba half of src/repro/models/ssm.py (mLSTM and sLSTM come with xLSTM).
+"""Sub-quadratic sequence mixers: Mamba (the selective SSM, jamba's
+mixer), mLSTM and sLSTM (xLSTM's), each as a whole-sequence forward
+(prefill) and an O(1)-state decode step.  The counterpart of
+src/repro/models/ssm.py.
 
-The reference's forward runs a chunked associative scan in jnp and never
-calls its Pallas kernel; here the recurrence goes through ``mamba_scan``,
-which on a CUDA tensor is the hand-written CUDA kernel and on a CPU tensor
-its plain torch version (the reference oracle's sequential recurrence), so
-the JAX model is the oracle (the two scans differ by float32 ulps, ROADMAP
-Queue 3).  As in the reference, the scan runs in float32 and the
-projections in the compute dtype; decode is plain torch.  The functions
-take the reference's leaf dicts ({"in_proj", "conv_w", ...}), as
-``attention_forward`` does; the ``Mamba`` module holds one layer's leaves.
-The reference's sharding constraints are no-ops on one device and are
-left out.
+The reference's forwards run in jnp and never call their Pallas kernels;
+here the Mamba recurrence goes through ``mamba_scan`` and the mLSTM's
+stabilized parallel mix through ``mlstm_attention``, each on a CUDA tensor
+the hand-written CUDA kernel and on a CPU tensor its plain torch version
+(the reference oracle's form), so the JAX model is the oracle (the Mamba
+scans differ by float32 ulps, ROADMAP Queue 3).  The sLSTM is a sequential
+recurrence with no kernel in the reference (a ``lax.scan``): here a Python
+loop over the sequence in plain torch.  As in the reference, the scans,
+the mLSTM mix and the sLSTM state run in float32 and the projections in
+the compute dtype; decode is plain torch and writes the state in place.
+The functions take the reference's leaf dicts ({"in_proj", "conv_w",
+...}), as ``attention_forward`` does; the ``Mamba``, ``MLSTM`` and
+``SLSTM`` modules hold one layer's leaves.  The reference's sharding
+constraints are no-ops on one device and are left out.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.mamba_scan import mamba_scan
+from repro_torch.kernels.mlstm_attention import mlstm_attention
 from repro_torch.models import layers
 
 
@@ -161,3 +166,262 @@ def init_mamba_state(cfg, batch: int, dtype=torch.bfloat16,
                              device=device),
             "conv": torch.zeros((batch, dconv - 1, di), dtype=dtype,
                                 device=device)}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix-memory block, stabilized parallel form)
+# ---------------------------------------------------------------------------
+#: the initial stabilizer of an empty mLSTM / sLSTM state (the reference's)
+M_INIT = -1e30
+
+
+def _mlstm_dims(cfg):
+    d = cfg.d_model
+    di = int(cfg.xlstm_proj_factor * d)
+    di -= di % cfg.num_heads
+    return d, di, cfg.num_heads, di // cfg.num_heads
+
+
+class MLSTM(nn.Module):
+    """The weights of one mLSTM mixer under the reference's leaf names and
+    with its initial distributions, applied by ``mlstm_forward`` (prefill)
+    and ``decode``.  ``w_if`` and ``b_if`` (the input and forget gates) are
+    float32 whatever ``dtype`` is, as in the reference."""
+
+    def __init__(self, gen: torch.Generator, cfg, dtype):
+        super().__init__()
+        d, di, H, hd = _mlstm_dims(cfg)
+        dev = gen.device
+        f32 = torch.float32
+        self.cfg = cfg
+        self.up_proj = layers.param(layers.dense_init(gen, d, 2 * di, dtype))
+        self.conv_w = layers.param(
+            (torch.randn((4, di), generator=gen, device=dev) * 0.5).to(dtype))
+        self.conv_b = layers.zeros(di, dtype, dev)
+        self.wq = layers.param(layers.dense_init(gen, di, di, dtype))
+        self.wk = layers.param(layers.dense_init(gen, di, di, dtype))
+        self.wv = layers.param(layers.dense_init(gen, di, di, dtype))
+        self.w_if = layers.param(layers.dense_init(gen, di, 2 * H, f32))
+        self.b_if = layers.param(torch.cat([
+            torch.zeros((H,), dtype=f32, device=dev),
+            torch.full((H,), 3.0, dtype=f32, device=dev)]))
+        self.out_norm = layers.zeros(hd, dtype, dev)
+        self.down_proj = layers.param(layers.dense_init(gen, di, d, dtype))
+
+    def decode(self, x: torch.Tensor, state: Dict[str, torch.Tensor]
+               ) -> torch.Tensor:
+        return mlstm_decode(self._parameters, x, state, self.cfg)
+
+
+def _k_scale(hd: int, dtype) -> torch.Tensor:
+    """``hd**-0.5`` as the reference multiplies by it: a Python float meets
+    a compute-dtype array, so the constant is rounded to that dtype first
+    (a 0-d CPU tensor, which a card tensor takes as a scalar)."""
+    return torch.tensor(hd ** -0.5, dtype=dtype)
+
+
+def _mlstm_qkv_gates(p, x: torch.Tensor, cfg):
+    """x: (B, S, d) -> q, k (scaled by hd**-0.5), v (B, S, H, hd) in x's
+    dtype; log_i, log_f (B, S, H) float32; z and the pre-conv input xm
+    (B, S, di) in x's dtype (the reference returns all but xm, and its
+    state computes xm again)."""
+    _, di, H, hd = _mlstm_dims(cfg)
+    cd = x.dtype
+    B, S, _ = x.shape
+    xm, z = (x @ p["up_proj"].to(cd)).chunk(2, dim=-1)
+    xc = F.silu(_causal_conv(xm, p["conv_w"].to(cd), p["conv_b"].to(cd)))
+    q = (xc @ p["wq"].to(cd)).reshape(B, S, H, hd)
+    k = (xc @ p["wk"].to(cd)).reshape(B, S, H, hd) * _k_scale(hd, cd)
+    v = (xm @ p["wv"].to(cd)).reshape(B, S, H, hd)
+    gates = xc.float() @ p["w_if"].float() + p["b_if"].float()
+    log_i, f_pre = gates.chunk(2, dim=-1)           # (B, S, H)
+    return q, k, v, log_i, F.logsigmoid(f_pre), z, xm
+
+
+def mlstm_forward(p, x: torch.Tensor, cfg, return_state: bool = False):
+    """x: (B, S, d) -> (B, S, d), the sequence mix through
+    ``mlstm_attention``.  With ``return_state`` also the decode state the
+    reference computes from the whole sequence: {"C" (B, H, hd, hd), "n"
+    (B, H, hd), "m" (B, H), all float32, with the running stabilizer
+    m = max_s D_Ss; "conv": the last 3 pre-conv inputs (B, 3, di) in x's
+    dtype}.  Any S (the reference asserts S % 1024 == 0 once S > 1024);
+    where S < 3 the conv state is zero-padded in front."""
+    _, di, H, hd = _mlstm_dims(cfg)
+    B, S, _ = x.shape
+    cd = x.dtype
+    q, k, v, log_i, log_f, z, xm = _mlstm_qkv_gates(p, x, cfg)
+    # D_ts = F_t - F_s + log_i_s with F the inclusive cumulative log-forget:
+    # step s's share at time t is (prod_{j=s+1..t} f_j) i_s
+    Fc = torch.cumsum(log_f, dim=1)
+    h = mlstm_attention(q, k, v, Fc, log_i)
+    h = layers.head_rms_norm(h, p["out_norm"], cfg.norm_eps)
+    out = (h.reshape(B, S, di) * F.silu(z)) @ p["down_proj"].to(cd)
+    if not return_state:
+        return out
+    D_end = Fc[:, -1:] - Fc + log_i                 # (B, S, H)
+    m_end = D_end.amax(dim=1)                       # (B, H)
+    w = torch.exp(D_end - m_end[:, None])
+    kf = k.float() * w[..., None]
+    C = torch.einsum("bshd,bshe->bhde", kf, v.float())
+    taps = p["conv_w"].shape[0] - 1
+    tail = F.pad(xm, (0, 0, max(0, taps - S), 0))[:, -taps:]
+    return out, {"C": C, "n": kf.sum(dim=1), "m": m_end,
+                 "conv": tail.contiguous()}
+
+
+def mlstm_decode(p, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                 cfg) -> torch.Tensor:
+    """Single-token step.  x: (B, 1, d); state {"C" (B, H, hd, hd), "n"
+    (B, H, hd), "m" (B, H) float32, "conv" (B, 3, di)}, updated IN PLACE
+    (the reference returns a new state).  The conv is one product over
+    the window, summed in float32 and rounded once, as the reference's
+    einsum is."""
+    _, di, H, hd = _mlstm_dims(cfg)
+    B = x.shape[0]
+    cd = x.dtype
+    xm, z = (x @ p["up_proj"].to(cd)).chunk(2, dim=-1)
+    window = torch.cat([state["conv"].to(cd), xm], dim=1)   # (B, 4, di)
+    conv = (window.float() * p["conv_w"].to(cd).float()).sum(1).to(cd)
+    xc = F.silu(conv + p["conv_b"].to(cd))                   # (B, di)
+    state["conv"].copy_(window[:, 1:])
+    q = (xc @ p["wq"].to(cd)).reshape(B, H, hd).float()
+    k = ((xc @ p["wk"].to(cd)).reshape(B, H, hd)
+         * _k_scale(hd, cd)).float()
+    v = (xm[:, 0] @ p["wv"].to(cd)).reshape(B, H, hd).float()
+    gates = xc.float() @ p["w_if"].float() + p["b_if"].float()
+    log_i, f_pre = gates.chunk(2, dim=-1)                    # (B, H)
+    log_f = F.logsigmoid(f_pre)
+    m = state["m"]
+    m_new = torch.maximum(log_f + m, log_i)
+    f_sc = torch.exp(log_f + m - m_new)[..., None]
+    i_sc = torch.exp(log_i - m_new)[..., None]
+    C = f_sc[..., None] * state["C"] \
+        + i_sc[..., None] * (k[..., None] * v[..., None, :])
+    n = f_sc * state["n"] + i_sc * k
+    state["C"].copy_(C)
+    state["n"].copy_(n)
+    state["m"].copy_(m_new)
+    num = torch.einsum("bhd,bhde->bhe", q, C)
+    den = torch.maximum(torch.einsum("bhd,bhd->bh", q, n).abs(),
+                        torch.exp(-m_new))
+    h = layers.head_rms_norm((num / den[..., None]).to(cd), p["out_norm"],
+                             cfg.norm_eps)
+    h = h.reshape(B, 1, di) * F.silu(z)
+    return h @ p["down_proj"].to(cd)
+
+
+def init_mlstm_state(cfg, batch: int, dtype=torch.bfloat16,
+                     device="cuda") -> Dict[str, torch.Tensor]:
+    _, di, H, hd = _mlstm_dims(cfg)
+    f32 = torch.float32
+    return {"C": torch.zeros((batch, H, hd, hd), dtype=f32, device=device),
+            "n": torch.zeros((batch, H, hd), dtype=f32, device=device),
+            "m": torch.full((batch, H), M_INIT, dtype=f32, device=device),
+            "conv": torch.zeros((batch, 3, di), dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar-memory recurrent block)
+# ---------------------------------------------------------------------------
+class SLSTM(nn.Module):
+    """The weights of one sLSTM mixer under the reference's leaf names and
+    with its initial distributions, applied by ``slstm_forward`` (prefill)
+    and ``decode``.  The bias ``b`` is float32 whatever ``dtype`` is, as in
+    the reference."""
+
+    def __init__(self, gen: torch.Generator, cfg, dtype):
+        super().__init__()
+        d, H = cfg.d_model, cfg.num_heads
+        hd = d // H
+        dev = gen.device
+        f32 = torch.float32
+        self.cfg = cfg
+        # the i, f, z, o input weights
+        self.w = layers.param(layers.dense_init(gen, d, 4 * d, dtype))
+        self.r = layers.param(
+            (torch.randn((4, H, hd, hd), generator=gen, device=dev)
+             * hd ** -0.5).to(dtype))
+        self.b = layers.param(torch.cat([
+            torch.zeros((d,), dtype=f32, device=dev),
+            torch.full((d,), 3.0, dtype=f32, device=dev),
+            torch.zeros((2 * d,), dtype=f32, device=dev)]))
+        self.out_norm = layers.zeros(hd, dtype, dev)
+
+    def decode(self, x: torch.Tensor, state: Dict[str, torch.Tensor]
+               ) -> torch.Tensor:
+        return slstm_decode(self._parameters, x, state, self.cfg)
+
+
+def _slstm_step(r: torch.Tensor, pre_x: torch.Tensor,
+                state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """One step.  r: the recurrent weights (4, H, hd, hd) float32; pre_x:
+    the input's gate pre-activations ``x @ w + b`` as float32 (4, B, H, hd);
+    state {"c", "n", "h", "m"} (B, H, hd) float32.  Returns the new
+    state."""
+    rec = torch.einsum("bhd,ghde->gbhe", state["h"], r)
+    i_pre, f_pre, z_pre, o_pre = (pre_x + rec).unbind(0)
+    log_f = F.logsigmoid(f_pre)
+    m_new = torch.maximum(log_f + state["m"], i_pre)
+    i_sc = torch.exp(i_pre - m_new)
+    f_sc = torch.exp(log_f + state["m"] - m_new)
+    c = f_sc * state["c"] + i_sc * torch.tanh(z_pre)
+    n = f_sc * state["n"] + i_sc
+    h = torch.sigmoid(o_pre) * c / torch.clamp(n, min=1.0)
+    return {"c": c, "n": n, "h": h, "m": m_new}
+
+
+def _gate_inputs(p, x: torch.Tensor, H: int, hd: int) -> torch.Tensor:
+    """x: (B, S, d) -> ``x @ w + b`` in x's dtype, widened to float32 and
+    laid out (S, 4, B, H, hd) for the steps."""
+    cd = x.dtype
+    B, S, _ = x.shape
+    xw = x @ p["w"].to(cd) + p["b"].to(cd)
+    return xw.float().reshape(B, S, 4, H, hd).permute(1, 2, 0, 3, 4)
+
+
+def slstm_forward(p, x: torch.Tensor, cfg, return_state: bool = False):
+    """x: (B, S, d) -> (B, S, d): the recurrence stepped over S in a Python
+    loop (the reference's ``lax.scan``; it has no kernel), from the empty
+    state.  With ``return_state`` also the final state {"c", "n", "h",
+    "m"} (B, H, hd) float32."""
+    B, S, d = x.shape
+    H = cfg.num_heads
+    hd = d // H
+    pre_x = _gate_inputs(p, x, H, hd)
+    r = p["r"].float()
+    state = init_slstm_state(cfg, B, device=x.device)
+    hs = torch.empty((B, S, H, hd), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        state = _slstm_step(r, pre_x[t], state)
+        hs[:, t] = state["h"]
+    h = layers.head_rms_norm(hs.to(x.dtype), p["out_norm"], cfg.norm_eps)
+    out = h.reshape(B, S, d)
+    return (out, state) if return_state else out
+
+
+def slstm_decode(p, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                 cfg) -> torch.Tensor:
+    """Single-token step.  x: (B, 1, d); state {"c", "n", "h", "m"} (B, H,
+    hd) float32, updated IN PLACE (the reference returns a new state)."""
+    B, _, d = x.shape
+    H = cfg.num_heads
+    hd = d // H
+    new = _slstm_step(p["r"].float(), _gate_inputs(p, x, H, hd)[0], state)
+    for name, t in new.items():
+        state[name].copy_(t)
+    h = layers.head_rms_norm(new["h"].to(x.dtype), p["out_norm"],
+                             cfg.norm_eps)
+    return h.reshape(B, 1, d)
+
+
+def init_slstm_state(cfg, batch: int, device="cuda"
+                     ) -> Dict[str, torch.Tensor]:
+    """The empty sLSTM state, float32 whatever the compute dtype, as in the
+    reference."""
+    H = cfg.num_heads
+    shape = (batch, H, cfg.d_model // H)
+    f32 = torch.float32
+    return {"c": torch.zeros(shape, dtype=f32, device=device),
+            "n": torch.zeros(shape, dtype=f32, device=device),
+            "h": torch.zeros(shape, dtype=f32, device=device),
+            "m": torch.full(shape, M_INIT, dtype=f32, device=device)}

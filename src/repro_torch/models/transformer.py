@@ -7,9 +7,9 @@ scans.  The serving path holds one ``Block`` per layer in an
 position ``i % len(block_specs(cfg))``; ``interop.params_from_numpy``
 unstacks); training keeps the reference's stacked leaves and reads each
 layer as a slice of them (``stack_forward``).  Both run ``block_forward``.
-Serving takes the mixers ``attn`` and ``mamba`` and the FFNs ``mlp`` and
-``moe`` (the dense and the jamba blocks); training so far only the dense
-``('attn', 'mlp')`` block.
+Serving takes every mixer (``attn``, ``mamba``, ``mlstm``, ``slstm``) and
+every FFN (``mlp``, ``moe``, ``ffn43``, ``none``): the dense, jamba and
+xLSTM blocks; training so far only the dense ``('attn', 'mlp')`` block.
 """
 from __future__ import annotations
 
@@ -28,7 +28,17 @@ from repro_torch.models.attention import (
     init_kv_cache,
 )
 from repro_torch.models.moe import MoE, apply_moe
-from repro_torch.models.ssm import Mamba, init_mamba_state, mamba_forward
+from repro_torch.models.ssm import (
+    MLSTM,
+    SLSTM,
+    Mamba,
+    init_mamba_state,
+    init_mlstm_state,
+    init_slstm_state,
+    mamba_forward,
+    mlstm_forward,
+    slstm_forward,
+)
 
 
 def block_specs(cfg) -> List[Tuple[str, str]]:
@@ -56,33 +66,49 @@ def num_periods(cfg) -> int:
     return cfg.num_layers // len(block_specs(cfg))
 
 
-#: the reference module of each block part the port does not have yet
-_UNPORTED = {"mlstm": "src/repro/models/ssm.py (mlstm)",
-             "slstm": "src/repro/models/ssm.py (slstm)",
-             "ffn43": "src/repro/models/transformer.py (ffn43, xLSTM)"}
-#: block parts served but not yet trained
+#: each mixer's weights module
+_MIXERS = {"attn": Attention, "mamba": Mamba, "mlstm": MLSTM,
+           "slstm": SLSTM}
+#: each recurrent mixer's whole-sequence forward
+_FORWARD = {"mamba": mamba_forward, "mlstm": mlstm_forward,
+            "slstm": slstm_forward}
+
+
+#: block parts served but not yet trained, with what training them needs
 _UNTRAINED = {"mamba": "src/repro/models/ssm.py (mamba; the scan kernel "
                        "has no backward yet)",
-              "moe": "src/repro/models/moe.py (the router aux loss)"}
+              "moe": "src/repro/models/moe.py (the router aux loss)",
+              "mlstm": "src/repro/models/ssm.py (mlstm; the mlstm_attention "
+                       "kernel has no backward yet)",
+              "slstm": "src/repro/models/ssm.py (slstm; no backward of "
+                       "the recurrence yet)",
+              "ffn43": "src/repro/models/transformer.py (ffn43, xLSTM's "
+                       "sLSTM block)"}
 
 
 def check_ported(spec: Tuple[str, str], training: bool = False) -> None:
-    """Raise ``NotImplementedError`` for a block spec the port lacks (for
-    training, also for the parts only served so far)."""
+    """Raise ``NotImplementedError`` for a block spec the port cannot run:
+    every block part is served, so only for training (``training=True``),
+    for the parts only served so far."""
+    if not training:
+        return
     for part in spec:
-        missing = _UNPORTED.get(part) or (training and _UNTRAINED.get(part))
+        missing = _UNTRAINED.get(part)
         if missing:
             raise NotImplementedError(
-                f"block spec {spec}: {part!r} is not ported yet"
-                f"{' for training' if part in _UNTRAINED else ''}; its "
-                f"reference is {missing} (ROADMAP Queue 1)")
+                f"block spec {spec}: {part!r} is not ported yet for "
+                f"training; its reference is {missing} (ROADMAP Queue 1)")
 
 
 def ffn_forward(p, x: torch.Tensor, cfg, ffn: str) -> torch.Tensor:
-    """``x + ffn(norm(x))`` with the SwiGLU MLP or the MoE (whose aux loss
-    serving does not need)."""
+    """``x + ffn(norm(x))`` with the SwiGLU MLP (``mlp``, or xLSTM's
+    ``ffn43`` of width ``int(d * 4 / 3)``) or the MoE (whose aux loss
+    serving does not need); ``x`` itself for ``none`` (the mLSTM block has
+    no FFN)."""
+    if ffn == "none":
+        return x
     h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    if ffn == "mlp":
+    if ffn in ("mlp", "ffn43"):
         return x + layers.apply_mlp(p["ffn"], h)
     if ffn == "moe":
         return x + apply_moe(p["ffn"], h, cfg)[0]
@@ -94,16 +120,18 @@ def block_forward(p, x: torch.Tensor, cfg, spec: Tuple[str, str],
     """The pre-norm residual block, ``x + mixer(norm(x))`` then
     ``x + ffn(norm(x))``, over the whole sequence.  ``p`` is one layer's
     leaves under the reference's names ({"mixer_norm", "mixer": {...},
-    "ffn_norm", "ffn": {...}}); ``spec`` its (mixer, ffn).  Returns (x,
-    the mixer's decode cache: {"k", "v"} for attention, {"h", "conv"} for
-    Mamba).  Differentiable for the dense block."""
+    "ffn_norm", "ffn": {...}}; no FFN leaves for ``none``); ``spec`` its
+    (mixer, ffn).  Returns (x, the mixer's decode cache: {"k", "v"} for
+    attention, {"h", "conv"} for Mamba, {"C", "n", "m", "conv"} for mLSTM,
+    {"c", "n", "h", "m"} for sLSTM).  Differentiable for the dense
+    block."""
     mixer, ffn = spec
     h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     if mixer == "attn":
         y, (k, v) = attention_forward(p["mixer"], h, cfg, positions)
         cache = {"k": k, "v": v}
-    elif mixer == "mamba":
-        y, cache = mamba_forward(p["mixer"], h, cfg, return_state=True)
+    elif mixer in _FORWARD:
+        y, cache = _FORWARD[mixer](p["mixer"], h, cfg, return_state=True)
     else:
         raise ValueError(mixer)
     return ffn_forward(p, x + y, cfg, ffn), cache
@@ -123,7 +151,7 @@ def stack_forward(stack, x: torch.Tensor, cfg, positions: torch.Tensor
     in the stacked leaves).  With ``cfg.remat`` each block is recomputed
     in the backward pass (``torch.utils.checkpoint``, the counterpart of
     the reference's ``jax.checkpoint``).  Only the dense block trains so
-    far: Mamba and MoE blocks raise."""
+    far: Mamba, MoE, mLSTM and sLSTM blocks raise."""
     specs = block_specs(cfg)
     for spec in specs:
         check_ported(spec, training=True)
@@ -149,22 +177,28 @@ def stack_forward(stack, x: torch.Tensor, cfg, positions: torch.Tensor
 
 
 class Block(nn.Module):
-    """The weights of one block of spec (mixer, ffn): ``Attention`` or
-    ``Mamba``, then ``MLP`` or ``MoE``; applied by ``block_forward``."""
+    """The weights of one block of spec (mixer, ffn): ``Attention``,
+    ``Mamba``, ``MLSTM`` or ``SLSTM``, then ``MLP`` (``mlp`` or
+    ``ffn43``), ``MoE`` or nothing (``none``: no ``ffn_norm`` and no
+    ``ffn``, as the reference's leaves); applied by ``block_forward``."""
 
     def __init__(self, gen: torch.Generator, cfg, spec: Tuple[str, str]):
         super().__init__()
-        check_ported(spec)
         mixer, ffn = spec
         dtype = getattr(torch, cfg.param_dtype)
         dev = gen.device
+        d = cfg.d_model
         self.cfg, self.spec = cfg, spec
-        self.mixer_norm = layers.zeros(cfg.d_model, dtype, dev)
-        self.mixer = (Attention(gen, cfg, dtype) if mixer == "attn"
-                      else Mamba(gen, cfg, dtype))
-        self.ffn_norm = layers.zeros(cfg.d_model, dtype, dev)
-        self.ffn = (layers.MLP(gen, cfg.d_model, cfg.d_ff, dtype)
-                    if ffn == "mlp" else MoE(gen, cfg, dtype))
+        self.mixer_norm = layers.zeros(d, dtype, dev)
+        self.mixer = _MIXERS[mixer](gen, cfg, dtype)
+        if ffn == "none":
+            return
+        self.ffn_norm = layers.zeros(d, dtype, dev)
+        if ffn == "moe":
+            self.ffn = MoE(gen, cfg, dtype)
+        else:
+            width = cfg.d_ff if ffn == "mlp" else int(d * 4 / 3)
+            self.ffn = layers.MLP(gen, d, width, dtype)
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor):
         """Whole-sequence forward that also returns the decode cache."""
@@ -209,11 +243,19 @@ def init_block_cache(cfg, spec: Tuple[str, str], batch: int, seq: int,
                      dtype=torch.bfloat16, device="cuda"
                      ) -> Dict[str, torch.Tensor]:
     """A zeroed decode cache for one block: {"k", "v"} (batch, seq, KH,
-    hd) for attention, {"h" (batch, di, N) float32, "conv"} for Mamba."""
-    check_ported(spec)
-    if spec[0] == "attn":
+    hd) for attention, {"h" (batch, di, N) float32, "conv"} for Mamba,
+    {"C", "n", "m" float32, "conv"} for mLSTM, {"c", "n", "h", "m"}
+    float32 for sLSTM."""
+    mixer = spec[0]
+    if mixer == "attn":
         return init_kv_cache(cfg, batch, seq, dtype, device)
-    return init_mamba_state(cfg, batch, dtype, device)
+    if mixer == "mamba":
+        return init_mamba_state(cfg, batch, dtype, device)
+    if mixer == "mlstm":
+        return init_mlstm_state(cfg, batch, dtype, device)
+    if mixer == "slstm":
+        return init_slstm_state(cfg, batch, device)
+    raise ValueError(mixer)
 
 
 def init_caches(cfg, batch: int, seq: int, dtype=torch.bfloat16,

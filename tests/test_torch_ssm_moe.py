@@ -189,6 +189,38 @@ def test_grouped_moe_matches_reference(S, factor, shared, ref):
         assert drops(tp, torch.as_tensor(x), cfg, capacity) > 0
 
 
+def test_bf16_aux_rounds_counts_as_the_reference(ref):
+    """The reference counts each expert's routed pairs by summing a
+    one-hot in the compute dtype, so in bf16 a count above 256 is rounded
+    (513 -> 512) before the division.  At 2 groups x 2048 tokens, top-2
+    over 8 experts, every count exceeds 256: the port's aux equals the
+    jitted reference's bitwise, and differs from the exact-count aux."""
+    ref_cfg, cfg = moe_cfgs(ref)
+    ref_cfg, cfg = ref_cfg.replace(dtype="bfloat16"), cfg.replace(
+        dtype="bfloat16")
+    p = moe_leaves(ref, ref_cfg, seed=17)
+    jnp = ref.jnp
+    jp = {k: v if k == "router" else jnp.asarray(v).astype(jnp.bfloat16)
+          for k, v in p.items()}
+    tp = {k: v if k == "router" else v.to(torch.bfloat16)
+          for k, v in to_torch(p).items()}
+    x = activations(17, 2, 2048, cfg.d_model)
+    _, waux = ref.jax.jit(lambda p, x: ref.moe.apply_moe(p, x, ref_cfg))(
+        jp, jnp.asarray(x).astype(jnp.bfloat16))
+    xt = torch.as_tensor(x).to(torch.bfloat16)
+    _, aux = moe.apply_moe(tp, xt, cfg)
+    probs, _, idx = moe._route(tp, xt, cfg)
+    counts = torch.nn.functional.one_hot(idx, cfg.num_experts).sum((1, 2))
+    assert int(counts.min()) > 256
+    assert not torch.equal(counts.to(torch.bfloat16).long(), counts)
+    assert aux.dtype == torch.float32
+    assert float(aux) == float(np.float32(waux))
+    E, k = cfg.num_experts, cfg.experts_per_tok
+    exact = (E * (probs.mean(1) * counts / (2048 * k)).sum(-1)).mean() \
+        * moe.ROUTER_AUX_WEIGHT
+    assert float(exact) != float(aux)
+
+
 def test_positions_in_expert_match_reference(ref):
     rng = np.random.default_rng(3)
     idx = rng.integers(0, 8, (4, 50, 2)).astype(np.int32)
