@@ -29,7 +29,13 @@ and fails with a non-zero exit code if any phase fails:
                full and both degenerate (drain-only, send-only) forms; the
                attention kernels within a stated tolerance, with the time
                of the one PyTorch call that computes the same function
-               (``scaled_dot_product_attention``) beside them; the
+               (``scaled_dot_product_attention``) beside them:
+               ``flash_attention``'s tensor-core route at the prefill
+               shape, at hd 64 and at a ragged S, its CUDA-core route at
+               float32 and at bf16 hd 16, each call's route read from
+               ``build.ROUTES``; ``decode_attention`` as the whole function
+               (one launch, partials and combine) against the plain
+               whole function at kv_len 2049, 2080 and 1; the
                compression kernels bitwise at every row shape of
                qwen2-1.5b's gradient leaves, ties and a ragged final
                block (``q * scale`` timed beside dequantize,
@@ -60,16 +66,19 @@ and fails with a non-zero exit code if any phase fails:
                layers; float32 only) served on the card
                (kernels) and on the CPU (plain versions) from the same
                seeded weights: logits at every step with teacher forcing,
-               exact launch counts, equal greedy tokens in float32; jamba
+               exact launch counts (flash on its CUDA-core route: hd
+               16), equal greedy tokens in float32; jamba
                in bf16 on its caches up to the first MoE layer and on one
                MoE layer given the same inputs (its routing makes the
                logits discontinuous in bf16 roundings)
   8. lm full size  qwen2-1.5b at full width in bf16 through
                ``repro_torch.launch.serve``: batch 8, prompt 2048, 32 new
-               tokens; 28 flash launches per prefill, 28 decode launches
-               per step; prefill of the prompt plus k generated tokens
-               gives decode step k's logits; a second serve gives the same
-               tokens
+               tokens; 28 flash launches per prefill, all on the
+               tensor-core route, 28 decode launches per step; prefill of
+               the prompt plus k generated tokens gives decode step k's
+               logits; a second serve gives the same tokens; then
+               ``profile_serve.profile_serving`` over one prefill and 8
+               decode steps
   9. train card=cpu  the reduced qwen2-1.5b and qwen3-0.6b in float32,
                modes 0-4 at n_pods = 2 and mode 3 with int8 and with
                top-k: 3 steps on the card (kernels) and on the CPU (plain
@@ -78,15 +87,17 @@ and fails with a non-zero exit code if any phase fails:
   10. train full size  qwen2-1.5b at full width through
                ``repro_torch.launch.train``: bf16 compute, float32
                masters, batch 4 x seq 2048, mode 3, 6 steps with top-k
-               and 6 with int8: exact launch counts, finite and falling
+               and 6 with int8: exact launch counts (flash on its
+               tensor-core route), finite and falling
                loss; the three kernels on step 1's real gradient leaves
                equal their plain versions
   11. jamba full size  one 8-layer period of jamba-v0.1-52b at full width
                (d 4096, 16 experts top-2, 13.3 G parameters; depth cut
                from 32) in bf16 through ``serve.serve``: batch 8, prompt
                2048, 32 new tokens; exact launches (7 ``mamba_scan`` and 1
-               ``flash_attention`` per prefill, 1 ``decode_attention`` per
-               step), finite logits, the same tokens from a second serve;
+               ``flash_attention``, tensor-core route, per prefill, 1
+               ``decode_attention`` per step), finite logits, the same
+               tokens from a second serve;
                the kernel against its plain version on layer 0's real scan
                inputs; layer 0's Mamba state after a prefill of prompt + k
                tokens equals its state after k decode steps (k = 1, 31);
@@ -137,8 +148,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.smoke import reduce_for_smoke  # noqa: E402
 from repro_torch.kernels import build as K  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_partials,
-    decode_attention_partials_torch,
+    decode_attention,
     decode_attention_torch,
 )
 from repro_torch.kernels.duct_exchange.ops import (  # noqa: E402
@@ -476,10 +486,11 @@ def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
 
 #: attention tolerances (rtol, atol) against the plain versions on the
 #: card.  Float32 differs only in the order of the sums (online softmax over
-#: tiles and chunks).  In bf16 both sides compute in float32 and round once
-#: to bf16, so they differ by at most one bf16 ulp, which is at most 2^-7
-#: of the value; atol covers the float32 sums' own error where the output
-#: is near 0
+#: tiles and chunks).  In bf16 both sides compute in float32 (the
+#: tensor-core flash route carries p in two bf16 terms, to ~2^-17) and
+#: round once to bf16, so they differ by at most one bf16 ulp, which is at
+#: most 2^-7 of the value; atol covers the float32 sums' own error where
+#: the output is near 0
 ATTN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-5)}
 #: max |SDPA - plain version|, which shows that the library call times the
 #: same function: SDPA rounds its bf16 probabilities, the plain version
@@ -488,10 +499,14 @@ SDPA_TOL = {torch.float32: 4e-4, torch.bfloat16: 8e-2}
 
 
 def attention_kernels(hbm):
-    """flash_attention at the qwen2-1.5b prefill shape (B*KH = 16, G = 6,
-    S = 2048, hd = 128, bf16) plus a ragged S and a float32 case;
-    decode_attention at the decode shape (B = 8, KH = 2, G = 6, hd = 128)
-    over a 2080-key cache with kv_len 2049, 2080 and 1."""
+    """flash_attention's tensor-core route (bf16, hd 64 and 128) at the
+    qwen2-1.5b prefill shape (B*KH = 16, G = 6, S = 2048, hd = 128), at hd
+    64 and at a ragged S, and its CUDA-core route at float32 and at bf16
+    hd 16 (the reduced configs' head dim), each call's route read from
+    ``K.ROUTES``; decode_attention, the whole function in one launch (the
+    partials are no longer the kernel's output), at the decode shape (B =
+    8, KH = 2, G = 6, hd = 128) over a 2080-key cache with kv_len 2049,
+    2080 and 1, its output held against ``decode_attention_torch``."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2025)
@@ -501,11 +516,15 @@ def attention_kernels(hbm):
 
     records = {}
     bf16, f32 = torch.bfloat16, torch.float32
-    for label, BK, G, S, hd, dtype, rec in (
-            ("(16,6,2048,128) bf16", 16, 6, 2048, 128, bf16,
+    for label, BK, G, S, hd, dtype, route, rec in (
+            ("(16,6,2048,128) bf16", 16, 6, 2048, 128, bf16, "wgmma",
              "flash_attention"),
-            ("(16,6,2047,128) bf16 ragged", 16, 6, 2047, 128, bf16, None),
-            ("(16,6,1024,128) f32", 16, 6, 1024, 128, f32, None)):
+            ("(16,6,2048,64) bf16", 16, 6, 2048, 64, bf16, "wgmma", None),
+            ("(16,6,2047,128) bf16 ragged", 16, 6, 2047, 128, bf16, "wgmma",
+             None),
+            ("(16,6,1024,128) f32", 16, 6, 1024, 128, f32, "simt",
+             "flash_attention_f32"),
+            ("(16,6,1024,16) bf16", 16, 6, 1024, 16, bf16, "simt", None)):
         q = randn((BK, G, S, hd), dtype)
         k, v = randn((BK, S, hd), dtype), randn((BK, S, hd), dtype)
         flops = 4 * hd * BK * G * (S * (S + 1) // 2)
@@ -518,14 +537,19 @@ def attention_kernels(hbm):
         err = float((library() - want).abs().max())
         check(err <= SDPA_TOL[dtype],
               f"flash {label}: SDPA is not the same function ({err})")
-        r = measure(f"flash_attention {label}",
+        K.reset_launches()
+        flash_attention_grouped(q, k, v)
+        check(K.ROUTES == {f"flash_attention/{route}": 1},
+              f"flash {label}: routes {K.ROUTES}, expected {route}")
+        r = measure(f"flash_attention {label} ({route})",
                     lambda q=q, k=k, v=v: flash_attention_grouped(q, k, v),
                     lambda q=q, k=k, v=v: flash_attention_torch(q, k, v),
                     (q, k, v), flops, hbm, peak=peak, tol=ATTN_TOL[dtype],
                     library=library)
         if rec:
             records[rec] = r
-    B, KH, G, S, hd, bc = 8, 2, 6, 2080, 128, 512
+        del q, k, v, want
+    B, KH, G, S, hd = 8, 2, 6, 2080, 128
     q = randn((B, KH, G, hd), bf16)
     k, v = randn((B, S, KH, hd), bf16), randn((B, S, KH, hd), bf16)
     for kv_len in (2049, 2080, 1):
@@ -542,12 +566,11 @@ def attention_kernels(hbm):
               f"({err})")
         r = measure(
             f"decode_attention (8,2,6,128) cache 2080 kv_len={kv_len} bf16",
-            lambda kv_len=kv_len: decode_attention_partials(
-                q, k, v, kv_len=kv_len, bc=bc),
-            lambda kv_len=kv_len: decode_attention_partials_torch(
-                q, k, v, kv_len=kv_len, bc=bc),
+            lambda kv_len=kv_len: decode_attention(q, k, v, kv_len=kv_len),
+            lambda kv_len=kv_len: decode_attention_torch(q, k, v,
+                                                         kv_len=kv_len),
             (q, *live), 4 * hd * B * KH * G * kv_len, hbm,
-            peak=PEAK_BF16_FLOPS, tol=ATTN_TOL[f32], library=library)
+            peak=PEAK_BF16_FLOPS, tol=ATTN_TOL[bf16], library=library)
         if kv_len == 2049:
             records["decode_attention"] = r
     return records
@@ -1096,8 +1119,10 @@ def lm_card_vs_cpu():
     card replays the CPU's tokens (teacher forcing) through the kernels;
     logits agree at every step and, in float32, the card's greedy tokens
     are the CPU's.  Jamba in bf16 is held on its caches up to the first
-    MoE layer and on the MoE alone (JAMBA_BF16_REL says why)."""
+    MoE layer and on the MoE alone (JAMBA_BF16_REL says why).  Returns the
+    float32 flash launches (all on the CUDA-core route, hd 16)."""
     B, P, T = 4, 64, 8
+    f32_flash = 0
     for arch, dtypes in (("qwen2-1.5b", ("float32", "bfloat16")),
                          ("qwen3-0.6b", ("float32", "bfloat16")),
                          ("jamba-v0.1-52b", ("float32", "bfloat16")),
@@ -1139,6 +1164,13 @@ def lm_card_vs_cpu():
             launches = dict(K.LAUNCHES)
             check(launches == expected_launches(cfg, T - 1),
                   f"{arch} {dtype}: launches {launches}")
+            n_flash = launches["flash_attention"]
+            check(K.ROUTES == ({"flash_attention/simt": n_flash} if n_flash
+                               else {}),
+                  f"{arch} {dtype}: flash routes {K.ROUTES} (hd "
+                  f"{cfg.hd}: the CUDA-core route)")
+            if dtype == "float32":
+                f32_flash += n_flash
             check(all(bool(torch.isfinite(g).all()) for g in got),
                   f"{arch} {dtype}: non-finite logits on the card")
             # stacked, so that a NaN at any step makes the max NaN
@@ -1170,6 +1202,7 @@ def lm_card_vs_cpu():
                   f"{launches['mlstm_attention']}" + ("" if held else
                   f"; card == CPU (max |logit difference| {err:.3g}, "
                   f"largest logit {scale:.3g})"), flush=True)
+    return {"flash_attention_f32": f32_flash}
 
 
 # ---------------------------------------------------------------------------
@@ -1223,19 +1256,24 @@ def lm_full_size():
     check(launches["decode_attention"] == L * (T - 1),
           f"qwen2-1.5b: {launches['decode_attention']} decode launches, "
           f"expected {L} x {T - 1}")
+    check(K.ROUTES == {"flash_attention/wgmma": L},
+          f"qwen2-1.5b: flash routes {K.ROUTES}, expected {L} wgmma")
     check(all(bool(torch.isfinite(x).all()) for x in res.logits),
           "qwen2-1.5b: non-finite logits")
     check(tuple(res.seqs.shape) == (8, 32), f"seqs {tuple(res.seqs.shape)}")
     print(f"full size qwen2-1.5b bf16 serve 8x(2048+32): prefill "
           f"{res.prefill_ms:.1f} ms, decode {res.decode_ms_per_token:.3f} "
           f"ms/token, {res.tokens_per_s:.1f} tokens/s, peak memory "
-          f"{peak / 2 ** 30:.2f} GiB, launches {launches}", flush=True)
+          f"{peak / 2 ** 30:.2f} GiB, launches {launches}, flash routes "
+          f"{K.ROUTES}", flush=True)
     again = serve.serve(model, prompts, T)
     check(torch.equal(again.seqs, res.seqs),
           "qwen2-1.5b: a second serve gave other tokens")
     print(f"second serve: same tokens (prefill {again.prefill_ms:.1f} ms, "
           f"decode {again.decode_ms_per_token:.3f} ms/token)", flush=True)
     cross_check("qwen2-1.5b", model, prompts, res, CROSS_REL)
+    torch.cuda.empty_cache()
+    profile_serve.profile_serving(model, prompts, 8)
     del model
     torch.cuda.empty_cache()
     return {"flash_attention": launches["flash_attention"],
@@ -1436,6 +1474,9 @@ def train_full_size():
             want[n] = leaves * steps
         check(launches == want,
               f"full-size {comp}: launches {launches}, expected {want}")
+        check(K.ROUTES == {"flash_attention/wgmma":
+                           want["flash_attention"]},
+              f"full-size {comp}: flash routes {K.ROUTES}")
         losses = [h["loss"] for h in history]
         check(all(np.isfinite(losses)), f"full-size {comp}: losses {losses}")
         check(losses[-1] < losses[0],
@@ -1507,6 +1548,8 @@ def jamba_full_size():
     peak = torch.cuda.max_memory_allocated()
     want = expected_launches(cfg, JAMBA_T - 1)
     check(launches == want, f"jamba: launches {launches}, expected {want}")
+    check(K.ROUTES == {"flash_attention/wgmma": want["flash_attention"]},
+          f"jamba: flash routes {K.ROUTES}")
     check(all(bool(torch.isfinite(x).all()) for x in res.logits),
           "jamba: non-finite logits")
     check(tuple(res.seqs.shape) == (JAMBA_B, JAMBA_T),
@@ -1678,6 +1721,8 @@ ENTRIES = (
      "src/repro/kernels/duct_exchange/kernel.py:31"),
     ("flash_attention", "flash_attention",
      "src/repro/kernels/flash_attention/kernel.py:20"),
+    ("flash_attention_f32", "flash_attention",
+     "src/repro/kernels/flash_attention/kernel.py:20"),
     ("decode_attention", "decode_attention",
      "src/repro/kernels/decode_attention/kernel.py:19"),
     ("quantize", "quantize", "src/repro/kernels/quantize/kernel.py:16"),
@@ -1703,7 +1748,7 @@ def main():
     oracle()
     card_vs_cpu()
     launched = full_size()
-    lm_card_vs_cpu()
+    launched.update(lm_card_vs_cpu())
     launched.update(lm_full_size())
     train_card_vs_cpu()
     launched.update(train_full_size())

@@ -9,7 +9,9 @@ with one ``nvcc`` per source, all started together.
 
 ``LAUNCHES`` counts the launches of each kernel since the last
 ``reset_launches()``; ``launch`` adds one exactly where it launches a
-kernel, and nowhere else adds to it.
+kernel, and nowhere else adds to it.  A kernel with more than one route
+(``flash_attention``: ``wgmma`` and ``simt``) also counts each launch in
+``ROUTES`` under ``"<kernel>/<route>"``.
 """
 from __future__ import annotations
 
@@ -45,6 +47,8 @@ SOURCES = {
 
 #: launches per kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+#: launches per "<kernel>/<route>" since the last reset_launches()
+ROUTES: Dict[str, int] = {}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -80,6 +84,7 @@ class LaunchCounts(Mapping):
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ROUTES.clear()
 
 
 def source_path(name: str) -> Path:
@@ -132,6 +137,25 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> float:
     return time.perf_counter() - t0
 
 
+def ptxas_report(names: Iterable[str] = tuple(SOURCES)) -> str:
+    """Compile each source of ``names`` once more, to an object file that
+    is thrown away, with ``-Xptxas -v``: what ptxas says of each kernel
+    (registers, shared memory, spills)."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = BUILD_DIR / f"ptxas-{os.getpid()}.o"
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared",)]
+    report = []
+    for src in sorted({SOURCES[n] for n in names}):
+        proc = subprocess.run(
+            [nvcc, *flags, "-Xptxas", "-v", "-c", "-o", str(obj),
+             str(_KERNELS / src)], capture_output=True, text=True)
+        report.append(f"== {src} (nvcc exit {proc.returncode})\n"
+                      f"{proc.stdout}{proc.stderr}")
+    obj.unlink(missing_ok=True)
+    return "\n".join(report)
+
+
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """Kernel ``name``'s library, built if missing, with each entry point
     of ``signatures`` given its ctypes argument types and an int result
@@ -164,11 +188,12 @@ def check_tensor(x: torch.Tensor, name: str, shape: Tuple[int, ...], dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-def launch(fn, tensors, scalars, device: torch.device, kernel: str) -> None:
+def launch(fn, tensors, scalars, device: torch.device, kernel: str,
+           route: str | None = None) -> None:
     """Call launcher ``fn`` with the tensors' pointers (``None`` passes a
     null pointer, for an output the kernel may skip), the scalars and the
     current stream; raise if it reports a CUDA error, else count the
-    launch."""
+    launch (and its ``route``, where the kernel has more than one)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*[None if t is None else t.data_ptr() for t in tensors],
@@ -177,6 +202,9 @@ def launch(fn, tensors, scalars, device: torch.device, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error "
                            f"{err}")
     LAUNCHES[kernel] += 1
+    if route is not None:
+        key = f"{kernel}/{route}"
+        ROUTES[key] = ROUTES.get(key, 0) + 1
 
 
 def device_kind(t: torch.Tensor, what: str) -> str:
@@ -188,3 +216,20 @@ def device_kind(t: torch.Tensor, what: str) -> str:
             f"{what} run on cpu (plain torch) or cuda (hand-written "
             f"kernel); got a tensor on {t.device}")
     return kind
+
+
+if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Build the port's CUDA kernels into build/, or print "
+                    "what ptxas says of each (--ptxas).")
+    ap.add_argument("names", nargs="*", default=list(SOURCES),
+                    help=f"kernels (default: all of {sorted(SOURCES)})")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="compile with -Xptxas -v and print its report")
+    args = ap.parse_args()
+    if args.ptxas:
+        print(ptxas_report(args.names))
+    else:
+        print(f"built in {build(args.names):.1f}s into {BUILD_DIR}")

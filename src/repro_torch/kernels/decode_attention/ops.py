@@ -1,5 +1,6 @@
-"""Flash-decoding: dispatch of the per-chunk partials, the plain torch
-versions, and the log-sum-exp combine.
+"""Flash-decoding: dispatch of the whole function, the plain torch
+versions of the per-chunk partials and of the whole function, and the
+log-sum-exp combine.
 
 The counterpart of src/repro/kernels/decode_attention/{ops,ref}.py, over
 the model's KV cache layout: q is (B, KH, G, hd), the cache k, v is
@@ -9,9 +10,10 @@ preallocated, so only keys ``[0, kv_len)`` count: the partials are those
 of the reference's Pallas kernel on ``k[:, :kv_len]``, with chunks of
 ``bc`` keys cut at ``kv_len`` (the last may be ragged), and a chunk wholly
 past ``kv_len`` gives m = -inf, l = 0, acc = 0, which the combine weighs
-by exp(-inf) = 0.  A CUDA tensor goes through the hand-written kernel
-(``kernel.py``), a CPU tensor through the plain version; the combine is
-plain torch on both, as it is jnp in the reference.
+by exp(-inf) = 0.  A CPU tensor takes the plain partials and the combine
+(plain torch, as it is jnp in the reference); a CUDA tensor takes the
+hand-written kernel (``kernel.py``), which computes both phases in one
+launch over its own split of the keys (the chunk ``bc`` is the CPU's).
 """
 from __future__ import annotations
 
@@ -46,14 +48,14 @@ def decode_attention_partials_torch(q: torch.Tensor, k: torch.Tensor,
 
 def decode_attention_partials(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, kv_len: int, bc: int):
-    """The partials, dispatched on q's device: the plain torch version for
-    a CPU tensor, the CUDA kernel for a CUDA tensor."""
-    if device_kind(q, "decode_attention") == "cpu":
-        return decode_attention_partials_torch(q, k, v, kv_len=kv_len, bc=bc)
-    from repro_torch.kernels.decode_attention.kernel import (
-        decode_attention_cuda,
-    )
-    return decode_attention_cuda(q, k, v, kv_len=kv_len, bc=bc)
+    """The partials of a CPU tensor (the plain version).  On the card the
+    kernel computes the whole function in one launch and never hands out
+    partials: a CUDA tensor raises (call ``decode_attention``)."""
+    if device_kind(q, "decode_attention") == "cuda":
+        raise ValueError("decode_attention_partials is the plain version for "
+                         "CPU tensors: on the card the fused kernel computes "
+                         "the whole function (decode_attention)")
+    return decode_attention_partials_torch(q, k, v, kv_len=kv_len, bc=bc)
 
 
 def combine_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
@@ -70,15 +72,23 @@ def combine_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      *, kv_len: int | None = None, bc: int = 512
                      ) -> torch.Tensor:
-    """Single-token attention over the first ``kv_len`` keys of a cache.
+    """Single-token attention over the first ``kv_len`` keys of a cache,
+    dispatched on q's device: a CPU tensor takes the plain partials over
+    chunks of ``bc`` keys and the combine, a CUDA tensor the fused kernel
+    (one launch; its split plan replaces ``bc``).
 
     q: (B, KH, G, hd); k, v: (B, S, KH, hd).  Returns (B, KH, G, hd).
     """
     B, KH, G, hd = q.shape
     S = k.shape[1]
     kv_len = S if kv_len is None else kv_len
-    acc, m, l = decode_attention_partials(q, k, v, kv_len=kv_len,
-                                          bc=min(bc, S))
+    if device_kind(q, "decode_attention") == "cuda":
+        from repro_torch.kernels.decode_attention.kernel import (
+            decode_attention_cuda,
+        )
+        return decode_attention_cuda(q, k, v, kv_len=kv_len)
+    acc, m, l = decode_attention_partials_torch(q, k, v, kv_len=kv_len,
+                                                bc=min(bc, S))
     return combine_partials(acc, m, l, q.dtype).reshape(B, KH, G, hd)
 
 

@@ -25,7 +25,8 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers
 
-#: keys per flash-decoding chunk (the reference kernel's default)
+#: keys per flash-decoding chunk of the plain version (the reference
+#: kernel's default); the CUDA kernel plans its own split of the keys
 DECODE_CHUNK = 512
 
 

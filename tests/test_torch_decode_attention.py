@@ -9,9 +9,12 @@ inputs, made with numpy from a seed, the plain partials must agree with
 ``decode_attention_partials(interpret=True)`` within 1e-5 (both keep them
 in float32 from the same inputs; acc sums up to 512 products), and the
 combined output with ``decode_attention_ref`` within 2e-5 in float32 and
-2e-2 in bfloat16 (one bf16 ulp of the output).  The ``cuda``-marked tests
-at the end hold the CUDA kernel against the plain partials on the card;
-they need no JAX
+2e-2 in bfloat16 (one bf16 ulp of the output).  On the card the kernel
+computes the whole function in one launch over its own split of the keys
+(``kernel.plan_splits``); the CPU tests hold the planner and an emulation
+of the split plan with its ordered combine.  The ``cuda``-marked tests at
+the end hold the CUDA kernel against the plain whole function on the
+card; they need no JAX
 (``python -m pytest -q -m cuda tests/test_torch_decode_attention.py``).
 """
 import types
@@ -184,10 +187,75 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
     decode_attention(q, k, v, kv_len=40, bc=16)
     assert kbuild.LAUNCHES["decode_attention"] == 0
     with pytest.raises(ValueError, match="CUDA tensors"):
-        dkernel.decode_attention_cuda(q, k, v, kv_len=40, bc=16)
+        dkernel.decode_attention_cuda(q, k, v, kv_len=40)
     with pytest.raises(ValueError, match="cpu .* or cuda"):
         decode_attention_partials(q.to("meta"), k.to("meta"), v.to("meta"),
                                   kv_len=40, bc=16)
+
+
+#: (kv_len, B x KH, SMs): one key, fewer keys than the splits the SM count
+#: asks for, qwen2-1.5b's decode shape at 2049 and 2080 live keys, a cache
+#: read whole (S = kv_len), one (b, kv head) over a long cache, and more
+#: (b, kv head) pairs than SMs
+PLAN_CASES = [(1, 16, 132), (10, 1, 132), (63, 2, 132), (2049, 16, 132),
+              (2080, 16, 132), (700, 8, 132), (100_000, 1, 132),
+              (4096, 512, 132), (130, 3, 132)]
+
+
+@pytest.mark.parametrize("kv_len,bkh,sms", PLAN_CASES)
+def test_split_plan_covers_the_live_keys(kv_len, bkh, sms):
+    nsplit, kps = dkernel.plan_splits(kv_len, bkh, sms)
+    assert 1 <= nsplit <= dkernel.MAX_SPLITS
+    splits = [(s * kps, min((s + 1) * kps, kv_len)) for s in range(nsplit)]
+    assert all(b > a for a, b in splits), splits        # none empty
+    assert splits[0][0] == 0 and splits[-1][1] == kv_len
+    assert all(splits[i][1] == splits[i + 1][0] for i in range(nsplit - 1))
+    if nsplit > 1:      # at least one full tile of keys a split
+        assert kps >= dkernel.MIN_SPLIT_KEYS
+    if kv_len < dkernel.MIN_SPLIT_KEYS:
+        assert nsplit == 1
+    if (kv_len, bkh) in ((2049, 16), (2080, 16)):    # qwen2-1.5b decode
+        assert nsplit * bkh >= 2 * sms
+
+
+def test_split_plan_at_qwen2_decode_shape():
+    """16 (b, kv head) pairs x 17 splits = 272 blocks of ~121 keys."""
+    assert dkernel.plan_splits(2049, 16, 132) == (17, 121)
+    assert dkernel.plan_splits(1, 16, 132) == (1, 1)
+
+
+@pytest.mark.parametrize("kv_len", [1, 5, 100, 2049, 2080])
+def test_split_plan_and_ordered_combine_emulate_the_function(kv_len):
+    """The kernel's arithmetic on the CPU: each split's (m, l, acc) in
+    float32 over its keys, then the splits combined in split order with
+    weights exp(m_s - max m), as the last block does.  Equal to the plain
+    whole function within the float32 TOL."""
+    B, KH, G, S, hd = 2, 2, 6, 2080, 32
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+               for shape in ((B, KH, G, hd), (B, S, KH, hd), (B, S, KH, hd)))
+    nsplit, kps = dkernel.plan_splits(kv_len, B * KH, 132)
+    qs = q.reshape(B * KH, G, hd) * hd ** -0.5
+    ks = k.permute(0, 2, 1, 3).reshape(B * KH, S, hd)
+    vs = v.permute(0, 2, 1, 3).reshape(B * KH, S, hd)
+    parts = []
+    for s in range(nsplit):
+        a, b = s * kps, min((s + 1) * kps, kv_len)
+        sc = torch.einsum("ngd,nkd->ngk", qs, ks[:, a:b])
+        m = sc.amax(dim=-1)
+        p = torch.exp(sc - m[..., None])
+        parts.append((m, p.sum(dim=-1), torch.einsum("ngk,nkd->ngd", p,
+                                                     vs[:, a:b])))
+    top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    num = torch.zeros((B * KH, G, hd))
+    den = torch.zeros((B * KH, G))
+    for m, l, acc in parts:                 # split order
+        w = torch.exp(m - top)
+        num = num + w[..., None] * acc
+        den = den + w * l
+    got = (num / den.clamp_min(1e-30)[..., None]).reshape(B, KH, G, hd)
+    want = decode_attention_torch(q, k, v, kv_len=kv_len)
+    np.testing.assert_allclose(f32(got), f32(want), **TOL["float32"])
 
 
 # ---------------------------------------------------------------------------
@@ -201,39 +269,41 @@ def cuda_device():
     return torch.device("cuda")
 
 
-#: (B, KH, G, S, hd, kv_len, bc): the serving shape and its edges, every
-#: head dim, a ragged chunk, empty chunks
-CARD_CASES = [(8, 2, 6, 2080, 128, 2049, 512), (8, 2, 6, 2080, 128, 2080, 512),
-              (8, 2, 6, 2080, 128, 1, 512), (2, 2, 2, 40, 16, 17, 16),
-              (3, 1, 4, 300, 32, 300, 128), (1, 8, 2, 1024, 64, 700, 256)]
+#: (B, KH, G, S, hd): qwen2-1.5b's decode shape with every KH, and every
+#: head dim and G bucket
+CARD_SHAPES = [(4, 1, 6, 2080, 128), (4, 2, 6, 2080, 128),
+               (2, 8, 6, 2080, 128), (2, 2, 1, 2080, 64),
+               (2, 8, 2, 2080, 32), (3, 1, 3, 2080, 16),
+               (1, 2, 8, 2080, 128), (2, 2, 5, 2080, 64)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", CARD_CASES)
-def test_kernel_matches_plain_on_card(case, dtype, cuda_device):
-    B, KH, G, S, hd, kv_len, bc = case
+@pytest.mark.parametrize("kv_len", [1, 5, 100, 2049, 2080])
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_kernel_matches_plain_on_card(shape, kv_len, dtype, cuda_device):
+    """The fused kernel (one launch: partials and combine) against the
+    plain whole function, and bitwise equal to itself over two calls."""
+    B, KH, G, S, hd = shape
     rng = np.random.default_rng(7)
     dt = getattr(torch, dtype)
-    q, k, v = (torch.as_tensor(rng.standard_normal(shape),
+    q, k, v = (torch.as_tensor(rng.standard_normal(shp),
                                dtype=torch.float32).to(cuda_device, dt)
-               for shape in ((B, KH, G, hd), (B, S, KH, hd), (B, S, KH, hd)))
+               for shp in ((B, KH, G, hd), (B, S, KH, hd), (B, S, KH, hd)))
     before = kbuild.LAUNCHES["decode_attention"]
-    got = decode_attention_partials(q, k, v, kv_len=kv_len, bc=bc)
+    got = decode_attention(q, k, v, kv_len=kv_len)
+    again = decode_attention(q, k, v, kv_len=kv_len)
     torch.cuda.synchronize()
-    assert kbuild.LAUNCHES["decode_attention"] == before + 1
-    want = decode_attention_partials_torch(q, k, v, kv_len=kv_len, bc=bc)
-    # both keep the partials in float32 from the same inputs; only the
-    # order of the sums differs (acc sums up to 512 products)
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(f32(g), f32(w), rtol=1e-4, atol=1e-4)
-    # the combined output: both round once from float32, so in bfloat16
-    # one bf16 ulp (2^-7 of the value)
-    out = decode_attention(q, k, v, kv_len=kv_len, bc=bc)
+    assert kbuild.LAUNCHES["decode_attention"] == before + 2
+    assert got.dtype == q.dtype and tuple(got.shape) == (B, KH, G, hd)
+    assert torch.equal(got, again), "two calls gave other bits"
+    assert int(dkernel._COUNTERS[torch.cuda.current_device()].abs().sum()) == 0
+    # bfloat16: both compute in float32 and round once, so one bf16 ulp
+    # (2^-7 of the value); float32: only the order of the sums differs
+    tol = dict(rtol=2.0 ** -7, atol=1e-5) if dtype == "bfloat16" else \
+        dict(rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(
-        f32(out), f32(decode_attention_torch(q, k, v, kv_len=kv_len)),
-        **(dict(rtol=2.0 ** -7, atol=1e-5) if dtype == "bfloat16" else
-           dict(rtol=1e-4, atol=1e-4)))
+        f32(got), f32(decode_attention_torch(q, k, v, kv_len=kv_len)), **tol)
 
 
 @pytest.mark.cuda
@@ -241,12 +311,20 @@ def test_kernel_refuses_what_it_was_not_built_for(cuda_device):
     q = torch.zeros((1, 1, 2, 8), device=cuda_device)
     k = torch.zeros((1, 64, 1, 8), device=cuda_device)
     with pytest.raises(ValueError, match="head dims"):
-        dkernel.decode_attention_cuda(q, k, k, kv_len=64, bc=32)
+        dkernel.decode_attention_cuda(q, k, k, kv_len=64)
     q = torch.zeros((1, 1, 32, 128), device=cuda_device)
     k = torch.zeros((1, 64, 1, 128), device=cuda_device)
-    with pytest.raises(ValueError, match="G x hd"):
-        dkernel.decode_attention_cuda(q, k, k, kv_len=64, bc=32)
+    with pytest.raises(ValueError, match="G up to"):
+        dkernel.decode_attention_cuda(q, k, k, kv_len=64)
     q = torch.zeros((1, 1, 2, 16), device=cuda_device)
     k = torch.zeros((1, 64, 1, 16), device=cuda_device)
     with pytest.raises(ValueError, match="kv_len"):
-        dkernel.decode_attention_cuda(q, k, k, kv_len=65, bc=32)
+        dkernel.decode_attention_cuda(q, k, k, kv_len=65)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        dkernel.decode_attention_cuda(q.half(), k.half(), k.half(), kv_len=9)
+    with pytest.raises(ValueError, match="aligned"):
+        odd = torch.zeros(64 * 16 + 1, device=cuda_device)[1:]
+        dkernel.decode_attention_cuda(q, odd.view(1, 64, 1, 16), k,
+                                      kv_len=9)
+    with pytest.raises(ValueError, match="fused kernel"):
+        decode_attention_partials(q, k, k, kv_len=9, bc=16)

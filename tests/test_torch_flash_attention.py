@@ -10,8 +10,10 @@ and ``flash_attention_ref`` within 2e-5 in float32 and 2e-2 in bfloat16
 use the same bounds).  The CUDA kernel takes any S, where the Pallas
 kernel asserts S % bq == 0, so ragged S is held against the jnp oracle.
 On the CPU, the dispatching wrappers take the plain version and never
-reach the kernel loader.  The ``cuda``-marked tests at the end hold the
-CUDA kernel against the plain version on the card; they need no JAX
+reach the kernel loader; the CPU tests also hold the choice of route and
+an emulation of the tensor-core route's arithmetic (P split in two bf16
+terms).  The ``cuda``-marked tests at the end hold both CUDA routes
+against the plain version on the card; they need no JAX
 (``python -m pytest -q -m cuda tests/test_torch_flash_attention.py``).
 """
 import types
@@ -145,6 +147,79 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
         flash_attention_grouped(q.to("meta"), k.to("meta"), v.to("meta"))
 
 
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_route_takes_tensor_cores_only_for_bf16_at_hd_64_and_128(dtype, hd):
+    want = "wgmma" if (dtype, hd) in (("bfloat16", 64),
+                                      ("bfloat16", 128)) else "simt"
+    assert fkernel.route(getattr(torch, dtype), hd) == want
+
+
+#: the card's bf16 tolerance (chip_smoke.ATTN_TOL[bf16]): one bf16 ulp of
+#: the output, and the float32 sums' own error near 0
+CARD_BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+
+
+def wgmma_emulation(q, k, v, *, causal, split=True, tile=128):
+    """The tensor-core route's arithmetic on the CPU: float32 scores of the
+    bf16 inputs, an online softmax over 128-key tiles in float32, and P V
+    with p in two bf16 terms, bf16(p) + bf16(p - bf16(p)) (``split``), or
+    in one, bf16(p), summed in float32; acc / max(l, 1e-30), rounded once
+    to bf16."""
+    BK, G, S, hd = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((BK, G, S), float("-inf"))
+    l = torch.zeros((BK, G, S))
+    acc = torch.zeros((BK, G, S, hd))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, tile):
+        keys = torch.arange(k0, min(k0 + tile, S))
+        s = torch.einsum("bgqd,bkd->bgqk", qf, kf[:, keys]) * hd ** -0.5
+        if causal:
+            s = s.masked_fill(keys[None, :] > rows, float("-inf"))
+        mn = torch.maximum(m, s.amax(dim=-1))
+        mu = torch.where(mn == float("-inf"), torch.zeros_like(mn), mn)
+        c = torch.exp(m - mu)
+        p = torch.exp(s - mu[..., None])
+        l = l * c + p.sum(dim=-1)
+        hi = p.bfloat16().float()
+        terms = (hi, (p - hi).bfloat16().float()) if split else (hi,)
+        acc = acc * c[..., None] + sum(
+            torch.einsum("bgqk,bkd->bgqd", t, vf[:, keys]) for t in terms)
+        m = mn
+    return (acc / l.clamp_min(1e-30)[..., None]).bfloat16()
+
+
+def near_zero_case(seed, BK, G, S, hd):
+    """bf16 inputs with flat attention over up to 300 keys: the outputs are
+    averages of many values of both signs, many of them near 0."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((BK, G, S, hd)) * 0.3
+    k = rng.standard_normal((BK, S, hd))
+    v = rng.standard_normal((BK, S, hd))
+    return [torch.as_tensor(a, dtype=torch.float32).bfloat16()
+            for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [77, 130, 300])
+def test_split_p_emulation_holds_card_tolerance(S, causal):
+    """hi + lo carries p to ~2^-17, so the emulated route stays within the
+    card's bf16 tolerance of the plain version; one bf16 P does not, on
+    the same inputs, at the outputs near 0: that is why the kernel pays
+    for two P V products."""
+    q, k, v = near_zero_case(9, 2, 3, S, 64)
+    want = flash_attention_torch(q, k, v, causal=causal)
+    got = wgmma_emulation(q, k, v, causal=causal)
+    np.testing.assert_allclose(f32(got), f32(want), **CARD_BF16_TOL)
+    one = f32(wgmma_emulation(q, k, v, causal=causal, split=False))
+    w = f32(want)
+    outside = np.abs(one - w) > CARD_BF16_TOL["atol"] + \
+        CARD_BF16_TOL["rtol"] * np.abs(w)
+    assert outside.sum() > 0, "one bf16 P held the tolerance"
+    assert float(np.abs(w[outside]).min()) < 1e-2    # near 0
+
+
 # ---------------------------------------------------------------------------
 # On the card: the CUDA kernel against the plain version
 # ---------------------------------------------------------------------------
@@ -184,6 +259,24 @@ def test_kernel_matches_plain_on_card(case, dtype, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 4, 6])
+@pytest.mark.parametrize("S", [1, 77, 128, 130, 1000, 2047])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_wgmma_route_matches_plain_on_card(hd, causal, S, G, cuda_device):
+    q, k, v = as_torch(qkv(10 + S, 2, G, S, hd), "bfloat16", cuda_device)
+    kbuild.reset_launches()
+    got = flash_attention_grouped(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["flash_attention"] == 1
+    assert kbuild.ROUTES == {"flash_attention/wgmma": 1}
+    want = flash_attention_torch(q, k, v, causal=causal)
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(f32(got), f32(want), rtol=2.0 ** -7,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_what_it_was_not_built_for(cuda_device):
     q, k, v = as_torch(qkv(7, 1, 1, 64, 16), "float32", cuda_device)
     with pytest.raises(ValueError, match="head dims"):
@@ -194,3 +287,9 @@ def test_kernel_refuses_what_it_was_not_built_for(cuda_device):
         fkernel.flash_attention_cuda(q.half(), k.half(), v.half())
     with pytest.raises(TypeError, match="dtype"):
         fkernel.flash_attention_cuda(q, k.bfloat16(), v)
+    # the tensor-core route reads by TMA from 16-byte aligned addresses
+    q, k, v = as_torch(qkv(7, 1, 1, 64, 64), "bfloat16", cuda_device)
+    odd = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16,
+                      device=cuda_device)[1:].view(1, 64, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        fkernel.flash_attention_cuda(q, odd, v)
