@@ -38,8 +38,10 @@ and fails with a non-zero exit code if any phase fails:
                whole function at kv_len 2049, 2080 and 1; the
                compression kernels bitwise at every row shape of
                qwen2-1.5b's gradient leaves, ties and a ragged final
-               block (``q * scale`` timed beside dequantize,
-               ``torch.topk`` of |x| beside top-k); ``mamba_scan`` at
+               block (``q * scale`` timed beside dequantize; every top-k
+               shape and the tie-heavy ones timed with ``torch.topk`` of
+               |x| beside them, each call's route read from
+               ``build.ROUTES``); ``mamba_scan`` at
                jamba's prefill shape (8, 2048, 8192, 16) and a ragged
                shape within a stated tolerance (no PyTorch call computes
                the scan); ``mlstm_attention`` at xlstm-125m's prefill
@@ -123,6 +125,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -178,6 +181,9 @@ from repro_torch.kernels.quantize import (  # noqa: E402
 from repro_torch.kernels.topk_compress import (  # noqa: E402
     topk_compress_blocks,
     topk_compress_torch,
+)
+from repro_torch.kernels.topk_compress.kernel import (  # noqa: E402
+    route as topk_route,
 )
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
     mamba_scan,
@@ -606,6 +612,10 @@ TOPK_ROWS = [("gate/up/down (28,13762560) k=137625", 28, 13762560, 137625),
              ("norms/bq (28,1536) k=15", 28, 1536, 15),
              ("bk/bv (28,256) k=2", 28, 256, 2),
              ("final_norm (1,1536) k=15", 1, 1536, 15)]
+#: tie-heavy rows (few distinct magnitudes of both signs, and zeros):
+#: (label, nb, block, k, ties)
+TOPK_TIES = [("(100,70001) k=700 ties", 100, 70001, 700, True),
+             ("(500,1000) k=1000 ties", 500, 1000, 1000, True)]
 #: the int8 rows of qwen2-1.5b's gradient leaves: (label, nb, block)
 QUANT_ROWS = [("gate/up (43008,8960)", 43008, 8960),
               ("down (250880,1536)", 250880, 1536),
@@ -621,8 +631,9 @@ def compress_kernels(hbm):
     """quantize, dequantize and topk_compress at the training path's
     shapes (qwen2-1.5b's float32 gradient leaves, cut into rows as the
     compressors cut them), bitwise against their plain versions; the
-    largest shape of each is timed.  Plus ties and a ragged final
-    block."""
+    largest shape of quantize and dequantize is timed, and every top-k
+    shape, with ``torch.topk`` of |x| beside it and the route it took
+    (``build.ROUTES``).  Plus ties and a ragged final block."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2026)
@@ -661,23 +672,23 @@ def compress_kernels(hbm):
     ragged = ragged.reshape(-1, 1024)
     held("quantize ragged final block", quantize_blocks(ragged, residual=True),
          quantize_torch(ragged, residual=True))
-    for i, (label, nb, block, k) in enumerate(TOPK_ROWS):
-        x = grad_rows(gen, nb, block, dev)
+    for i, (label, nb, block, k, ties) in enumerate(
+            [r + (False,) for r in TOPK_ROWS] + TOPK_TIES):
+        x = grad_rows(gen, nb, block, dev, ties=ties)
+        before = dict(K.ROUTES)
+        rec = measure(
+            f"topk_compress {label} f32 route {topk_route(block)}",
+            lambda: topk_compress_blocks(x, k),
+            lambda: topk_compress_torch(x, k), (x,), x.numel(), hbm,
+            library=lambda: torch.topk(x.abs(), k, dim=-1),
+            plain_runs=5)
+        ran = {r: n - before.get(r, 0) for r, n in K.ROUTES.items()
+               if n != before.get(r, 0)}
+        check(set(ran) == {f"topk_compress/{topk_route(block)}"},
+              f"topk_compress {label}: routes {ran}")
         if i == 0:
-            records["topk_compress"] = measure(
-                f"topk_compress {label} f32",
-                lambda: topk_compress_blocks(x, k),
-                lambda: topk_compress_torch(x, k), (x,), x.numel(), hbm,
-                library=lambda: torch.topk(x.abs(), k, dim=-1))
-        else:
-            held(f"topk_compress {label} f32", topk_compress_blocks(x, k),
-                 topk_compress_torch(x, k))
+            records["topk_compress"] = rec
         del x
-    for label, nb, block, k in (("(100,70001) k=700 ties", 100, 70001, 700),
-                                ("(500,1000) k=1000 ties", 500, 1000, 1000)):
-        x = grad_rows(gen, nb, block, dev, ties=True)
-        held(f"topk_compress {label}", topk_compress_blocks(x, k),
-             topk_compress_torch(x, k))
     torch.cuda.empty_cache()
     return records
 
@@ -1466,6 +1477,15 @@ def train_full_size():
         peak = torch.cuda.max_memory_allocated()
         cfg = train.resolve_config("qwen2-1.5b")
         leaves, steps = len(state["params"]), len(history)
+        # each leaf's top-k route, from its rows as TopKCompressor cuts
+        # them (every leaf is stacked over pods: shape[1:] is a pod's)
+        topk_routes = {}
+        for leaf in state["params"].values():
+            shape = leaf.shape[1:]
+            block = math.prod(shape[1:]) if len(shape) >= 2 else \
+                math.prod(shape)
+            key = f"topk_compress/{topk_route(block)}"
+            topk_routes[key] = topk_routes.get(key, 0) + steps
         del state
         torch.cuda.empty_cache()
         want = {n: 0 for n in launches}
@@ -1474,9 +1494,11 @@ def train_full_size():
             want[n] = leaves * steps
         check(launches == want,
               f"full-size {comp}: launches {launches}, expected {want}")
-        check(K.ROUTES == {"flash_attention/wgmma":
-                           want["flash_attention"]},
-              f"full-size {comp}: flash routes {K.ROUTES}")
+        want_routes = {"flash_attention/wgmma": want["flash_attention"]}
+        if comp == "topk":
+            want_routes.update(topk_routes)
+        check(K.ROUTES == want_routes,
+              f"full-size {comp}: routes {K.ROUTES}, expected {want_routes}")
         losses = [h["loss"] for h in history]
         check(all(np.isfinite(losses)), f"full-size {comp}: losses {losses}")
         check(losses[-1] < losses[0],

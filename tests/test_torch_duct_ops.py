@@ -208,6 +208,124 @@ def test_duct_commit_f32_bitwise_vs_reference(case, ref):
     assert_bits_equal(got, duct_commit(*_t(args)), "dispatch")
 
 
+def window_kernel_emulation(args, max_pops):
+    """The CUDA window kernel's arithmetic in numpy, a ring row at a time
+    as its warp runs it: the drain by 32-slot ballot rounds (the pop count
+    is the first blocked lane's position), every output word written once
+    (the push folded into the copy of the ring row, the payload copied in
+    4-word vectors where C*L % 4 == 0), and the halo payload read from the
+    input ring, or from push_pay when the freshest popped slot is the
+    pushed one."""
+    (qa, qt, qp, head, size, ppos, pacc, pav, ptch, ppay, rnow,
+     ract) = [np.asarray(a) for a in args]
+    n, d, C = qa.shape
+    L = qp.shape[-1]
+    CL = C * L
+    vec = CL % 4 == 0
+    out = dict(q_avail=np.empty_like(qa), q_touch=np.empty_like(qt),
+               q_pay=np.empty_like(qp), head=np.empty_like(head),
+               size=np.empty_like(size), drained=np.empty_like(size),
+               recv_touch=np.empty_like(size),
+               halo_pay=np.empty((n, 4, L), qp.dtype),
+               halo_win=np.empty((n, 4), bool))
+    dr_all = np.zeros((n, d), np.int64)
+    fresh_src = {}
+    for i in range(n):
+        for j in range(d):
+            h, sz, pp = int(head[i, j]), int(size[i, j]), int(ppos[i, j])
+            push = bool(pacc[i, j]) and 0 <= pp < C
+
+            def avail(s):
+                return pav[i, j] if push and s == pp else qa[i, j, s]
+            dr = 0
+            if ract[i]:
+                lim = min(sz, max_pops)
+                dr = max(lim, 0)
+                for base in range(0, lim, 32):
+                    lanes = np.arange(base, base + 32)
+                    blocked = [bool(jj < lim and avail((h + jj) % C) > rnow[i])
+                               for jj in lanes]
+                    if any(blocked):
+                        dr = base + blocked.index(True)
+                        break
+            fresh = (h + dr - 1) % C
+            for c in range(C):
+                pushed = push and c == pp
+                out["q_avail"][i, j, c] = (np.inf if (c - h) % C < dr
+                                           else avail(c))
+                out["q_touch"][i, j, c] = ptch[i, j] if pushed else qt[i, j, c]
+            words_in = qp[i, j].reshape(-1)
+            words = out["q_pay"][i, j].reshape(-1)
+            lo = pp * L if push else CL
+            step = 4 if vec else 1
+            for e0 in range(0, CL, step):
+                for e in range(e0, e0 + step):
+                    words[e] = (ppay[i, j, e - lo] if 0 <= e - lo < L
+                                else words_in[e])
+            fp = push and fresh == pp
+            out["recv_touch"][i, j] = (
+                (ptch[i, j] if fp else qt[i, j, fresh]) if dr > 0 else 0)
+            out["head"][i, j] = (h + dr) % C
+            out["size"][i, j] = sz - dr
+            out["drained"][i, j] = dr
+            dr_all[i, j] = dr
+            fresh_src[i, j] = ppay[i, j] if fp else qp[i, j, fresh]
+    for i in range(n):
+        for s in range(4):
+            win = max((j for j in range(s, d, 4) if dr_all[i, j] > 0),
+                      default=-1)
+            out["halo_win"][i, s] = win >= 0
+            out["halo_pay"][i, s] = (fresh_src[i, win] if win >= 0 else 0)
+    return out
+
+
+#: the kernel's edge cases (n, d, C, L, cap, max_pops): C = 5 with L = 3
+#: (C*L not a multiple of 4: word copies), C = 33 (two 32-slot ballot
+#: rounds), d = 9 and d = 33 (more rows than a block's warps), n = 7 (not a
+#: multiple of the 2 receivers a block holds at d = 4)
+EDGE_WINDOW_CASES = [(5, 4, 5, 3, 5, 64), (4, 2, 33, 2, 33, 64),
+                     (3, 9, 8, 2, 8, 16), (3, 33, 8, 2, 8, 16),
+                     (7, 4, 8, 1, 8, 8)]
+EMULATION_CASES = ([c + (np.int32,) for c in WINDOW_CASES + EDGE_WINDOW_CASES]
+                   + [c + (np.float32,) for c in
+                      F32_WINDOW_CASES + EDGE_WINDOW_CASES[:2]])
+
+
+def edge_window_state(case):
+    """A random ring state for an (n, d, C, L, cap, max_pops, payload
+    dtype) case in which every other receiver finds all its slots
+    available and, where C > 32, receiver 0's rings are full, so that a
+    drain takes two ballot rounds."""
+    n, d, C, L, cap, max_pops, pay = case
+    rng = np.random.default_rng(5000 + sum(case[:6]))
+    args = list(random_window_state(rng, n, d, C, L, cap, pay))
+    args[10][::2] = 3.0
+    if C > 32:
+        args[0][0] = (rng.random((d, C)) * 2).astype(np.float32)
+        args[4][0] = C
+        args[6][0] = False
+    return args
+
+
+def _case_id(c):
+    return "n{}-d{}-C{}-L{}-cap{}-pops{}-{}".format(*c[:6],
+                                                     np.dtype(c[6]).name)
+
+
+@pytest.mark.parametrize("case", EMULATION_CASES, ids=_case_id)
+def test_duct_window_kernel_emulation_equals_plain(case):
+    n, d, C, L, cap, max_pops, pay = case
+    args = edge_window_state(case)
+    got = window_kernel_emulation(args, max_pops)
+    want = duct_window_torch(*_t(args), max_pops=max_pops)
+    if C == 33:
+        assert int(want.drained.max()) > 32      # a second ballot round
+    for name, a in zip(want._fields, want):
+        np.testing.assert_array_equal(got[name], a.numpy(),
+                                      err_msg=f"field {name}")
+        assert got[name].dtype == a.numpy().dtype, name
+
+
 def negative_zero_window_state():
     """One receiver of degree 4 whose row 0 holds one available message
     with payload ``[-0.0, 1.5, -0.0]``; the drain pops it into halo slot
@@ -344,6 +462,26 @@ def test_duct_window_kernel_matches_plain_on_card(case, cuda_device):
     assert tkernel.LAUNCHES["duct_window"] == before + 1
     for name, a, b in zip(want._fields, want, got):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in EMULATION_CASES
+                                  if c[:6] in EDGE_WINDOW_CASES],
+                         ids=_case_id)
+def test_duct_window_kernel_edge_cases_on_card(case, cuda_device):
+    """Word copies (C*L % 4 != 0), two ballot rounds, d = 9 and 33 (warps
+    looping over rows), n not a multiple of the receivers a block holds,
+    int32 and float32: bitwise the plain version, twice the same."""
+    n, d, C, L, cap, max_pops, pay = case
+    args = _t(edge_window_state(case), cuda_device)
+    want = duct_window_torch(*args, max_pops=max_pops)
+    before = tkernel.LAUNCHES["duct_window"]
+    got = duct_window(*args, max_pops=max_pops)
+    again = duct_window(*args, max_pops=max_pops)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["duct_window"] == before + 2
+    assert_bits_equal(want, got, "duct_window")
+    assert_bits_equal(got, again, "duct_window twice")
 
 
 @pytest.mark.cuda

@@ -38,6 +38,7 @@ from repro_torch.kernels.topk_compress import (  # noqa: E402
     topk_compress_blocks,
     topk_compress_torch,
 )
+from repro_torch.kernels.topk_compress import kernel as tkernel  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -263,6 +264,180 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 # ---------------------------------------------------------------------------
+# The CUDA kernel's two routes, emulated in torch on the CPU
+# ---------------------------------------------------------------------------
+def composite_keys(x):
+    """(c, b): each entry's composite key ``(bits(|x|) << b) | (n - 1 -
+    i)`` as int64, unique within its row, and the index width b."""
+    n = x.shape[-1]
+    b = tkernel.index_bits(n)
+    keys = (x.contiguous().view(torch.int32) & 0x7FFFFFFF).long()
+    return (keys << b) | (n - 1 - torch.arange(n)), b
+
+
+def find_digit(hist, need):
+    """The digit whose bucket holds the need-th largest entry, counting
+    from the top: (digit, entries above it, its bucket's size)."""
+    from_top = hist.flip(0).cumsum(0)
+    pos = int(torch.nonzero(from_top >= need)[0])
+    d = hist.numel() - 1 - pos
+    return d, int(from_top[pos] - hist[d]), int(hist[d])
+
+
+def split_route_emulation(x, k, *, chunk, cap, seed=0):
+    """The split route's arithmetic, level by level: histograms per chunk
+    of the source summed per row, the digit search, the filter (winners,
+    candidates in a buffer of ``cap``, or x read again when the bucket is
+    larger), winners in an arbitrary arrival order, then the LSD radix
+    sort of the split keys (composite key, then x's sign bit), 8 bits a
+    pass, each pass stable, and the values rebuilt from the keys."""
+    nb, n = x.shape
+    c_all, b = composite_keys(x)
+    sign = (x.contiguous().view(torch.int32) < 0).long()
+    c_all = (c_all << 1) | sign
+    gen = torch.Generator().manual_seed(seed)
+    vals, idx, modes = [], [], []
+    for row in range(nb):
+        cr, wins = c_all[row], []
+        src, mode, prefix, need = cr, "x", 0, k
+        for shift, width in tkernel.select_digits(n):
+            modes.append(mode)
+            hi, bins = shift + width, 1 << width
+            hist = torch.zeros(bins, dtype=torch.int64)
+            for start in range(0, src.numel(), chunk):
+                part = src[start:start + chunk]
+                part = part[(part >> hi) == prefix]
+                hist += torch.bincount((part >> shift) & (bins - 1),
+                                       minlength=bins)
+            d, above, bucket = find_digit(hist, need)
+            left = need - above
+            pre = (prefix << width) | d
+            inb = src[(src >> hi) == prefix]
+            top = inb >> shift
+            wins.append(inb[top > pre])
+            prefix, need = pre, left
+            if left == bucket:                # the whole bucket is wanted
+                wins.append(inb[top == pre])
+                break
+            if bucket <= cap:
+                cand = inb[top == pre]
+                src = cand[torch.randperm(cand.numel(), generator=gen)]
+                mode = "cand"
+            else:
+                src = cr                      # read x again
+        w = torch.cat(wins)
+        assert w.numel() == k
+        w = w[torch.randperm(k, generator=gen)]   # atomics: any order
+        for sh in tkernel.sort_shifts(n):
+            digit = ((~w) >> sh) & 255
+            w = w[torch.sort(digit, stable=True).indices]
+        idx.append(n - 1 - ((w >> 1) & ((1 << b) - 1)))
+        bits = ((w >> (b + 1)) & 0x7FFFFFFF) | ((w & 1) << 31)
+        vals.append(bits.to(torch.uint32).view(torch.float32))
+    return torch.stack(vals), torch.stack(idx).to(torch.int32), modes
+
+
+def row_route_emulation(x, k):
+    """The row route's arithmetic: a radix select over the composite key,
+    8 bits a pass from the top, stopping when a digit's whole bucket is
+    wanted; every key at or above the threshold survives; a descending
+    sort of the survivors."""
+    nb, n = x.shape
+    c_all, b = composite_keys(x)
+    vals, idx = [], []
+    for row in range(nb):
+        cr, prefix, need, shift = c_all[row], 0, k, 31 + b
+        while shift > 0:
+            width = min(8, shift)
+            shift -= width
+            inb = cr[(cr >> (shift + width)) == prefix]
+            hist = torch.bincount((inb >> shift) & ((1 << width) - 1),
+                                  minlength=256)
+            d, above, bucket = find_digit(hist, need)
+            prefix, need = (prefix << width) | d, need - above
+            if need == bucket:
+                break
+        surv = cr[cr >= (prefix << shift)]
+        assert surv.numel() == k
+        surv = torch.sort(surv, descending=True).values
+        i = n - 1 - (surv & ((1 << b) - 1))
+        idx.append(i)
+        vals.append(x[row, i])
+    return torch.stack(vals), torch.stack(idx).to(torch.int32)
+
+
+def signed_zero_rows(seed, nb, block):
+    """Rows of +0.0 and -0.0 with a few nonzero entries."""
+    rng = np.random.default_rng(seed)
+    x = np.where(rng.random((nb, block)) < 0.5, -0.0, 0.0)
+    hot = rng.random((nb, block)) < 0.02
+    x[hot] = rng.standard_normal(int(hot.sum()))
+    return x.astype(np.float32)
+
+
+#: (label, x, k, chunk, cap): many chunks a row; ties straddling chunk
+#: borders; all-zero rows; +0.0 and -0.0 mixed; k = 1 and k = block; a
+#: bucket over the candidate capacity (x read again); candidates refined
+#: over the index bits
+SPLIT_CASES = [
+    ("chunks", lambda: rows(20, 3, 5000), 50, 256, 128),
+    ("ties-across-chunks", lambda: rows(21, 3, 4099, ties=True), 41, 100,
+     2048),
+    ("zero-rows", lambda: rows(22, 4, 3000, zero_rows=2), 30, 512, 64),
+    ("signed-zeros", lambda: signed_zero_rows(23, 2, 6000), 300, 1000, 512),
+    ("k=1", lambda: rows(24, 2, 7000, ties=True), 1, 333, 64),
+    ("k=block", lambda: rows(25, 2, 5000, ties=True), 5000, 700, 5000),
+    ("over-capacity", lambda: rows(26, 2, 9000, ties=True), 90, 1024, 16),
+    ("all-ties-over-capacity",
+     lambda: np.full((2, 4500), -2.5, np.float32), 45, 512, 8),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+def test_topk_routes_emulated_equal_plain_and_ref(case, ref):
+    label, make, k, chunk, cap = case
+    x = make()
+    xt = torch.as_tensor(x)
+    want_v, want_i = topk_compress_torch(xt, k)
+    got_v, got_i, modes = split_route_emulation(xt, k, chunk=chunk, cap=cap)
+    assert_bitwise(got_i, want_i.numpy())
+    assert_bitwise(got_v, want_v.numpy())
+    if label.endswith("over-capacity"):
+        assert modes.count("x") > x.shape[0], modes   # x read again
+    row_v, row_i = row_route_emulation(xt, k)
+    assert_bitwise(row_i, want_i.numpy())
+    assert_bitwise(row_v, want_v.numpy())
+    wv, wi = ref.topk_ref(x, k)
+    assert_bitwise(got_i, wi)
+    assert_bitwise(got_v, wv)
+
+
+def test_topk_route_arithmetic():
+    """The launcher's plan: the select's digits cover the composite key's
+    31 + b bits from the top (bits 30..20 of |x| first), the sort's
+    passes cover them from the bottom, and the route and capacity follow
+    the row's length."""
+    for block in (1, 2, 1536, 4096, 4097, 70001, 2359296, 13762560,
+                  2 ** 31 - 1):
+        b = tkernel.index_bits(block)
+        assert 2 ** b >= block > 2 ** (b - 1) if b else block == 1
+        digits = tkernel.select_digits(block)
+        assert digits[0] == (21 + b, 11)    # bits 30..20 of |x|
+        assert sum(w for _, w in digits) == 31 + b
+        assert [s for s, _ in digits] == sorted((s for s, _ in digits),
+                                                reverse=True)
+        assert digits[-1][0] == 1           # just above the sign bit
+        assert tkernel.split_key_bits(block) == 32 + b
+        assert tkernel.sort_shifts(block)[-1] + 8 >= 32 + b
+        assert tkernel.route(block) == ("row" if block <= 4096 else "split")
+    assert tkernel.capacity(13762560, 137625) == 137625
+    assert tkernel.capacity(2359296, 23592) == 32768
+    assert tkernel.capacity(5000, 4000) == 5000
+    assert len(tkernel.select_digits(13762560)) == 5
+    assert len(tkernel.sort_shifts(13762560)) == 7
+
+
+# ---------------------------------------------------------------------------
 # On the card: the CUDA kernels against the plain versions, bitwise
 # ---------------------------------------------------------------------------
 @pytest.fixture
@@ -316,19 +491,40 @@ def test_quantize_kernels_equal_plain_on_card(shape, cuda_device):
     assert kbuild.LAUNCHES["dequantize"] == 2
 
 
-#: (nb, block, k): the top-k rows of the qwen2-1.5b path (a stacked MLP
-#: row of 13,762,560 with k = 137,625; wq's; embed's rows of 1536; the
-#: biases' of 256) and ragged / all-ties rows
-TOPK_CARD = [(2, 13762560, 137625), (3, 2359296, 23592), (4096, 1536, 15),
-             (28, 256, 2), (5, 1000, 1000), (3, 70000, 5000)]
+#: (nb, block, k, ties): the top-k rows of the qwen2-1.5b path (a stacked
+#: MLP row of 13,762,560 with k = 137,625; wq's; embed's rows of 1536; the
+#: biases' of 256) and ragged / all-ties rows; then a single long row, a
+#: row whose first bucket overflows the candidate capacity (ties at
+#: 2,359,296) and k = block on the split route
+TOPK_CARD = [(2, 13762560, 137625, False), (3, 2359296, 23592, False),
+             (4096, 1536, 15, False), (28, 256, 2, False),
+             (5, 1000, 1000, True), (3, 70000, 5000, True),
+             (1, 13762560, 137625, False), (2, 2359296, 23592, True),
+             (2, 70000, 70000, False)]
+
+
+def first_bucket(x, k):
+    """Per row, the size of the split route's first bucket: the entries
+    whose bits 30..20 of |x| equal those of the k-th largest."""
+    top = ((x.view(torch.int32) & 0x7FFFFFFF) >> 20).long()
+    sizes = []
+    for r in top:
+        hist = torch.bincount(r, minlength=2048).cpu()
+        sizes.append(find_digit(hist, k)[2])
+    return sizes
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", TOPK_CARD)
 def test_topk_kernel_equals_plain_on_card(case, cuda_device):
-    nb, block, k = case
-    x = card_rows(13, nb, block, cuda_device, ties=block in (1000, 70000))
+    nb, block, k, ties = case
+    x = card_rows(13, nb, block, cuda_device, ties=ties)
     kbuild.reset_launches()
     got = topk_compress_blocks(x, k)
     assert kbuild.LAUNCHES["topk_compress"] == 1
+    which = tkernel.route(block)
+    assert kbuild.ROUTES == {f"topk_compress/{which}": 1}
     card_bitwise(got, topk_compress_torch(x, k))
+    card_bitwise(topk_compress_blocks(x, k), got)     # deterministic
+    if ties and block == 2359296:     # x is read again
+        assert max(first_bucket(x, k)) > tkernel.capacity(block, k)
