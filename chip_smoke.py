@@ -45,9 +45,13 @@ and fails with a non-zero exit code if any phase fails:
                jamba's prefill shape (8, 2048, 8192, 16) and a ragged
                shape within a stated tolerance (no PyTorch call computes
                the scan); ``mlstm_attention`` at xlstm-125m's prefill
-               shape (8, 2048, 4, 384) bf16, at a float32 shape and at a
-               ragged one within a stated tolerance (no PyTorch call
-               computes the mLSTM's signed, max-clamped normaliser)
+               shape (8, 2048, 4, 384) bf16 on its tensor-core route and,
+               on the same inputs, its CUDA-core route (the tensor-core
+               route must be the faster), at a float32 shape and at a
+               ragged one on both routes within a stated tolerance (no
+               PyTorch call computes the mLSTM's signed, max-clamped
+               normaliser); ``duct_commit_f32`` must be faster than its
+               plain version
   4. oracle    dyadic 16-process scenarios on both duct layouts: the torch
                engine on the card gives the event simulator's
                ``qos_signature``
@@ -109,13 +113,15 @@ and fails with a non-zero exit code if any phase fails:
                768, 155.6 M parameters; uncut) in bf16 through
                ``repro_torch.launch.serve``: batch 8, prompt 2048, 32 new
                tokens; exact launches (10 ``mlstm_attention`` per
-               prefill, no other kernel), finite logits, the same tokens
+               prefill, all on the tensor-core route; no other kernel),
+               finite logits, the same tokens
                from a second serve; the kernel against its plain version
                on layer 0's real inputs; prefill of the prompt plus k
                generated tokens gives decode step k's logits (k = 1, 31)
                within XLSTM_CROSS_REL; ``profile_serve.profile_serving``
                over one prefill and 8 decode steps; then the same serve
-               in float32, prefill against decode at float32's precision
+               in float32 (10 launches on the CUDA-core route), prefill
+               against decode at float32's precision
 
 It imports nothing of JAX or of the JAX package.  The line before the last
 is a JSON object with one record per kernel and float32 entry point; the
@@ -192,6 +198,9 @@ from repro_torch.kernels.mamba_scan import (  # noqa: E402
 from repro_torch.kernels.mlstm_attention import (  # noqa: E402
     mlstm_attention,
     mlstm_attention_plain,
+)
+from repro_torch.kernels.mlstm_attention.kernel import (  # noqa: E402
+    mlstm_attention_cuda,
 )
 from repro_torch.launch import profile_serve, serve, train  # noqa: E402
 from repro_torch.models import layers, lm, moe, ssm, transformer  # noqa: E402
@@ -334,6 +343,20 @@ def commit_state(rng, R, C, L, W, dev, pay=np.int32):
             (qa, qt, qp, head, size0, cnt, pa, pt, pp)]
 
 
+def commit_read(args):
+    """The bytes a commit must read on these inputs: head, size0 and
+    pb_cnt, the ring slots it keeps, and the pushbuf entries it lands
+    (the first min(pb_cnt, W) of each ring); the rest of the pushbuf is
+    never needed."""
+    qa, _, qp, head, size0, cnt = args[:6]
+    R, C = qa.shape
+    W, L = args[6].shape[1], qp.shape[-1]
+    slot = 8 + L * qp.element_size()
+    landed = int(cnt.clamp(max=C).sum())
+    used = int(cnt.clamp(max=W).sum())
+    return nbytes(head, size0, cnt) + (R * C - landed + used) * slot
+
+
 def exchange_state(rng, E, C, dev):
     """Random edge-major rings (a quarter of them full) with random
     receiver and sender activity."""
@@ -445,7 +468,8 @@ def fields(x):
 
 
 def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
-            peak=PEAK_OPS_PER_S, tol=None, library=None, plain_runs=None):
+            peak=PEAK_OPS_PER_S, tol=None, library=None, plain_runs=None,
+            read=None):
     """Hold one kernel call against its plain version (0 mismatching
     elements, or with ``tol = (rtol, atol)`` every element within it), time
     both (device time, and per call with the launch overhead), time
@@ -454,9 +478,11 @@ def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
     taken (``*_by``: "profiler" or "events", see ``device_ms``), and
     compute the bound for the same work: each
     input read once and each output written once over the HBM rate, or
-    the operations over ``peak``, whichever is longer.  ``plain_runs``
-    cuts the plain version's timed calls (for a plain version that
-    launches thousands of small kernels a call)."""
+    the operations over ``peak``, whichever is longer; ``read`` replaces
+    the inputs' bytes where the work depends on the data (the bytes these
+    inputs need read).  ``plain_runs`` cuts the plain version's timed
+    calls (for a plain version that launches thousands of small kernels a
+    call)."""
     want = fields(run_plain())
     got = fields(run_kernel())
     torch.cuda.synchronize()
@@ -474,7 +500,7 @@ def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
     call = call_ms(run_kernel)
     plain_call = call_ms(run_plain, runs=plain_runs or 30)
     lib, lib_by = device_ms(library) if library is not None else (None, None)
-    moved = nbytes(*inputs) + nbytes(*got)
+    moved = (nbytes(*inputs) if read is None else read) + nbytes(*got)
     t_bytes, t_ops = moved / hbm, ops / peak
     bound = max(t_bytes, t_ops) * 1e3
     lib_txt = f", library {lib:.4f} ms" if lib is not None else ""
@@ -744,8 +770,9 @@ def scan_kernels(hbm):
 
 #: mlstm_attention against its plain version (rtol, atol), as the attention
 #: kernels': float32 differs only in the order of the sums (online
-#: stabilizer over key tiles); in bf16 both sides compute in float32 and
-#: round once, so they differ by at most one bf16 ulp
+#: stabilizer over key tiles on the simt route); in bf16 both sides compute
+#: in float32 (the wgmma route carries p in three bf16 terms, to ~2^-24)
+#: and round once, so they differ by at most one bf16 ulp
 MLSTM_TOL = ATTN_TOL
 
 
@@ -768,33 +795,75 @@ def mlstm_flops(B, S, H, hd):
     return 2 * 2 * hd * B * H * (S * (S + 1) // 2)
 
 
+def mlstm_routes(label, run, want):
+    """Run ``run`` once with the route counters zeroed; check it took the
+    ``want`` route alone.  Returns its output."""
+    K.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    check(K.ROUTES == {f"mlstm_attention/{want}": 1},
+          f"mlstm_attention {label}: routes {K.ROUTES}, expected {want}")
+    return out
+
+
 def mlstm_kernels(hbm):
     """mlstm_attention at xlstm-125m's prefill shape, (B, S, H, hd) = (8,
-    2048, 4, 384) bf16 (BH = 32), and a float32 shape, timed; and a ragged
-    S (2047: not a multiple of the 64-row query tile or the 32-row key
-    tile) at the Pallas kernel's layout (H = 1).  No PyTorch call
+    2048, 4, 384) bf16 (BH = 32), on its tensor-core route (``wgmma``, the
+    path's) and, on the same inputs, its CUDA-core route (``simt``,
+    forced): both held against the plain version, both timed, the
+    tensor-core route required faster; a float32 shape (``simt``), timed;
+    and a ragged S (2047: not a multiple of the 64-row query or key tile)
+    at the Pallas kernel's layout (H = 1) on both routes.  No PyTorch call
     computes this function: the library column stays empty."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2028)
     records = {}
-    for label, shape, dtype, rec in (
-            ("(8,2048,4,384) bf16", (8, 2048, 4, 384), torch.bfloat16,
-             "mlstm_attention"),
-            ("(2,2048,4,384) f32", (2, 2048, 4, 384), torch.float32,
-             "mlstm_attention_f32")):
-        args = mlstm_inputs(gen, *shape, dtype, dev)
-        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_OPS_PER_S
-        records[rec] = measure(
-            f"mlstm_attention {label}", lambda: mlstm_attention(*args),
-            lambda: mlstm_attention_plain(*args), args, mlstm_flops(*shape),
-            hbm, peak=peak, tol=MLSTM_TOL[dtype], plain_runs=5)
-        del args
-    args = mlstm_inputs(gen, 6, 2047, 1, 384, torch.bfloat16, dev)
-    held_close("mlstm_attention (6,2047,1,384) bf16 ragged",
-               mlstm_attention(*args), mlstm_attention_plain(*args),
-               MLSTM_TOL[torch.bfloat16])
+    bf16 = torch.bfloat16
+    shape = (8, 2048, 4, 384)
+    args = mlstm_inputs(gen, *shape, bf16, dev)
+    mlstm_routes("(8,2048,4,384) bf16", lambda: mlstm_attention(*args),
+                 "wgmma")
+    mlstm_routes("(8,2048,4,384) bf16 simt",
+                 lambda: mlstm_attention_cuda(*args, simt=True),
+                 "simt")
+    rec = measure("mlstm_attention (8,2048,4,384) bf16 (wgmma)",
+                  lambda: mlstm_attention(*args),
+                  lambda: mlstm_attention_plain(*args), args,
+                  mlstm_flops(*shape), hbm, peak=PEAK_BF16_FLOPS,
+                  tol=MLSTM_TOL[bf16], plain_runs=5)
+    simt = measure("mlstm_attention (8,2048,4,384) bf16 (simt, forced)",
+                   lambda: mlstm_attention_cuda(*args, simt=True),
+                   lambda: mlstm_attention_plain(*args), args,
+                   mlstm_flops(*shape), hbm, peak=PEAK_BF16_FLOPS,
+                   tol=MLSTM_TOL[bf16], plain_runs=2)
+    check(rec["ms"] < simt["ms"],
+          f"mlstm_attention bf16: the wgmma route ({rec['ms']:.4f} ms) is "
+          f"not faster than the simt route ({simt['ms']:.4f} ms)")
+    rec["simt_ms"] = simt["ms"]
+    records["mlstm_attention"] = rec
     del args
+    shape = (2, 2048, 4, 384)
+    args = mlstm_inputs(gen, *shape, torch.float32, dev)
+    mlstm_routes("(2,2048,4,384) f32", lambda: mlstm_attention(*args),
+                 "simt")
+    records["mlstm_attention_f32"] = measure(
+        "mlstm_attention (2,2048,4,384) f32 (simt)",
+        lambda: mlstm_attention(*args),
+        lambda: mlstm_attention_plain(*args), args, mlstm_flops(*shape),
+        hbm, peak=PEAK_OPS_PER_S, tol=MLSTM_TOL[torch.float32],
+        plain_runs=5)
+    del args
+    args = mlstm_inputs(gen, 6, 2047, 1, 384, bf16, dev)
+    want = mlstm_attention_plain(*args)
+    held_close("mlstm_attention (6,2047,1,384) bf16 ragged (wgmma)",
+               mlstm_routes("(6,2047,1,384) bf16",
+                            lambda: mlstm_attention(*args), "wgmma"),
+               want, MLSTM_TOL[bf16])
+    held_close("mlstm_attention (6,2047,1,384) bf16 ragged (simt, forced)",
+               mlstm_attention_cuda(*args, simt=True), want,
+               MLSTM_TOL[bf16])
+    del args, want
     torch.cuda.empty_cache()
     return records
 
@@ -830,9 +899,13 @@ def kernels(hbm):
         args = commit_state(rng, R, C, L, W, dev, pay)
         r = measure(f"duct_commit {label}", lambda: duct_commit(*args),
                     lambda: duct_commit_torch(*args), args,
-                    R * C * (6 + L), hbm)
+                    R * C * (6 + L), hbm, read=commit_read(args))
         if rec:
             records[rec] = r
+        if rec == "duct_commit_f32":
+            check(r["ms"] < r["plain_ms"],
+                  f"duct_commit {label}: kernel {r['ms']:.4f} ms is not "
+                  f"below its plain version's {r['plain_ms']:.4f} ms")
     # duct_exchange at the torus-4096 edge layout (E = 16384, C = 64): the
     # fused form, and the two forms the edge-major window launches
     E, C, pops = 16384, 64, 16
@@ -843,14 +916,16 @@ def kernels(hbm):
         lambda: duct_exchange(*args, capacity=C, max_pops=pops),
         lambda: duct_exchange_torch(*args, capacity=C, max_pops=pops),
         args, ops, hbm)
+    # the variants the edge-major window launches; each bound counts what
+    # that variant reads (its own inputs) and writes
     measure("duct_exchange E16384-C64 drain",
             lambda: duct_drain(*args[:6], max_pops=pops),
             lambda: duct_drain_torch(*args[:6], max_pops=pops),
-            args, ops, hbm)
+            args[:6], ops, hbm)
     measure("duct_exchange E16384-C64 send",
             lambda: duct_send(*args[:4], *args[6:], capacity=C),
             lambda: duct_send_torch(*args[:4], *args[6:], capacity=C),
-            args, ops, hbm)
+            args[:4] + args[6:], ops, hbm)
     records.update(attention_kernels(hbm))
     records.update(compress_kernels(hbm))
     records.update(scan_kernels(hbm))
@@ -1176,10 +1251,19 @@ def lm_card_vs_cpu():
             check(launches == expected_launches(cfg, T - 1),
                   f"{arch} {dtype}: launches {launches}")
             n_flash = launches["flash_attention"]
-            check(K.ROUTES == ({"flash_attention/simt": n_flash} if n_flash
-                               else {}),
-                  f"{arch} {dtype}: flash routes {K.ROUTES} (hd "
+            n_mlstm = launches["mlstm_attention"]
+            routes = {r: n for r, n in K.ROUTES.items()
+                      if r.startswith("flash_attention/")}
+            check(routes == ({"flash_attention/simt": n_flash} if n_flash
+                             else {}),
+                  f"{arch} {dtype}: flash routes {routes} (hd "
                   f"{cfg.hd}: the CUDA-core route)")
+            routes = {r: n for r, n in K.ROUTES.items()
+                      if r.startswith("mlstm_attention/")}
+            check(routes == ({"mlstm_attention/simt": n_mlstm} if n_mlstm
+                             else {}),
+                  f"{arch} {dtype}: mlstm routes {routes} (float32: the "
+                  f"CUDA-core route)")
             if dtype == "float32":
                 f32_flash += n_flash
             check(all(bool(torch.isfinite(g).all()) for g in got),
@@ -1660,7 +1744,7 @@ def serve_xlstm(dtype):
     K.reset_launches()
     model, prompts, res = serve.main(XLSTM_ARGV + ["--dtype", dtype])
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+    launches, routes = dict(K.LAUNCHES), dict(K.ROUTES)
     peak = torch.cuda.max_memory_allocated()
     B, T = res.seqs.shape
     n_params = sum(p.numel() for p in model.parameters())
@@ -1668,6 +1752,9 @@ def serve_xlstm(dtype):
     want = expected_launches(model.cfg, T - 1)
     check(launches == want and want["mlstm_attention"] == 10,
           f"xlstm-125m {dtype}: launches {launches}, expected {want}")
+    route = "wgmma" if dtype == "bfloat16" else "simt"
+    check(routes == {f"mlstm_attention/{route}": 10},
+          f"xlstm-125m {dtype}: routes {routes}, expected 10 {route}")
     check(all(bool(torch.isfinite(x).all()) for x in res.logits),
           f"xlstm-125m {dtype}: non-finite logits")
     check((B, T) == (8, 32), f"xlstm-125m: seqs {(B, T)}")
@@ -1675,7 +1762,7 @@ def serve_xlstm(dtype):
           f"8x(2048+32): prefill {res.prefill_ms:.1f} ms, decode "
           f"{res.decode_ms_per_token:.3f} ms/token, {res.tokens_per_s:.1f} "
           f"tokens/s, peak memory {peak / 2 ** 30:.2f} GiB, launches "
-          f"{launches}", flush=True)
+          f"{launches}, routes {routes}", flush=True)
     return model, prompts, res, launches
 
 
@@ -1787,7 +1874,8 @@ def main():
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             ms_by=rec["ms_by"], plain_ms_by=rec["plain_ms_by"],
-            library_ms_by=rec["library_ms_by"]))
+            library_ms_by=rec["library_ms_by"],
+            **({"simt_ms": rec["simt_ms"]} if "simt_ms" in rec else {})))
     print("phases: " + ", ".join(f"{p} {t:.1f}s" for p, t in PHASES))
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -1,29 +1,46 @@
-"""Ablations of the top-k and duct-window kernels on the card: where a
-kernel's time goes.
+"""Ablations of the redesigned kernels on the card: where a kernel's time
+goes.
 
 Two measurements, each printed as one line per variant:
 
-* ``stages``: the current ``topk_compress`` and ``duct_window`` through
-  their wrappers, under ``torch.profiler``, with the device time of each
-  ``__global__`` kernel they launch; and the top-k source built again
-  with the select histograms merged by ``__match_any_sync`` before their
-  shared-memory atomics, without those atomics, and without the level-0
-  filter's appends (the last two time the streams alone; their outputs
-  are wrong);
-* ``before SRC_TOPK SRC_WINDOW``: the one-block-a-row top-k source and the
-  one-thread-a-ring-row window source of the git history
-  (``git show <commit>:src/repro_torch/kernels/...``), built three times
-  with early exits after the radix select and after the compaction, and
-  the window built without its payload copy, each timed with CUDA events.
+* ``stages``: the current kernels through their wrappers, timed with CUDA
+  events and under ``torch.profiler`` (the device time of each
+  ``__global__`` kernel they launch):
+  - ``topk``: ``topk_compress``, and its source built again with the
+    select histograms merged by ``__match_any_sync`` before their
+    shared-memory atomics, without those atomics, and without the level-0
+    filter's appends (the last two time the streams alone; their outputs
+    are wrong);
+  - ``window``: ``duct_window_f32``;
+  - ``mlstm``: ``mlstm_attention``'s tensor-core route beside its
+    CUDA-core route on the same bf16 inputs, and the source built again
+    with ``-DMLSTM_CUT=1`` (Q K^T alone) and ``=2`` (Q K^T, the weighting
+    and the split of P, no P V; both outputs wrong), and with
+    ``-DMLSTM_WAITS``: the share of the consumers' cycles spent waiting
+    for k and for v, in the stabilizer's prologue, and the producer's
+    waits for a free stage;
+  - ``commit``: ``duct_commit`` at evo's and graph coloring's shapes;
+* ``before``: sources of the git history (``git show
+  <commit>:src/repro_torch/kernels/...``), each timed with CUDA events:
+  ``--topk``, the one-block-a-row top-k, built three times with early
+  exits after the radix select and after the compaction; ``--window``, the
+  one-thread-a-ring-row window, whole and without its payload copy;
+  ``--mlstm``, the CUDA-core mLSTM at the bf16 prefill shape;
+  ``--commit``, the one-thread-a-slot commit, whole and without its
+  payload copy.
 
 Run on the card from the repository root::
 
-    PYTHONPATH=src python -m repro_torch.kernels.ablation stages
+    PYTHONPATH=src python -m repro_torch.kernels.ablation stages [--only mlstm commit]
     PYTHONPATH=src python -m repro_torch.kernels.ablation before \\
-        build/before/topk_compress.cu build/before/duct_window.cu
+        --mlstm build/before/mlstm_attention.cu \\
+        --commit build/before/duct_commit.cu
 
 Shapes: top-k at qwen2-1.5b's stacked MLP rows, (28, 13,762,560), k =
-137,625; the window at evo's torus-1024 (1024, 4, 64, 60) float32.
+137,625; the window at evo's torus-1024 (1024, 4, 64, 60) float32; the
+mLSTM at xlstm-125m's prefill, (8, 2048, 4, 384) bf16; the commit at evo's
+(R 4096, C 64, L 60, W 8) float32 and graph coloring's (16384, 64, 1, 8)
+int32.
 """
 from __future__ import annotations
 
@@ -41,6 +58,10 @@ from repro_torch.kernels import build as K
 
 TOPK_SHAPE = (28, 13_762_560, 137_625)
 WINDOW_SHAPE = (1024, 4, 64, 60, 16)     # n, d, C, L, max_pops
+MLSTM_SHAPE = (8, 2048, 4, 384)          # B, S, H, hd (bf16)
+#: (R, C, L, W, payload dtype)
+COMMIT_SHAPES = ((4096, 64, 60, 8, torch.float32),
+                 (16384, 64, 1, 8, torch.int32))
 
 #: cuts of the one-block-a-row top-k source: (text it follows, the early
 #: exit inserted after it, under ``STOP``); the exit writes what the pass
@@ -56,6 +77,13 @@ _TOPK_CUTS = (
 #: the one-thread-a-ring-row window's payload copy
 _WINDOW_COPY = ("    for (long long k = 0; k < (long long)C * L; ++k) "
                 "p[k] = p_in[k];\n")
+#: the one-thread-a-slot commit's two payload copies
+_COMMIT_COPIES = (
+    "    for (int l = 0; l < L; ++l) qp_out[idx * L + l] = "
+    "pb_pay[src * L + l];\n",
+    "    for (int l = 0; l < L; ++l) qp_out[idx * L + l] = "
+    "q_pay[idx * L + l];\n")
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _build(src_text: str, tag: str, defines=()) -> ctypes.CDLL:
@@ -137,6 +165,58 @@ def window_args(n, d, C, L, cap=64, seed=2024):
             (qa, qt, qp, head, size, ppos, pacc, pav, ptch, ppay, rnow, ract)]
 
 
+def mlstm_args(B, S, H, hd, seed=2028):
+    """bf16 q, k (scaled by hd**-0.5), v and float32 F, I on the card, the
+    distributions of ``chip_smoke.mlstm_inputs``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    q = randn(B, S, H, hd).bfloat16()
+    k = (randn(B, S, H, hd) * hd ** -0.5).bfloat16()
+    v = randn(B, S, H, hd).bfloat16()
+    F = torch.cumsum(torch.nn.functional.logsigmoid(randn(B, S, H) + 3.0),
+                     dim=1)
+    return [q, k, v, F, randn(B, S, H) * 0.5]
+
+
+def commit_args(R, C, L, W, pay, seed=2024):
+    """A random commit state (``chip_smoke.commit_state``'s construction)
+    with ``pay`` payloads."""
+    rng = np.random.default_rng(seed)
+    size0 = rng.integers(0, C, R).astype(np.int32)
+    p = (lambda s: rng.standard_normal(s, dtype=np.float32)) \
+        if pay == torch.float32 else \
+        (lambda s: rng.integers(0, 99, s).astype(np.int32))
+    arrays = ((rng.random((R, C)) * 2).astype(np.float32),
+              rng.integers(0, 50, (R, C)).astype(np.int32), p((R, C, L)),
+              rng.integers(0, C, R).astype(np.int32), size0,
+              np.minimum(rng.integers(0, W + 1, R), C - size0).astype(
+                  np.int32),
+              (rng.random((R, W)) * 2).astype(np.float32),
+              rng.integers(0, 50, (R, W)).astype(np.int32), p((R, W, L)))
+    return [torch.as_tensor(a, device="cuda") for a in arrays]
+
+
+def _launcher(lib, entry, argtypes):
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(*ptrs):
+        err = fn(*ptrs, stream)
+        if err != 0:
+            raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
+    return call
+
+
+#: the mLSTM launcher's C signature: q, k, v, F, I, out; B, S, H, hd; stream
+_MLSTM_ARGTYPES = [_P] * 6 + [_I] * 4 + [_P]
+#: the commit launcher's: 9 inputs, 3 outputs; R, C, W, L; stream
+_COMMIT_ARGTYPES = [_P] * 12 + [ctypes.c_longlong] + [_I] * 3 + [_P]
+
+
 #: cuts of the current top-k source for ``stages``: (label, text, its
 #: stand-in); the stand-in compares the value with the clock, which the
 #: compiler cannot know, so the loads and the arithmetic stay and the
@@ -168,8 +248,26 @@ def _swap_topk(lib):
     return had
 
 
-def stages() -> None:
-    from repro_torch.kernels.duct_exchange.ops import duct_window
+STAGES = ("topk", "window", "mlstm", "commit")
+
+
+def stages(only=STAGES) -> None:
+    if "topk" in only:
+        _topk_stages()
+    if "window" in only:
+        _window_stages()
+    if "mlstm" in only:
+        _mlstm_stages()
+    if "commit" in only:
+        _commit_stages()
+
+
+def _print_kernels(rows):
+    for name, ms, count in rows:
+        print(f"  {name[:60]:60s} {ms:.4f} ms in {count} launches")
+
+
+def _topk_stages() -> None:
     from repro_torch.kernels.topk_compress import kernel as tk
     nb, block, k = TOPK_SHAPE
     x = grad_rows(nb, block)
@@ -194,19 +292,126 @@ def stages() -> None:
                 _swap_topk(had)
         print(f"topk_compress {TOPK_SHAPE} {label}: {total:.4f} ms a call "
               f"(events), outputs equal to the build's: {same}")
-        for name, ms, count in rows:
-            print(f"  {name[:60]:60s} {ms:.4f} ms in {count} launches")
-    del x, want, got
+        _print_kernels(rows)
+
+
+def _window_stages() -> None:
+    from repro_torch.kernels.duct_exchange.ops import duct_window
     args = window_args(*WINDOW_SHAPE[:4])
     pops = WINDOW_SHAPE[4]
     wrun = lambda: duct_window(*args, max_pops=pops)  # noqa: E731
     print(f"duct_window_f32 {WINDOW_SHAPE[:4]}: {_events_ms(wrun, 50):.4f} "
           f"ms a call (events)")
-    for name, ms, count in _by_kernel(wrun, 50):
-        print(f"  {name[:60]:60s} {ms:.4f} ms in {count} launches")
+    _print_kernels(_by_kernel(wrun, 50))
 
 
-def before(topk_src: Path, window_src: Path) -> None:
+def _mlstm_stages() -> None:
+    from repro_torch.kernels.mlstm_attention import kernel as mk
+    from repro_torch.kernels.mlstm_attention.ops import mlstm_attention
+    B, S, H, hd = MLSTM_SHAPE
+    args = mlstm_args(*MLSTM_SHAPE)
+    want = mlstm_attention(*args)
+    for label, run in (
+            ("wgmma", lambda: mlstm_attention(*args)),
+            ("simt (forced)",
+             lambda: mk.mlstm_attention_cuda(*args, simt=True))):
+        print(f"mlstm_attention {MLSTM_SHAPE} bf16 {label}: "
+              f"{_events_ms(run, 10):.4f} ms a call (events)", flush=True)
+        _print_kernels(_by_kernel(run, 5))
+    src = K.source_path("mlstm_attention").read_text()
+    out = torch.empty_like(args[0])
+    ptrs = [t.data_ptr() for t in (*args, out)]
+    for label, define in (("Q K^T alone", "MLSTM_CUT=1"),
+                          ("Q K^T, the weighting and the split of P, no "
+                           "P V", "MLSTM_CUT=2")):
+        call = _launcher(_build(src, "mlstm_cut", (define,)),
+                         "mlstm_attention_wgmma_bf16", _MLSTM_ARGTYPES)
+        ms = _events_ms(lambda: call(*ptrs, B, S, H, hd), 10)
+        print(f"mlstm_attention {MLSTM_SHAPE} bf16 wgmma, {label}: "
+              f"{ms:.4f} ms (output wrong)", flush=True)
+    lib = _build(src, "mlstm_waits", ("MLSTM_WAITS",))
+    call = _launcher(lib, "mlstm_attention_wgmma_bf16", _MLSTM_ARGTYPES)
+    read = lib.mlstm_waits
+    read.argtypes, read.restype = [_P], ctypes.c_int
+    cyc = (ctypes.c_ulonglong * 6)()
+    for _ in range(2):          # the first run zeroes the counters
+        call(*ptrs, B, S, H, hd)
+        torch.cuda.synchronize()
+        if read(cyc) != 0:
+            raise RuntimeError("mlstm_waits failed")
+    c = list(cyc)
+    run_cycles = c[4] / 2       # a block's run: two consumers counted
+    print(f"mlstm_attention {MLSTM_SHAPE} bf16 wgmma, cycle counters "
+          f"(output equal to the build's: {torch.equal(out, want)}): the "
+          f"consumers wait for k {c[0] / c[4]:.1%} and for v "
+          f"{c[1] / c[4]:.1%} of their cycles, spend {c[5] / c[4]:.1%} in "
+          f"the stabilizer's prologue; the producer waits for a free k "
+          f"stage {c[2] / run_cycles:.1%} and a free v stage "
+          f"{c[3] / run_cycles:.1%} of a block's run", flush=True)
+
+
+def _commit_stages() -> None:
+    from repro_torch.kernels.duct_exchange.ops import (
+        duct_commit,
+        duct_commit_torch,
+    )
+    for R, C, L, W, pay in COMMIT_SHAPES:
+        args = commit_args(R, C, L, W, pay)
+        run = lambda: duct_commit(*args)  # noqa: E731
+        same = all(torch.equal(a, b)
+                   for a, b in zip(run(), duct_commit_torch(*args)))
+        print(f"duct_commit {(R, C, L, W)} {pay}: {_events_ms(run, 50):.4f} "
+              f"ms a call (events), bitwise its plain version: {same}")
+        _print_kernels(_by_kernel(run, 50))
+
+
+def before(topk_src: Path | None = None, window_src: Path | None = None,
+           mlstm_src: Path | None = None,
+           commit_src: Path | None = None) -> None:
+    if topk_src is not None:
+        _topk_before(topk_src)
+    if window_src is not None:
+        _window_before(window_src)
+    if mlstm_src is not None:
+        B, S, H, hd = MLSTM_SHAPE
+        args = mlstm_args(*MLSTM_SHAPE)
+        out = torch.empty_like(args[0])
+        ptrs = [t.data_ptr() for t in (*args, out)]
+        call = _launcher(_build(mlstm_src.read_text(), "mlstm_before"),
+                         "mlstm_attention_bf16", _MLSTM_ARGTYPES)
+        print(f"mlstm_attention before {MLSTM_SHAPE} bf16: "
+              f"{_events_ms(lambda: call(*ptrs, B, S, H, hd), 10):.4f} ms",
+              flush=True)
+    if commit_src is not None:
+        _commit_before(commit_src)
+
+
+def _commit_before(src: Path) -> None:
+    text = src.read_text()
+    cut = text
+    for copy in _COMMIT_COPIES:
+        if text.count(copy) != 1:
+            raise SystemExit(f"{src}: payload copy not found once: "
+                             f"{copy!r}")
+        cut = cut.replace(copy, "")
+    for R, C, L, W, pay in COMMIT_SHAPES:
+        args = commit_args(R, C, L, W, pay)
+        outs = [torch.empty((R, C), dtype=torch.float32, device="cuda"),
+                torch.empty((R, C), dtype=torch.int32, device="cuda"),
+                torch.empty((R, C, L), dtype=pay, device="cuda")]
+        ptrs = [t.data_ptr() for t in (*args, *outs)]
+        entry = "duct_commit_f32" if pay == torch.float32 else \
+            "duct_commit_i32"
+        for label, text_ in (("whole kernel", text),
+                             ("no payload copy", cut)):
+            call = _launcher(_build(text_, "commit_before"), entry,
+                             _COMMIT_ARGTYPES)
+            ms = _events_ms(lambda: call(*ptrs, R, C, W, L), 50, 3)
+            print(f"duct_commit before {(R, C, L, W)} {pay} {label}: "
+                  f"{ms:.4f} ms", flush=True)
+
+
+def _topk_before(topk_src: Path) -> None:
     text = topk_src.read_text()
     for anchor, cut in _TOPK_CUTS:
         if text.count(anchor) != 1:
@@ -235,6 +440,9 @@ def before(topk_src: Path, window_src: Path) -> None:
         print(f"topk_compress before {TOPK_SHAPE} {label}: "
               f"{times[label]:.4f} ms", flush=True)
     del x, outs, scratch
+
+
+def _window_before(window_src: Path) -> None:
     wtext = window_src.read_text()
     if wtext.count(_WINDOW_COPY) != 1:
         raise SystemExit(f"{window_src}: payload copy not found once")
@@ -263,10 +471,13 @@ def before(topk_src: Path, window_src: Path) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="what", required=True)
-    sub.add_parser("stages")
+    st = sub.add_parser("stages")
+    st.add_argument("--only", nargs="+", choices=STAGES, default=STAGES,
+                    help="which kernels (default: all)")
     b = sub.add_parser("before")
-    b.add_argument("topk_src", type=Path)
-    b.add_argument("window_src", type=Path)
+    for name in ("topk", "window", "mlstm", "commit"):
+        b.add_argument(f"--{name}", type=Path, metavar="SRC",
+                       help=f"an earlier {name} source (git show)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ablation: needs an NVIDIA GPU", file=sys.stderr)
@@ -275,9 +486,9 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     if args.what == "stages":
-        stages()
+        stages(args.only)
     else:
-        before(args.topk_src, args.window_src)
+        before(args.topk, args.window, args.mlstm, args.commit)
     return 0
 
 

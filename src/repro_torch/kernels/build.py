@@ -10,7 +10,8 @@ with one ``nvcc`` per source, all started together.
 ``LAUNCHES`` counts the launches of each kernel since the last
 ``reset_launches()``; ``launch`` adds one exactly where it launches a
 kernel, and nowhere else adds to it.  A kernel with more than one route
-(``flash_attention``: ``wgmma`` and ``simt``) also counts each launch in
+(``flash_attention`` and ``mlstm_attention``: ``wgmma`` and ``simt``;
+``topk_compress``: ``row`` and ``split``) also counts each launch in
 ``ROUTES`` under ``"<kernel>/<route>"``.
 """
 from __future__ import annotations

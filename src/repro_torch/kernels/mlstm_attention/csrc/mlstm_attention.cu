@@ -1,22 +1,22 @@
 // Stabilized causal mLSTM sequence mix (xLSTM's matrix memory, parallel
-// form), forward.
+// form), forward: two routes.
 //
 // Replaces the Pallas TPU kernel
-//   src/repro/kernels/mlstm_attention/kernel.py:_mlstm_kernel
-// (launched by mlstm_attention_kernel).  Plain version:
-// ops.mlstm_attention_torch.  q, k, v are (B, S, H, hd) in the model's
-// layout (the Pallas kernel's (BH, S, hd) is the case H = 1), k already
-// scaled by hd^-0.5; F (the inclusive cumulative log-forget) and I (the
-// log input gate) are (B, S, H) float32; the output is (B, S, H, hd) in
-// q's dtype.  For each query t of each (b, h):
+//   src/repro/kernels/mlstm_attention/kernel.py:26 (_mlstm_kernel,
+//   launched by mlstm_attention_kernel).
+// Plain version: ops.mlstm_attention_torch.  q, k, v are (B, S, H, hd) in
+// the model's layout (the Pallas kernel's (BH, S, hd) is the case H = 1),
+// k already scaled by hd^-0.5; F (the inclusive cumulative log-forget) and
+// I (the log input gate) are (B, S, H) float32; the output is (B, S, H,
+// hd) in q's dtype.  For each query t of each (b, h):
 //
-//   D_ts = F_t - F_s + I_s  (s <= t),   m_t = max_{s<=t} D_ts
+//   D_ts = F_t - F_s + I_s  (s <= t),   m_t = max(max_{s<=t} D_ts, -1e30)
 //   h_t  = sum_s exp(D_ts - m_t) (q_t . k_s) v_s
 //          / max(|sum_s exp(D_ts - m_t) (q_t . k_s)|, exp(-m_t))
 //
 // All arithmetic is float32; the output is rounded once.  Where
 // exp(-m_t) overflows (m_t below about -88) the output is 0, as in the
-// reference; m is not clamped.
+// reference.
 //
 // What bounds it on Hopper: operations.  Two chained products of
 // 2 x hd x S (S + 1) / 2 multiply-adds per (b, h): at xlstm-125m's prefill
@@ -24,35 +24,102 @@
 // of q, k, v, F, I and output, so the tensor cores' 989 TFLOP/s
 // (0.104 ms) bound it, not the 3.35 TB/s of HBM (0.060 ms).
 //
-// Design (simple first: CUDA cores, float32 FMA, so at best the 67 TFLOP/s
-// float32 rate; wgmma and TMA are later work):
+// Route "wgmma" (bf16 at hd 128, 256 and 384; mlstm_attention_wgmma_bf16):
+// the tensor cores, fed by TMA, warp-specialised.
+//   * One block of three warpgroups per ((b, h), query tile of 64 rows);
+//     the grid's y walks the tiles from the last, so the long causal tiles
+//     start first.  Warpgroup 0 is the producer: it drops to 24 registers
+//     and one of its threads issues every TMA load.  Warpgroups 1 and 2
+//     are the consumers, raised to 240 registers; both own all 64 query
+//     rows.  A (64, 384) float32 accumulator in one warpgroup would be 192
+//     registers a thread, so consumer c owns output columns
+//     [c hd/2, (c + 1) hd/2): O += P V as wgmma m64n(hd/2)k16, 96
+//     accumulator registers at hd 384.
+//   * The stabilizer needs no score: m_t depends on F and I alone.  A
+//     prologue computes each row's exact m_t = max((F_t - F_s) + I_s) over
+//     s <= t (F and I staged in shared memory, then four threads a row, a
+//     subtract, an add and a max per key, the plain version's own order of
+//     operations) while the first tiles load.  So W = exp(D - m) <= 1 from the first key tile on, the
+//     accumulator is never rescaled (no online max as in flash), and the
+//     two consumers share nothing but P and, at the end, the row sums.
+//   * q, k and v are read in place through 4-D tensor maps (hd, H, S, B),
+//     boxes of 64 columns (128 bytes, the swizzle span) x 1 head x 64 rows
+//     x 1 with the 128-byte swizzle: rows past S come back as zeros from
+//     within the same (b, h), so a ragged S reads no other slice.  hd 384
+//     is six boxes.  The maps are encoded on the host by
+//     cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint (no
+//     -lcuda), and passed as __grid_constant__ parameters.  F and I of a
+//     key tile (8 floats each a thread) are read from global memory by the
+//     consumers before they wait for the tile.
+//   * Shared memory at hd 384 (227 KB a block): the q tile, 64 x 384 bf16
+//     = 48 KB, loaded once; k in one stage of 64 keys (48 KB), v in two
+//     (2 x 48 KB), each stage on its own full/empty mbarrier pair; P as
+//     three bf16 terms of 64 x 64 (24 KB).  216 KB in all: two stages of k
+//     and v together would be 240.  k of tile j + 1 loads during tile j's
+//     P V, v of tile j + 1 during all of tile j.
+//   * Scores: consumer c computes S for its half of the key tile, keys
+//     [32 c, 32 c + 32), as wgmma m64n32k16 over hd / 16 steps, A (q) and B
+//     (k) K-major from swizzled shared memory; Q K^T is done once, not by
+//     both consumers.
+//   * Weighting: p = s x exp(D - m), with D = (F_t - F_s) + I_s and W = 0
+//     for s > t and in rows past S (only the diagonal tile masks anything;
+//     key tile 0 gives every row a live key).  The signed row sum is taken
+//     from the float32 p, in registers.
+//   * P in three bf16 terms: t1 = bf16(p), t2 = bf16(p - t1), t3 = bf16(p -
+//     t1 - t2), which carry p to about 2^-24 (v is bf16 and exact).  Two
+//     terms (flash's hi and lo, about 2^-16) are not enough here: p is
+//     signed and the denominator |sum p| can be small, so outputs near 0
+//     miss the card's tolerance (atol 1e-5) at S 2047-2048; the CPU
+//     emulation in tests/test_torch_mlstm_attention.py shows it.  The
+//     terms go into the 128-byte-swizzled P tiles; a proxy fence and a
+//     named barrier across the two consumers only (bar.sync 1, 256; one
+//     more before the writes, so that neither overwrites P the other still
+//     reads), and both read the full P (64 x 64) as wgmma's A from shared
+//     memory: 4 key steps a term, B = v MN-major (the transpose bit).  The
+//     three P V products put this route's floor at 2x the function's bound
+//     (0.208 ms at the prefill shape), the price of keeping the function.
+//   * Epilogue: the row sums are reduced over a quad by shuffles, the two
+//     consumers' halves added through shared memory (consumer 0's first),
+//     and acc / max(|sum|, exp(-m)) written in bf16 from registers, rows < S.
+//   * hd 64 would give each consumer 32 output columns inside one 64-column
+//     box; it and hd 16 / 32 (below the box) stay on the simt route.
+//
+// Route "simt" (float32 at every head dim, and bf16 at hd 16, 32 and 64;
+// mlstm_attention_simt_bf16 / _f32): float32 FMA on the CUDA cores, at
+// best the 67 TFLOP/s float32 rate.  A float32 product on the tensor cores
+// would be TF32, another function.
 //   * one block of 256 threads (16 x 16) per ((b, h), query tile of 64
-//     rows); the grid's x walks (b, h) and its y the query tiles from the
-//     last, so the tiles with the most keys are launched first; any S
-//     (the ragged tile is masked, where the Pallas kernel asserts
-//     S % bq == 0);
-//   * hd = 384 makes the (64, hd) float32 accumulator 96 KB: it lives in
-//     registers, 4 rows x hd/16 columns a thread (96 floats at hd = 384),
-//     and the key tile is 32 rows, so the q tile (64 x (hd + 4) floats),
-//     the k tile (32 x (hd + 4)) and the v tile (32 x hd) take 198 KB of
-//     shared memory at hd = 384 (one block an SM);
+//     rows), tiles launched from the last; any S (the ragged tile is
+//     masked, where the Pallas kernel asserts S % bq == 0);
+//   * the (64, hd) float32 accumulator lives in registers, 4 rows x hd/16
+//     columns a thread, and the key tile is 32 rows, so the q tile (64 x
+//     (hd + 4) floats), the k tile (32 x (hd + 4)) and the v tile (32 x
+//     hd) take 198 KB of shared memory at hd = 384 (one block an SM);
 //   * each thread owns a 4 x 2 block of the (64, 32) score tile (rows
 //     ty*4+i, keys tx+16j); the 16 threads of a row are 16 lanes of one
 //     warp, so the row's tile max and signed score sum are shuffle
 //     reductions, and every one of the 16 keeps the row's running (m, sum)
-//     in registers (the butterfly gives all of them the same bits);
-//   * masking sets the decay weight W to 0 for s > t and for keys past S;
-//     m starts at -1e30 (the reference's floor), so it stays finite.  Key
-//     tile 0 gives every query a live key (s = 0), so m is a real max from
-//     the first tile on, whatever order the blocks run in;
+//     in registers (an online stabilizer, rescaled per key tile);
+//   * masking sets W to 0 for s > t and for keys past S; m starts at -1e30
+//     (the reference's floor), so it stays finite;
 //   * the key loop stops at the diagonal (the Pallas kernel's causal block
 //     skip); the weighted scores overwrite the k tile's space, and the
 //     accumulator update reads them back from shared memory.
+//
+// The wrapper (kernel.py: route) picks the route from dtype and hd before
+// the launch; both count as launches of mlstm_attention.  Ablation builds
+// (python -m repro_torch.kernels.ablation stages) compile this source with
+// -DMLSTM_CUT=1 (Q K^T only) or 2 (no P V), whose outputs are wrong, or
+// with -DMLSTM_WAITS (clock cycles in each kind of mbarrier wait, in the
+// prologue and in the consumers' whole run);
+// the library the port loads defines none of them.
+#include <cuda.h>  // CUtensorMap and its enums: declarations only
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-namespace {
+namespace simt {
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBKV = 32;       // key rows per step
@@ -294,18 +361,639 @@ int dispatch(const void* q, const void* k, const void* v, const void* F,
   }
 }
 
-}  // namespace
+}  // namespace simt
 
-extern "C" int mlstm_attention_bf16(const void* q, const void* k,
-                                    const void* v, const void* F,
-                                    const void* I, void* o, int B, int S,
-                                    int H, int hd, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, F, I, o, B, S, H, hd, stream);
+namespace wg {
+
+constexpr int kBM = 64;        // query rows a block (both consumers)
+constexpr int kBN = 64;        // keys a tile: 32 a consumer for the scores
+constexpr int kVStages = 2;    // v ring; k has one stage
+constexpr int kTerms = 3;      // bf16 terms of P
+constexpr int kThreads = 384;  // producer + two consumer warpgroups
+constexpr int kBox = 64;       // columns a TMA box: 128 bytes of bf16
+constexpr int kBoxBytes = kBox * 64 * 2;  // one 64-column x 64-row box
+constexpr int kPBytes = kBM * kBN * 2;    // one bf16 term of P
+constexpr float kFloor = -1e30f;
+
+template <int HD> struct Layout {
+  static constexpr int kBoxes = HD / kBox;            // boxes a tile
+  static constexpr int kTile = kBoxes * kBoxBytes;    // 64 rows x HD bf16
+  static constexpr int kQ = 0;                        // the q tile
+  static constexpr int kK = kTile;                    // the k tile
+  static constexpr int kV = kK + kTile;               // v stage s at + s kTile
+  static constexpr int kP = kV + kVStages * kTile;    // term i at + i kPBytes
+  static constexpr int kBytes = kP + kTerms * kPBytes;
+};
+static_assert(Layout<384>::kBytes == 221184, "216 KB at hd 384");
+// keys whose (F, I) the prologue stages at a time, as float2 in the P tiles
+constexpr int kStaged = kTerms * kPBytes / 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-extern "C" int mlstm_attention_f32(const void* q, const void* k,
-                                   const void* v, const void* F,
-                                   const void* I, void* o, int B, int S,
-                                   int H, int hd, void* stream) {
-  return dispatch<float>(q, k, v, F, I, o, B, S, H, hd, stream);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
 }
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+// a wait that has not ended after 2^30 tries (seconds; a tile takes
+// microseconds) is a fault: trap, so that the launch fails instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  uint32_t tries = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (++tries == (1u << 30)) __trap();
+  } while (!done);
+}
+
+#ifdef MLSTM_WAITS
+// ablation build only: clock cycles summed over one thread a warpgroup,
+// by kind: 0 consumers waiting for k, 1 for v, 2 the producer waiting for
+// a free k stage, 3 for a free v stage, 4 the consumers' whole run, 5
+// their prologue (the stabilizer)
+__device__ unsigned long long g_waits[6];
+__device__ __forceinline__ void add_cycles(int kind, long long t0,
+                                           bool count) {
+  if (count) atomicAdd(&g_waits[kind], (unsigned long long)(clock64() - t0));
+}
+#else
+__device__ __forceinline__ void add_cycles(int, long long, bool) {}
+#endif
+__device__ __forceinline__ long long cycles() {
+#ifdef MLSTM_WAITS
+  return clock64();
+#else
+  return 0;
+#endif
+}
+__device__ __forceinline__ void timed_wait(int kind, uint64_t* bar,
+                                           uint32_t parity, bool count) {
+  const long long t0 = cycles();
+  mbar_wait(bar, parity);
+  add_cycles(kind, t0, count);
+}
+
+// one box of a 4-D tensor map into shared memory, completion on bar
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the two consumer warpgroups only (barrier 0 is __syncthreads)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// shared-memory stores by the threads become visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving reads or writes of these registers across
+// a wgmma issue or wait
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle.  K-major tiles (q, k,
+// P): 8-row groups 1024 bytes apart (SBO); the leading offset is unused.
+// MN-major tiles (v as B of P V): SBO = 1024 bytes between groups of 8 keys,
+// LBO = the distance between the 64-column boxes along hd.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 32, f32) [+]= A (64 x 16) . B^T, A and B K-major bf16 in swizzled
+// shared memory; the accumulator is replaced when scale_d is 0
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, f32) [+]= A (64 x 16, K-major) . B (16 x 64, MN-major: the
+// transpose bit), both bf16 in swizzled shared memory
+__device__ __forceinline__ void wgmma_ss_tb_n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, f32) [+]= A (64 x 16, K-major) . B (16 x 128, MN-major: the
+// transpose bit), both bf16 in swizzled shared memory
+__device__ __forceinline__ void wgmma_ss_tb_n128(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 192, f32) [+]= A (64 x 16, K-major) . B (16 x 192, MN-major: the
+// transpose bit), both bf16 in swizzled shared memory
+__device__ __forceinline__ void wgmma_ss_tb_n192(float (&d)[96], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+
+// O (64 x HD/2: one consumer's columns) += P (64 x 16) . V (16 x HD/2)
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 4], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (HD == 384) {
+    wgmma_ss_tb_n192(d, da, db, 1);
+  } else if constexpr (HD == 256) {
+    wgmma_ss_tb_n128(d, da, db, 1);
+  } else {
+    static_assert(HD == 128, "wgmma route: hd 128, 256 or 384");
+    wgmma_ss_tb_n64(d, da, db, 1);
+  }
+}
+
+#ifndef MLSTM_CUT
+#define MLSTM_CUT 0  // ablation builds: 1 = Q K^T only, 2 = no P V
+#endif
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+mlstm_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const float* __restrict__ Fc, const float* __restrict__ Ig,
+                __nv_bfloat16* __restrict__ o, int S, int H) {
+  using L = Layout<HD>;
+  constexpr int NO = HD / 4;  // accumulator floats a thread
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_kfull, bar_kempty,
+      bar_vfull[kVStages], bar_vempty[kVStages];
+  __shared__ float m_row[kBM];        // each row's stabilizer
+  __shared__ float l_half[2][kBM];    // each consumer's signed row sums
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+
+  const int tile = gridDim.y - 1 - blockIdx.y;  // longest tiles first
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = tile * kBM;
+  const int n_kv = (min(q0 + kBM, S) + kBN - 1) / kBN;
+  const int wgi = threadIdx.x / 128, tig = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+    mbar_init(&bar_kfull, 1);
+    mbar_init(&bar_kempty, 256);  // every consumer thread
+#pragma unroll
+    for (int s = 0; s < kVStages; ++s) {
+      mbar_init(&bar_vfull[s], 1);
+      mbar_init(&bar_vempty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tig == 0) {
+      mbar_expect_tx(&bar_q, L::kTile);
+#pragma unroll
+      for (int x = 0; x < L::kBoxes; ++x)
+        tma_load_4d(smem + L::kQ + x * kBoxBytes, &qmap, &bar_q, x * kBox,
+                    h, q0, b);
+      for (int j = 0; j < n_kv; ++j) {
+        // k of tile j once Q K^T of tile j - 1 is done; v of tile j once
+        // P V of tile j - 2 is done
+        if (j >= 1) timed_wait(2, &bar_kempty, (j - 1) & 1, true);
+        mbar_expect_tx(&bar_kfull, L::kTile);
+#pragma unroll
+        for (int x = 0; x < L::kBoxes; ++x)
+          tma_load_4d(smem + L::kK + x * kBoxBytes, &kmap, &bar_kfull,
+                      x * kBox, h, j * kBN, b);
+        const int s = j % kVStages;
+        if (j >= kVStages)
+          timed_wait(3, &bar_vempty[s], ((j / kVStages) - 1) & 1, true);
+        uint8_t* vs = smem + L::kV + s * L::kTile;
+        mbar_expect_tx(&bar_vfull[s], L::kTile);
+#pragma unroll
+        for (int x = 0; x < L::kBoxes; ++x)
+          tma_load_4d(vs + x * kBoxBytes, &vmap, &bar_vfull[s], x * kBox, h,
+                      j * kBN, b);
+      }
+    }
+  } else {
+    // consumers: warpgroup cw computes the scores of keys 32 cw .. + 31 of
+    // each tile and owns output columns cw HD/2 .. + HD/2 - 1; a thread
+    // holds rows rl and rl + 8 of the tile, columns 8 n + 2 quad + {0, 1}
+    // of each fragment
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const long long start = cycles();
+    const int cw = wgi - 1, ct = threadIdx.x - 128;
+    const int warp = tig / 32, lane = tig % 32, quad = lane % 4;
+    const int rl = 16 * warp + lane / 4;
+    const int t0 = q0 + rl, t1 = t0 + 8;
+    // the last live key of each row: t, or none for a row past S
+    const int last0 = t0 < S ? t0 : -1, last1 = t1 < S ? t1 : -1;
+    const size_t gbase = (size_t)b * S * H + h;  // F, I of (b, 0, h)
+
+    // prologue: m_t = max(-1e30, max_{s <= t} (F_t - F_s) + I_s), while
+    // the producer's first loads land.  (F_s, I_s) of the keys this tile
+    // reads are staged as float2 in the P tiles (not written before the
+    // first P), kStaged keys at a time; four threads a row take the max
+    // over their keys
+    {
+      const int kv_end = min(q0 + kBM, S);
+      const int row = ct >> 2, part = ct & 3, t = q0 + row;
+      float2* fi = reinterpret_cast<float2*>(smem + L::kP);
+      const float ft = t < S ? Fc[gbase + (size_t)t * H] : 0.f;
+      float mx = kFloor;
+      for (int s0 = 0; s0 < kv_end; s0 += kStaged) {
+        const int n = min(kStaged, kv_end - s0);
+        if (s0 > 0) consumers_sync();  // the last chunk is read
+        for (int i = ct; i < n; i += 256) {
+          const size_t g = gbase + (size_t)(s0 + i) * H;
+          fi[i] = make_float2(Fc[g], Ig[g]);
+        }
+        consumers_sync();
+        const int hi = min(t - s0, n - 1);  // the row's last key here
+#pragma unroll 8
+        for (int i = part; i <= hi; i += 4) {
+          const float2 x = fi[i];
+          mx = fmaxf(mx, (ft - x.x) + x.y);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      if (part == 0) m_row[row] = t < S ? mx : 0.f;
+    }
+    consumers_sync();
+    add_cycles(5, start, tig == 0);
+    const float m0 = m_row[rl], m1 = m_row[rl + 8];
+    const float f0 = t0 < S ? Fc[gbase + (size_t)t0 * H] : 0.f;
+    const float f1 = t1 < S ? Fc[gbase + (size_t)t1 * H] : 0.f;
+
+    float acc[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+    float l0 = 0.f, l1 = 0.f;  // this thread's columns; summed at the end
+    const uint32_t qaddr = smem_u32(smem + L::kQ);
+    // this consumer's 32 rows of each k box, its HD/2 columns of v
+    const uint32_t kaddr = smem_u32(smem + L::kK) + cw * 32 * 128;
+    const uint32_t vbase = smem_u32(smem + L::kV) + cw * (HD / 128) * kBoxBytes;
+    uint8_t* pt = smem + L::kP;
+    mbar_wait(&bar_q, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % kVStages;
+      const int k0 = j * kBN + 32 * cw + 2 * quad;  // + 8 n + e
+      float fk[8], ik[8];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * n + e;
+          const size_t g = gbase + (size_t)key * H;
+          fk[2 * n + e] = key < S ? Fc[g] : 0.f;
+          ik[2 * n + e] = key < S ? Ig[g] : 0.f;
+        }
+      timed_wait(0, &bar_kfull, j & 1, tig == 0);
+
+      // S = Q K^T for this consumer's 32 keys, over hd in steps of 16
+      float sc[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) sc[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        wgmma_ss_n32(sc, desc_sw128(qaddr + off, 16, 1024),
+                     desc_sw128(kaddr + off, 16, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      mbar_arrive(&bar_kempty);
+
+      if (MLSTM_CUT != 1) {
+        // p = s W, W = exp(D - m) <= 1, 0 past the diagonal (and so past
+        // S) and in rows past S; the signed sums from the float32 p
+        float p[16];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + 8 * n + e;
+            const float w0 = expf(((f0 - fk[2 * n + e]) + ik[2 * n + e]) - m0);
+            const float w1 = expf(((f1 - fk[2 * n + e]) + ik[2 * n + e]) - m1);
+            p[4 * n + e] = key <= last0 ? sc[4 * n + e] * w0 : 0.f;
+            p[4 * n + 2 + e] = key <= last1 ? sc[4 * n + 2 + e] * w1 : 0.f;
+            l0 += p[4 * n + e];
+            l1 += p[4 * n + 2 + e];
+          }
+        // the other consumer is done reading the last tile's P
+        if (j > 0) consumers_sync();
+        // P as three bf16 terms, each the bf16 rounding of what the terms
+        // before it left, into the swizzled tiles: row r's 16-byte chunk x
+        // sits at chunk x ^ (r % 8); row rl + 8 is the same chunk, + 1024
+        const int off = rl * 128 + 4 * quad;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int at = off + (((4 * cw + n) ^ (rl & 7)) << 4);
+#pragma unroll
+          for (int i = 0; i < kTerms; ++i) {
+            const __nv_bfloat162 r0 =
+                __floats2bfloat162_rn(p[4 * n], p[4 * n + 1]);
+            const __nv_bfloat162 r1 =
+                __floats2bfloat162_rn(p[4 * n + 2], p[4 * n + 3]);
+            *reinterpret_cast<__nv_bfloat162*>(pt + i * kPBytes + at) = r0;
+            *reinterpret_cast<__nv_bfloat162*>(pt + i * kPBytes + at + 1024) =
+                r1;
+            if (i + 1 < kTerms) {  // what the next term takes
+              const float2 g0 = __bfloat1622float2(r0);
+              const float2 g1 = __bfloat1622float2(r1);
+              p[4 * n] -= g0.x;
+              p[4 * n + 1] -= g0.y;
+              p[4 * n + 2] -= g1.x;
+              p[4 * n + 3] -= g1.y;
+            }
+          }
+        }
+        fence_async_smem();
+        consumers_sync();  // both halves of P are in
+      }
+
+      timed_wait(1, &bar_vfull[s], (j / kVStages) & 1, tig == 0);
+      if (MLSTM_CUT == 0) {
+        // O += P V, term by term, 16 keys (2048 bytes of v) a step
+        const uint32_t p0 = smem_u32(pt);
+        const uint32_t vaddr = vbase + s * L::kTile;
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i)
+#pragma unroll
+          for (int kk = 0; kk < kBN / 16; ++kk)
+            wgmma_pv<HD>(acc,
+                         desc_sw128(p0 + i * kPBytes + kk * 32, 16, 1024),
+                         desc_sw128(vaddr + kk * 2048, kBoxBytes, 1024));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+      }
+      mbar_arrive(&bar_vempty[s]);
+    }
+
+    // epilogue: the signed row sums over the quad, then over both
+    // consumers (consumer 0's half first); acc / max(|sum|, exp(-m))
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    if (quad == 0) {
+      l_half[cw][rl] = l0;
+      l_half[cw][rl + 8] = l1;
+    }
+    consumers_sync();
+    const float d0 = fmaxf(fabsf(l_half[0][rl] + l_half[1][rl]), expf(-m0));
+    const float d1 =
+        fmaxf(fabsf(l_half[0][rl + 8] + l_half[1][rl + 8]), expf(-m1));
+    const size_t row = (size_t)H * HD;  // a position's stride
+    __nv_bfloat16* obase = o + (size_t)b * S * row + (size_t)h * HD +
+                           cw * (HD / 2) + 2 * quad;
+#pragma unroll
+    for (int n = 0; n < NO / 4; ++n) {
+      if (t0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(obase + (size_t)t0 * row + 8 * n) =
+            __floats2bfloat162_rn(acc[4 * n] / d0, acc[4 * n + 1] / d0);
+      if (t1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(obase + (size_t)t1 * row + 8 * n) =
+            __floats2bfloat162_rn(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
+    }
+    add_cycles(4, start, tig == 0);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (so the
+// library needs no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 tensor (B, S, H, hd) as a 4-D map (hd, H, S, B): boxes of 64
+// columns x 1 head x 64 rows x 1, 128-byte swizzle, rows past S read as
+// zeros (from within the same (b, h))
+int make_map(CUtensorMap* map, const void* base, int hd, int H, int S,
+             int B) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)H * hd * 2,
+                                 (cuuint64_t)S * H * hd * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)kBN, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* F,
+           const void* I, void* o, int B, int S, int H, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  int err = make_map(&qm, q, HD, H, S, B);
+  if (err == 0) err = make_map(&km, k, HD, H, S, B);
+  if (err == 0) err = make_map(&vm, v, HD, H, S, B);
+  if (err != 0) return err;
+  const size_t smem = Layout<HD>::kBytes + 1024;  // + alignment slack
+  const cudaError_t e = cudaFuncSetAttribute(
+      mlstm_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * H, (S + kBM - 1) / kBM);
+  mlstm_fwd_wgmma<HD><<<grid, kThreads, smem, stream>>>(
+      qm, km, vm, (const float*)F, (const float*)I, (__nv_bfloat16*)o, S, H);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
+extern "C" int mlstm_attention_wgmma_bf16(const void* q, const void* k,
+                                          const void* v, const void* F,
+                                          const void* I, void* o, int B,
+                                          int S, int H, int hd,
+                                          void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || (long long)B * H >= (1LL << 31) ||
+      (S + wg::kBM - 1) / wg::kBM > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (hd) {
+    case 128: return wg::launch<128>(q, k, v, F, I, o, B, S, H, st);
+    case 256: return wg::launch<256>(q, k, v, F, I, o, B, S, H, st);
+    case 384: return wg::launch<384>(q, k, v, F, I, o, B, S, H, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int mlstm_attention_simt_bf16(const void* q, const void* k,
+                                         const void* v, const void* F,
+                                         const void* I, void* o, int B,
+                                         int S, int H, int hd,
+                                         void* stream) {
+  return simt::dispatch<__nv_bfloat16>(q, k, v, F, I, o, B, S, H, hd,
+                                       stream);
+}
+
+extern "C" int mlstm_attention_simt_f32(const void* q, const void* k,
+                                        const void* v, const void* F,
+                                        const void* I, void* o, int B,
+                                        int S, int H, int hd, void* stream) {
+  return simt::dispatch<float>(q, k, v, F, I, o, B, S, H, hd, stream);
+}
+
+#ifdef MLSTM_WAITS
+// ablation build only: copy the six cycle counters to out and zero them
+extern "C" int mlstm_waits(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, wg::g_waits, sizeof(wg::g_waits));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
+  return (int)cudaMemcpyToSymbol(wg::g_waits, zero, sizeof(zero));
+}
+#endif

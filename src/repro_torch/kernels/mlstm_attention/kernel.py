@@ -1,21 +1,27 @@
 """Hand-written CUDA mLSTM sequence mix (forward), bound with ctypes.
 
-``csrc/mlstm_attention.cu`` -> ``mlstm_attention_bf16`` (bf16 q, k, v
-with float32 F and I: the model's path) / ``mlstm_attention_f32``
-(float32 throughout), picked by q's dtype; replaces
-src/repro/kernels/mlstm_attention/kernel.py:_mlstm_kernel (Pallas TPU),
-once per mLSTM layer per prefill.  It is bound by operations (the
-source's header gives the numbers and the design).  The kernel reads the
-model's (B, S, H, hd) layout in place, so no transposed or widened copy
-of q, k or v is made; it is instantiated for the head dims in
-``HEAD_DIMS``, and the wrapper refuses any other.
+``csrc/mlstm_attention.cu`` holds two routes, picked by ``route`` from the
+dtype and the head dim before the launch (never after a failure):
 
-The wrapper takes CUDA tensors only: it checks device, dtype, shape and
-contiguity, allocates the output with ``torch.empty``, launches on the
-current stream, raises if the launch reports an error, and counts the
-launch in ``build.LAUNCHES["mlstm_attention"]``.  There is no fallback:
-``ops.py`` sends CPU tensors to the plain torch version before anything
-here is reached.
+* ``"wgmma"``: bf16 at hd 128, 256 and 384 (``mlstm_attention_wgmma_bf16``;
+  xlstm-125m's head dim is 384), the tensor cores fed by TMA, the
+  accumulator split over two consumer warpgroups;
+* ``"simt"``: float32 at every head dim in ``HEAD_DIMS`` and bf16 at hd 16,
+  32 and 64 (``mlstm_attention_simt_bf16`` / ``_f32``), float32 FMA on the
+  CUDA cores.
+
+Both replace src/repro/kernels/mlstm_attention/kernel.py:26 _mlstm_kernel
+(Pallas TPU), once per mLSTM layer per prefill, and both count as a launch
+of ``mlstm_attention`` (``build.LAUNCHES``); ``build.ROUTES`` counts them
+by route.  The kernel is bound by operations (the source's header gives
+the numbers and the design).  Both read the model's (B, S, H, hd) layout
+in place, so no transposed or widened copy of q, k or v is made.
+
+The wrapper takes CUDA tensors only: it checks device, dtype, shape,
+contiguity and alignment, allocates the output with ``torch.empty``,
+launches on the current stream, raises if the launch reports an error, and
+counts the launch.  There is no fallback: ``ops.py`` sends CPU tensors to
+the plain torch version before anything here is reached.
 """
 from __future__ import annotations
 
@@ -27,32 +33,53 @@ from repro_torch.kernels.build import check_tensor, launch, load
 
 #: head dims the kernel is instantiated for (xlstm-125m's is 384)
 HEAD_DIMS = (16, 32, 64, 128, 256, 384)
-#: query rows per block (the grid's y walks S in such tiles)
+#: head dims of the tensor-core route: each consumer warpgroup owns hd / 2
+#: output columns, whole 64-column TMA boxes
+WGMMA_HEAD_DIMS = (128, 256, 384)
+#: query rows per block on both routes (the grid's y walks S in such tiles)
 BLOCK_Q = 64
+#: TMA reads from 16-byte aligned addresses
+ALIGN = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: q, k, v, F, I, out; B, S, H, hd; stream
 _ARGTYPES = [_P] * 6 + [_I] * 4 + [_P]
 #: dtype of q, k, v -> entry-point suffix
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_ENTRIES = ("mlstm_attention_wgmma_bf16", "mlstm_attention_simt_bf16",
+            "mlstm_attention_simt_f32")
 
 
-def _entry(dtype: torch.dtype):
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel that computes the mix at this dtype and head dim:
+    ``"wgmma"`` (tensor cores) for bf16 at hd 128, 256 and 384, else
+    ``"simt"`` (float32 FMA: a float32 product on the tensor cores would be
+    TF32)."""
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+def _entry(dtype: torch.dtype, hd: int, simt: bool):
     suffix = _SUFFIX.get(dtype)
     if suffix is None:
         raise TypeError(f"mlstm_attention_cuda takes bfloat16 or float32 "
                         f"q, k, v, got {dtype}")
-    lib = load("mlstm_attention", {f"mlstm_attention_{s}": _ARGTYPES
-                                   for s in _SUFFIX.values()})
-    return getattr(lib, f"mlstm_attention_{suffix}")
+    r = "simt" if simt else route(dtype, hd)
+    lib = load("mlstm_attention", {e: _ARGTYPES for e in _ENTRIES})
+    return r, getattr(lib, f"mlstm_attention_{r}_{suffix}")
 
 
 def mlstm_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         F: torch.Tensor, I: torch.Tensor) -> torch.Tensor:
+                         F: torch.Tensor, I: torch.Tensor, *,
+                         simt: bool = False) -> torch.Tensor:
     """q, k, v: (B, S, H, hd) of one dtype (bf16 or float32), k already
     scaled by hd**-0.5; F (inclusive cumulative log-forget) and I (log
     input gate): (B, S, H) float32; all contiguous.  Returns (B, S, H,
-    hd) in q's dtype."""
+    hd) in q's dtype.  ``simt=True`` takes the CUDA-core route where
+    ``route`` would take the tensor cores: the chip smoke test and the
+    ablation time both routes on the same inputs; the model's path never
+    passes it."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"mlstm_attention_cuda needs CUDA tensors, got {dev}")
@@ -67,12 +94,16 @@ def mlstm_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             and -(-S // BLOCK_Q) <= 65535):
         raise ValueError(f"mlstm_attention_cuda takes B * H < 2^31 and S in "
                          f"[1, {65535 * BLOCK_Q}], got {tuple(q.shape)}")
-    fn = _entry(q.dtype)
+    name, fn = _entry(q.dtype, hd, simt)
     check_tensor(q, "q", (B, S, H, hd), q.dtype, dev)
     check_tensor(k, "k", (B, S, H, hd), q.dtype, dev)
     check_tensor(v, "v", (B, S, H, hd), q.dtype, dev)
     check_tensor(F, "F", (B, S, H), torch.float32, dev)
     check_tensor(I, "I", (B, S, H), torch.float32, dev)
+    if name == "wgmma" and any(t.data_ptr() % ALIGN for t in (q, k, v)):
+        raise ValueError(f"mlstm_attention_cuda's {name} route reads q, k "
+                         f"and v by TMA from {ALIGN}-byte aligned addresses")
     out = torch.empty_like(q)
-    launch(fn, (q, k, v, F, I, out), (B, S, H, hd), dev, "mlstm_attention")
+    launch(fn, (q, k, v, F, I, out), (B, S, H, hd), dev, "mlstm_attention",
+           route=name)
     return out

@@ -4,9 +4,11 @@ version.
 The counterpart of src/repro/kernels/mlstm_attention/{ops,ref}.py.  A CUDA
 tensor goes through the hand-written kernel (``kernel.py``), a CPU tensor
 through ``mlstm_attention_torch``, the reference oracle's materialised form
-(``mlstm_attention_ref``) in float32.  The two differ only in the order of
-the float32 sums (the kernel accumulates key tile by key tile under an
-online stabilizer), so they agree within a stated tolerance, not bitwise.
+(``mlstm_attention_ref``) in float32.  The two differ in the order of the
+float32 sums (the kernel accumulates key tile by key tile: under an online
+stabilizer on its ``simt`` route, with the exact stabilizer and P in three
+bf16 terms on its ``wgmma`` route), so they agree within a stated
+tolerance, not bitwise.
 """
 from __future__ import annotations
 
@@ -25,15 +27,18 @@ def mlstm_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         h_t = sum_s exp(D_ts - m_t) (q_t . k_s) v_s
               / max(|sum_s exp(D_ts - m_t) (q_t . k_s)|, exp(-m_t))
 
-    in float32, rounded once to q's dtype.  Returns (BH, S, hd)."""
+    in float32 (in float64 for float64 inputs: the exact value that the
+    tests hold the kernels' arithmetic to), rounded once to q's dtype.
+    Returns (BH, S, hd)."""
     S = q.shape[1]
-    D = (F[:, :, None] - F[:, None, :] + I[:, None, :]).float()
+    acc = torch.promote_types(q.dtype, torch.float32)
+    D = (F[:, :, None] - F[:, None, :] + I[:, None, :]).to(acc)
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
     D = D.masked_fill(~mask, float("-inf"))
     m = D.amax(dim=-1, keepdim=True).clamp(min=-1e30)
     W = torch.exp(D - m)
-    scores = torch.bmm(q.float(), k.float().transpose(1, 2)) * W
-    num = torch.bmm(scores, v.float())
+    scores = torch.bmm(q.to(acc), k.to(acc).transpose(1, 2)) * W
+    num = torch.bmm(scores, v.to(acc))
     den = torch.maximum(scores.sum(-1).abs(), torch.exp(-m[..., 0]))
     return (num / den[..., None]).to(q.dtype)
 

@@ -326,6 +326,114 @@ def test_duct_window_kernel_emulation_equals_plain(case):
         assert got[name].dtype == a.numpy().dtype, name
 
 
+def commit_kernel_emulation(args, vec=None):
+    """The CUDA commit kernel's walk in numpy, a ring row at a time as its
+    warp runs it: avail and touch slot by slot; the row's C * L payload
+    words as 4-word chunks (where L % 4 == 0, or ``vec``), each chunk
+    copied from the slot's pushbuf entry min(j, W - 1) when its pushbuf
+    index j = (c - head - size0) mod C is below pb_cnt, else from the ring;
+    4-byte words otherwise."""
+    (qa, qt, qp, head, size0, cnt, pa, pt, pp) = [np.asarray(a)
+                                                   for a in args]
+    R, C = qa.shape
+    W = pa.shape[1]
+    L = qp.shape[-1]
+    vec = L % 4 == 0 if vec is None else vec
+    out = dict(q_avail=np.empty_like(qa), q_touch=np.empty_like(qt),
+               q_pay=np.empty_like(qp))
+    for r in range(R):
+        base, n = int(head[r]) + int(size0[r]), int(cnt[r])
+
+        def src(c):
+            j = (c - base) % C               # a floor-mod, as in the kernel
+            return min(j, W - 1) if j < n else -1
+        for c in range(C):
+            j = src(c)
+            out["q_avail"][r, c] = pa[r, j] if j >= 0 else qa[r, c]
+            out["q_touch"][r, c] = pt[r, j] if j >= 0 else qt[r, c]
+        ring, push = qp[r].reshape(-1), pp[r].reshape(-1)
+        words = out["q_pay"][r].reshape(-1)
+        step = 4 if vec else 1
+        for e in range(0, C * L, step):
+            c, l = divmod(e, L)
+            j = src(c)
+            words[e:e + step] = (push[j * L + l:j * L + l + step] if j >= 0
+                                 else ring[e:e + step])
+    return out
+
+
+#: (R, C, L, W, payload, kind): every ring's tail wrapping past slot C - 1,
+#: pushbufs empty or full (pb_cnt 0 and W), pb_cnt above W (the j >= W
+#: clamp), word copies (L 1 and 3) and 16-byte chunks (L 4 and 60)
+COMMIT_EMULATION_CASES = [
+    (6, 8, 1, 3, np.int32, "wrap"), (6, 8, 60, 3, np.float32, "wrap"),
+    (8, 16, 1, 4, np.int32, "empty-full"),
+    (8, 16, 60, 4, np.float32, "empty-full"),
+    (5, 12, 3, 2, np.int32, "clamp"), (5, 12, 60, 2, np.float32, "clamp"),
+    (16, 64, 4, 8, np.int32, "random"),
+    (16, 64, 60, 8, np.float32, "random")]
+
+
+def commit_emulation_state(case):
+    """A random commit state shaped by the case's kind."""
+    R, C, L, W, pay, kind = case
+    rng = np.random.default_rng(6000 + R + C + L + W)
+    args = list(random_commit_state(rng, R, C, L, W, pay))
+    head, size0, cnt = args[3], args[4], args[5]
+    if kind == "wrap":           # head + size0 < C <= head + size0 + cnt
+        cnt[:] = W
+        size0[:] = rng.integers(0, C - W, R)
+        head[:] = C - size0 - 1 - rng.integers(0, W - 1, R)
+    elif kind == "empty-full":
+        size0[:] = rng.integers(0, C - W + 1, R)
+        cnt[:] = np.where(np.arange(R) % 2 == 0, 0, W)
+    elif kind == "clamp":        # W < pb_cnt <= C - size0
+        size0[:] = rng.integers(0, C - W - 2, R)
+        cnt[:] = np.minimum(W + 1 + rng.integers(0, 4, R), C - size0)
+    return args
+
+
+@pytest.mark.parametrize("case", COMMIT_EMULATION_CASES,
+                         ids=lambda c: "R{}-C{}-L{}-W{}-{}-{}".format(
+                             *c[:4], np.dtype(c[4]).name, c[5]))
+def test_duct_commit_kernel_emulation_equals_plain(case, ref):
+    """Bitwise: the emulated warp-a-row walk against the plain version and
+    the Pallas kernel in interpret mode.  Where pb_cnt exceeds W (never on
+    the engine's path) the plain version and the CUDA kernel clamp j to W -
+    1 while the Pallas kernel's loop over j < W leaves those slots as they
+    were: there the Pallas kernel is held on the other slots only."""
+    args = commit_emulation_state(case)
+    R, C, L, W, pay, kind = case
+    head, size0, cnt = args[3], args[4], args[5]
+    if kind == "wrap":
+        assert ((head + size0 < C) & (head + size0 + cnt > C)).all()
+    if kind == "clamp":
+        assert (cnt > W).all()
+    got = commit_kernel_emulation(args)
+    want = duct_commit_torch(*_t(args))
+    for name, a in zip(want._fields, want):
+        assert got[name].dtype == a.numpy().dtype, name
+        np.testing.assert_array_equal(got[name].view(np.int32),
+                                      a.numpy().view(np.int32),
+                                      err_msg=f"plain: field {name}")
+    if L % 4 == 0:      # the kernel's word walk, where a payload array
+        words = commit_kernel_emulation(args, vec=False)  # is unaligned
+        for name in got:
+            np.testing.assert_array_equal(words[name].view(np.int32),
+                                          got[name].view(np.int32))
+    pallas = ref.duct_commit(*[ref.jnp.asarray(a) for a in args],
+                             use_pallas=True, interpret=True)
+    j = (np.arange(C)[None, :] - (head + size0)[:, None]) % C
+    keep = ~((j >= W) & (j < cnt[:, None]))     # slots the clamp writes
+    assert (kind == "clamp") == bool((~keep).any())
+    for name, a in zip(want._fields, pallas):
+        a = np.asarray(a).view(np.int32)
+        b = got[name].view(np.int32)
+        m = keep if a.ndim == 2 else keep[..., None].repeat(L, -1)
+        np.testing.assert_array_equal(b[m], a[m],
+                                      err_msg=f"pallas: field {name}")
+
+
 def negative_zero_window_state():
     """One receiver of degree 4 whose row 0 holds one available message
     with payload ``[-0.0, 1.5, -0.0]``; the drain pops it into halo slot
@@ -527,6 +635,40 @@ def test_duct_commit_f32_kernel_matches_plain_on_card(case, cuda_device):
     got = duct_commit(*args)
     torch.cuda.synchronize()
     assert_bits_equal(want, got, "duct_commit_f32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COMMIT_EMULATION_CASES,
+                         ids=lambda c: "R{}-C{}-L{}-W{}-{}-{}".format(
+                             *c[:4], np.dtype(c[4]).name, c[5]))
+def test_duct_commit_kernel_edge_cases_on_card(case, cuda_device):
+    """Tails wrapping past slot C - 1, pb_cnt 0 and W, pb_cnt above W (the
+    clamp), word copies (L 1, 3) and 16-byte chunks (L 4, 60), int32 and
+    float32: bitwise the plain version, twice the same."""
+    args = _t(commit_emulation_state(case), cuda_device)
+    want = duct_commit_torch(*args)
+    before = tkernel.LAUNCHES["duct_commit"]
+    got = duct_commit(*args)
+    again = duct_commit(*args)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["duct_commit"] == before + 2
+    assert_bits_equal(want, got, "duct_commit")
+    assert_bits_equal(got, again, "duct_commit twice")
+
+
+@pytest.mark.cuda
+def test_duct_commit_kernel_word_walk_on_card(cuda_device):
+    """A payload array 16-byte aligned in no row (a view one word in)
+    takes the kernel's word walk at L = 60: bitwise the plain version."""
+    R, C, L, W = 16, 64, 60, 8
+    args = _t(commit_emulation_state((R, C, L, W, np.float32, "random")),
+              cuda_device)
+    pay = torch.empty(R * C * L + 1, dtype=torch.float32, device=cuda_device)
+    pay[1:] = args[2].reshape(-1)
+    args[2] = pay[1:].view(R, C, L)
+    assert args[2].data_ptr() % 16 and args[2].is_contiguous()
+    assert_bits_equal(duct_commit_torch(*args), duct_commit(*args),
+                       "duct_commit word walk")
 
 
 @pytest.mark.cuda

@@ -196,6 +196,151 @@ def test_plain_in_model_layout_is_the_heads_layout():
     np.testing.assert_array_equal(f32(got), to_model(f32(want), B, H))
 
 
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256, 384])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_route_takes_tensor_cores_only_for_bf16_at_hd_128_to_384(dtype, hd):
+    want = ("wgmma" if dtype == "bfloat16" and hd in (128, 256, 384)
+            else "simt")
+    assert mkernel.route(getattr(torch, dtype), hd) == want
+
+
+#: the card's bf16 tolerance (chip_smoke.MLSTM_TOL[bf16]): one bf16 ulp of
+#: the output, and the float32 sums' own error near 0
+CARD_BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+
+
+def wgmma_route_emulation(q, k, v, F, I, *, terms=3):
+    """The tensor-core route's tile arithmetic on the CPU, (BH, S, hd) bf16
+    q, k, v and (BH, S) float32 F, I: 64-row query tiles; each row's exact
+    stabilizer m_t = max(-1e30, max_{s <= t} (F_t - F_s) + I_s) from the
+    vectors before any score; 64-key tiles up to the diagonal, each split
+    into the two consumers' 32-key halves, scores as float32 sums of the
+    bf16 products, p = s exp(D - m) with W = 0 past the diagonal and in
+    rows past S; the signed row sums of the float32 p per consumer, added
+    at the end (consumer 0's first); P V with p in ``terms`` bf16 terms,
+    each the bf16 rounding of what the ones before it left, summed in
+    float32; acc / max(|sum|, exp(-m)), rounded once to bf16."""
+    BH, S, hd = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty((BH, S, hd), dtype=q.dtype)
+    for q0 in range(0, S, 64):
+        t = torch.arange(q0, q0 + 64)
+        live_row = t < S
+        tc = t.clamp(max=S - 1)
+        ft = torch.where(live_row, F[:, tc], torch.zeros(()))   # (BH, 64)
+        n_kv = -(-min(q0 + 64, S) // 64)
+        s_all = torch.arange(min(q0 + 64, S))
+        D = (ft[:, :, None] - F[:, None, s_all]) + I[:, None, s_all]
+        D = D.masked_fill(s_all[None, None, :] > t[None, :, None],
+                          float("-inf"))
+        m = torch.where(live_row, D.amax(dim=-1).clamp(min=-1e30),
+                        torch.zeros(()))
+        last = torch.where(live_row, t, -1)
+        qt = torch.where(live_row[None, :, None], qf[:, tc],
+                         torch.zeros(()))
+        acc = torch.zeros((BH, 64, hd))
+        l = torch.zeros((BH, 2, 64))
+        for j in range(n_kv):
+            P = torch.zeros((BH, 64, 64))
+            for cw in range(2):
+                keys = j * 64 + 32 * cw + torch.arange(32)
+                live = keys[None, :] <= last[:, None]          # (64, 32)
+                kc = keys.clamp(max=S - 1)
+                sc = torch.einsum("bqd,bkd->bqk", qt,
+                                  torch.where((keys < S)[None, :, None],
+                                              kf[:, kc], torch.zeros(())))
+                Dk = (ft[:, :, None] - torch.where(keys < S, F[:, kc], 0.0)
+                      [:, None, :]) + torch.where(keys < S, I[:, kc], 0.0)[
+                          :, None, :]
+                W = torch.exp(Dk - m[:, :, None])
+                p = torch.where(live[None], sc * W, torch.zeros(()))
+                l[:, cw] += p.sum(dim=-1)
+                P[:, :, 32 * cw:32 * cw + 32] = p
+            keys = j * 64 + torch.arange(64)
+            vt = torch.where((keys < S)[None, :, None],
+                             vf[:, keys.clamp(max=S - 1)], torch.zeros(()))
+            for _ in range(terms):
+                term = P.bfloat16().float()
+                acc = acc + torch.bmm(term, vt)
+                P = P - term
+        den = torch.maximum((l[:, 0] + l[:, 1]).abs(), torch.exp(-m))
+        rows = slice(q0, min(q0 + 64, S))
+        out[:, rows] = (acc / den[..., None])[:, :rows.stop - q0].to(q.dtype)
+    return out
+
+
+def emulation_case(case):
+    """(BH, S, hd, seed, negative gate) -> bf16 q, k, v and float32 F, I
+    as numpy arrays (the repo's distributions); a negative gate makes the
+    first key of every row, and every key of row 1, very negative, so that
+    m is that key's D and row 1's exp(-m) overflows."""
+    BH, S, hd, seed, negative = case
+    arrays = inputs(seed, BH, S, hd)
+    if negative:
+        arrays[4][:, 0] = -1e4
+        arrays[4][1, :] = -200.0
+    return arrays
+
+
+#: (BH, S, hd, seed, negative gate): one key, a tile less one, one tile,
+#: a ragged long S, and the very negative input gate
+EMULATION_CASES = [(3, 1, 128, 11, False), (2, 63, 128, 12, False),
+                   (2, 64, 384, 13, False), (2, 2047, 128, 14, False),
+                   (2, 100, 128, 15, True)]
+
+
+def exact(args):
+    """The plain version on the bf16 inputs widened to float64, rounded
+    once to bf16: the function's value, as far as bf16 can hold it."""
+    return mlstm_attention_torch(*(t.double() for t in args)).bfloat16()
+
+
+@pytest.mark.parametrize("case", EMULATION_CASES,
+                         ids=lambda c: f"BH{c[0]}-S{c[1]}-hd{c[2]}"
+                                       + ("-negative" if c[4] else ""))
+def test_wgmma_route_emulation_matches_plain_and_pallas(case, ref):
+    """The emulated tensor-core route and the Pallas kernel (interpret
+    mode, the largest query block that divides S) both stay within the
+    card's bf16 tolerance of the plain version computed in float64, on the
+    same bf16 inputs.  Not of each other's float32 results directly: at S
+    2047 the outputs near 0 are differences of sums of ~2000 signed terms,
+    and two float32 summation orders (the plain version's bmm among them,
+    whose blocking this CPU picks per process) land up to ~1e-5 apart."""
+    arrays = emulation_case(case)
+    args = as_torch(arrays, "bfloat16")
+    got = wgmma_route_emulation(*args)
+    assert bool(torch.isfinite(got.float()).all())
+    want = exact(args)
+    np.testing.assert_allclose(f32(got), f32(want), **CARD_BF16_TOL)
+    S = case[1]
+    bq = max(b for b in range(1, min(S, 128) + 1) if S % b == 0)
+    pallas = ref.kernel(*as_jax(ref, arrays, "bfloat16"), bq=bq, bk=bq,
+                        interpret=True)
+    np.testing.assert_allclose(f32(pallas), f32(want), **CARD_BF16_TOL)
+    if case[4]:
+        assert not got[1].float().any()          # exp(-m) overflowed
+
+
+@pytest.mark.parametrize("case", [(2, 2047, 128, 14, False),
+                                  (1, 2048, 384, 1, False)],
+                         ids=["S2047-hd128", "S2048-hd384"])
+def test_two_bf16_terms_of_p_miss_the_card_tolerance(case):
+    """Three bf16 terms carry p to about 2^-24 and hold the card's bf16
+    tolerance; two (flash's hi and lo, about 2^-16) leave outputs near 0
+    outside it on the same inputs: p is signed and |sum p| can be small.
+    That is why the route pays for three P V products.  xlstm-125m's
+    prefill length and head dim."""
+    args = as_torch(emulation_case(case), "bfloat16")
+    want = f32(exact(args))
+    np.testing.assert_allclose(f32(wgmma_route_emulation(*args)), want,
+                               **CARD_BF16_TOL)
+    two = f32(wgmma_route_emulation(*args, terms=2))
+    outside = np.abs(two - want) > CARD_BF16_TOL["atol"] + \
+        CARD_BF16_TOL["rtol"] * np.abs(want)
+    assert outside.sum() > 0, "two bf16 terms held the tolerance"
+    assert float(np.abs(want[outside]).min()) < 1e-2    # near 0
+
+
 # ---------------------------------------------------------------------------
 # On the card: the CUDA kernel against the plain version
 # ---------------------------------------------------------------------------
@@ -234,6 +379,60 @@ def test_kernel_matches_plain_on_card(case, cuda_device):
     tol = (dict(rtol=1e-4, atol=1e-5) if dtype == "float32"
            else dict(rtol=2.0 ** -7, atol=1e-5))
     np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route", [("bfloat16", "wgmma"),
+                                         ("float32", "simt")])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 1000, 2047])
+def test_both_routes_at_hd_384_on_card(S, dtype, route, cuda_device):
+    """xlstm-125m's head dim with H = 4 in the model's layout, ragged and
+    whole tiles: each dtype takes the route that ``route`` names (counted
+    in ``build.ROUTES``) and holds the plain version's tolerance (bf16:
+    one bf16 ulp plus 1e-5; float32: 1e-4 / 1e-5)."""
+    B, H, hd = 2, 4, 384
+    arrays = [np.ascontiguousarray(to_model(a, B, H))
+              for a in inputs(20 + S, B * H, S, hd)]
+    args = as_torch(arrays, dtype, cuda_device)
+    assert mkernel.route(args[0].dtype, hd) == route
+    kbuild.reset_launches()
+    got = mlstm_attention(*args)
+    again = mlstm_attention(*args)
+    torch.cuda.synchronize()
+    assert kbuild.ROUTES == {f"mlstm_attention/{route}": 2}
+    want = mlstm_attention_plain(*args)
+    tol = (dict(rtol=1e-4, atol=1e-5) if dtype == "float32"
+           else dict(rtol=2.0 ** -7, atol=1e-5))
+    np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()), **tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_wgmma_route_very_negative_gate_and_misalignment_on_card(
+        cuda_device):
+    """On the tensor-core route: a very negative first gate and a row whose
+    exp(-m) overflows (output 0, never NaN); q one element off 16-byte
+    alignment is refused before any launch."""
+    arrays = inputs(9, 2, 100, 128)
+    arrays[4][:, 0] = -1e4
+    arrays[4][1, :] = -200.0
+    model = [np.ascontiguousarray(to_model(a, 1, 2)) for a in arrays]
+    args = as_torch(model, "bfloat16", cuda_device)
+    kbuild.reset_launches()
+    got = mlstm_attention(*args)
+    torch.cuda.synchronize()
+    assert kbuild.ROUTES == {"mlstm_attention/wgmma": 1}
+    assert bool(torch.isfinite(got.float()).all())
+    np.testing.assert_allclose(f32(got.cpu()),
+                               f32(mlstm_attention_plain(*args).cpu()),
+                               rtol=2.0 ** -7, atol=1e-5)
+    assert not got[:, :, 1].float().any()
+    q = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16,
+                    device=cuda_device)[1:].view(args[0].shape)
+    q.copy_(args[0])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mkernel.mlstm_attention_cuda(q, *args[1:])
+    assert kbuild.LAUNCHES["mlstm_attention"] == 1
 
 
 @pytest.mark.cuda
