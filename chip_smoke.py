@@ -25,16 +25,19 @@ and fails with a non-zero exit code if any phase fails:
                torch version on the same CUDA inputs at the main paths'
                shapes, with the device time of both (torch.profiler), their
                time per call with launch overhead (CUDA events) and the
-               bound: the duct kernels bitwise, ``duct_exchange`` in its
-               full and both degenerate (drain-only, send-only) forms; the
+               bound: the duct kernels bitwise, ``duct_exchange`` through
+               its three entry points (routes ``full``, ``drain`` and
+               ``send``; the drain's bound without the q_touch copy it no
+               longer makes); the
                attention kernels within a stated tolerance, with the time
                of the one PyTorch call that computes the same function
                (``scaled_dot_product_attention``) beside them:
                ``flash_attention``'s tensor-core route at the prefill
                shape, at hd 64 and at a ragged S, its CUDA-core route at
                float32 and at bf16 hd 16, each call's route read from
-               ``build.ROUTES``; ``decode_attention`` as the whole function
-               (one launch, partials and combine) against the plain
+               ``build.ROUTES`` (as for every kernel with routes below);
+               ``decode_attention`` as the whole function (one launch,
+               partials and combine) against the plain
                whole function at kv_len 2049, 2080 and 1; the
                compression kernels bitwise at every row shape of
                qwen2-1.5b's gradient leaves, ties and a ragged final
@@ -42,11 +45,14 @@ and fails with a non-zero exit code if any phase fails:
                shape and the tie-heavy ones timed with ``torch.topk`` of
                |x| beside them, each call's route read from
                ``build.ROUTES``); ``mamba_scan`` at
-               jamba's prefill shape (8, 2048, 8192, 16) and a ragged
-               shape within a stated tolerance (no PyTorch call computes
-               the scan); ``mlstm_attention`` at xlstm-125m's prefill
-               shape (8, 2048, 4, 384) bf16 on its tensor-core route and,
-               on the same inputs, its CUDA-core route (the tensor-core
+               jamba's prefill shape (8, 2048, 8192, 16) on its ``tma``
+               route and, on the same inputs, its ``simt`` route, with the
+               blocks of each resident on an SM, a ragged ``tma`` shape on
+               both routes and a ``simt`` shape, within a stated tolerance
+               (no PyTorch call computes the scan); ``mlstm_attention``
+               at xlstm-125m's prefill shape (8, 2048, 4, 384) bf16 on
+               its tensor-core route and, on the same inputs, its
+               CUDA-core route (the tensor-core
                route must be the faster), at a float32 shape and at a
                ragged one on both routes within a stated tolerance (no
                PyTorch call computes the mLSTM's signed, max-clamped
@@ -66,7 +72,8 @@ and fails with a non-zero exit code if any phase fails:
                torus-1024, duration 0.005: per-window dense,
                --superstep-windows 8 and --layout edge (all three equal).
                Launch counters are zeroed just before each path and read
-               just after it
+               just after it; an edge window is one ``drain`` and one
+               ``send`` launch
   7. lm card=cpu  the reduced qwen2-1.5b and qwen3-0.6b (2 layers),
                jamba-v0.1-52b (one 8-layer period) and xlstm-125m (6
                layers; float32 only) served on the card
@@ -100,8 +107,9 @@ and fails with a non-zero exit code if any phase fails:
   11. jamba full size  one 8-layer period of jamba-v0.1-52b at full width
                (d 4096, 16 experts top-2, 13.3 G parameters; depth cut
                from 32) in bf16 through ``serve.serve``: batch 8, prompt
-               2048, 32 new tokens; exact launches (7 ``mamba_scan`` and 1
-               ``flash_attention``, tensor-core route, per prefill, 1
+               2048, 32 new tokens; exact launches (7 ``mamba_scan``, all
+               on the ``tma`` route, and 1 ``flash_attention``,
+               tensor-core route, per prefill, 1
                ``decode_attention`` per step), finite logits, the same
                tokens from a second serve;
                the kernel against its plain version on layer 0's real scan
@@ -194,6 +202,11 @@ from repro_torch.kernels.topk_compress.kernel import (  # noqa: E402
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
     mamba_scan,
     mamba_scan_torch,
+)
+from repro_torch.kernels.mamba_scan.kernel import (  # noqa: E402
+    blocks_per_sm as mamba_blocks_per_sm,
+    mamba_scan_cuda,
+    route as mamba_route,
 )
 from repro_torch.kernels.mlstm_attention import (  # noqa: E402
     mlstm_attention,
@@ -374,6 +387,34 @@ def exchange_state(rng, E, C, dev):
         rng.integers(0, 50, E).astype(np.int32))]
 
 
+def drain_bytes(args, pops):
+    """What the drain must read and write on these inputs: q_avail both
+    ways, the per-edge inputs and outputs, and one q_touch slot for each
+    ring that pops (the freshest popped message's touch).  The drain
+    returns its input q_touch unchanged: no copy of it is work the
+    function needs."""
+    qa, qt, head, size, rnow, ract = args[:6]
+    d = duct_drain_torch(*args[:6], max_pops=pops)
+    popped = int((d.drained > 0).sum())
+    return dict(read=nbytes(qa, head, size, rnow, ract)
+                + popped * qt.element_size(),
+                written=nbytes(d.q_avail, d.head, d.size, d.drained,
+                               d.recv_touch, d.pop_pos))
+
+
+def one_launch(kernel, label, run, route):
+    """Run ``run`` once with the counters zeroed; check it was one launch
+    of ``kernel``, on ``route``, and nothing else.  Returns its output."""
+    K.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    check(K.ROUTES == {f"{kernel}/{route}": 1} and K.LAUNCHES[kernel] == 1
+          and sum(K.LAUNCHES.values()) == 1,
+          f"{kernel} {label}: launches {K.LAUNCHES}, routes {K.ROUTES}, "
+          f"expected one on {route}")
+    return out
+
+
 def device_ms(fn, runs=20, warmup=3):
     """(device time per call, how it was taken).  The CUDA kernel time
     torch.profiler records over ``runs`` calls, divided by ``runs``:
@@ -469,7 +510,7 @@ def fields(x):
 
 def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
             peak=PEAK_OPS_PER_S, tol=None, library=None, plain_runs=None,
-            read=None):
+            read=None, written=None):
     """Hold one kernel call against its plain version (0 mismatching
     elements, or with ``tol = (rtol, atol)`` every element within it), time
     both (device time, and per call with the launch overhead), time
@@ -480,9 +521,10 @@ def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
     input read once and each output written once over the HBM rate, or
     the operations over ``peak``, whichever is longer; ``read`` replaces
     the inputs' bytes where the work depends on the data (the bytes these
-    inputs need read).  ``plain_runs`` cuts the plain version's timed
-    calls (for a plain version that launches thousands of small kernels a
-    call)."""
+    inputs need read), ``written`` the outputs' bytes where an output is
+    an input handed back unchanged.  ``plain_runs`` cuts the plain
+    version's timed calls (for a plain version that launches thousands of
+    small kernels a call)."""
     want = fields(run_plain())
     got = fields(run_kernel())
     torch.cuda.synchronize()
@@ -500,7 +542,8 @@ def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
     call = call_ms(run_kernel)
     plain_call = call_ms(run_plain, runs=plain_runs or 30)
     lib, lib_by = device_ms(library) if library is not None else (None, None)
-    moved = (nbytes(*inputs) if read is None else read) + nbytes(*got)
+    moved = (nbytes(*inputs) if read is None else read) + \
+        (nbytes(*got) if written is None else written)
     t_bytes, t_ops = moved / hbm, ops / peak
     bound = max(t_bytes, t_ops) * 1e3
     lib_txt = f", library {lib:.4f} ms" if lib is not None else ""
@@ -748,20 +791,50 @@ def scan_inputs(gen, Bb, S, di, N, dev):
 
 def scan_kernels(hbm):
     """mamba_scan at jamba's prefill shape, (Bb, S, di, N) = (8, 2048,
-    8192, 16) float32, timed; and at a ragged shape (S and di not
-    multiples of the 64-step chunk or the 128-channel block).  About 5
-    operations per (b, t, d, n), one of them an expf."""
+    8192, 16) float32, on its ``tma`` route (the path's) and, on the same
+    inputs, its ``simt`` route (forced), both timed, with the blocks of
+    each resident on an SM; and at ragged shapes: (3, 2047, 8100, 16),
+    ``tma`` (S and di not multiples of the 16-step stage or the
+    128-channel block), on both routes, and (3, 2047, 8102, 16), ``simt``
+    (8102 % 4 != 0).  About 5 operations per (b, t, d, n), one of them an
+    expf.  No PyTorch call computes the scan."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2027)
-    args = scan_inputs(gen, 8, 2048, 8192, 16, dev)
-    rec = measure("mamba_scan (8,2048,8192,16) f32",
+    shape = (8, 2048, 8192, 16)
+    for route in ("tma", "simt"):
+        print(f"mamba_scan N=16 {route}: {mamba_blocks_per_sm(route, 16)} "
+              f"blocks resident an SM (512 blocks on "
+              f"{torch.cuda.get_device_properties(0).multi_processor_count}"
+              f" SMs)", flush=True)
+    args = scan_inputs(gen, *shape, dev)
+    check(mamba_route(8192, 16) == "tma", "jamba's scan is not on tma")
+    one_launch("mamba_scan", "(8,2048,8192,16)", lambda: mamba_scan(*args),
+               "tma")
+    one_launch("mamba_scan", "(8,2048,8192,16) simt",
+               lambda: mamba_scan_cuda(*args, simt=True), "simt")
+    ops = 5 * math.prod(shape)
+    rec = measure("mamba_scan (8,2048,8192,16) f32 (tma)",
                   lambda: mamba_scan(*args), lambda: mamba_scan_torch(*args),
-                  args, 5 * 8 * 2048 * 8192 * 16, hbm, tol=SCAN_TOL,
-                  plain_runs=2)
+                  args, ops, hbm, tol=SCAN_TOL, plain_runs=2)
+    simt = measure("mamba_scan (8,2048,8192,16) f32 (simt, forced)",
+                   lambda: mamba_scan_cuda(*args, simt=True),
+                   lambda: mamba_scan_torch(*args), args, ops, hbm,
+                   tol=SCAN_TOL, plain_runs=2)
+    rec["simt_ms"] = simt["ms"]
     del args
     args = scan_inputs(gen, 3, 2047, 8100, 16, dev)
-    held_close("mamba_scan (3,2047,8100,16) f32 ragged", mamba_scan(*args),
+    want = mamba_scan_torch(*args)
+    held_close("mamba_scan (3,2047,8100,16) f32 ragged (tma)",
+               one_launch("mamba_scan", "(3,2047,8100,16)",
+                          lambda: mamba_scan(*args), "tma"), want, SCAN_TOL)
+    held_close("mamba_scan (3,2047,8100,16) f32 ragged (simt, forced)",
+               mamba_scan_cuda(*args, simt=True), want, SCAN_TOL)
+    del args, want
+    args = scan_inputs(gen, 3, 2047, 8102, 16, dev)
+    held_close("mamba_scan (3,2047,8102,16) f32 (simt)",
+               one_launch("mamba_scan", "(3,2047,8102,16)",
+                          lambda: mamba_scan(*args), "simt"),
                mamba_scan_torch(*args), SCAN_TOL)
     del args
     torch.cuda.empty_cache()
@@ -795,17 +868,6 @@ def mlstm_flops(B, S, H, hd):
     return 2 * 2 * hd * B * H * (S * (S + 1) // 2)
 
 
-def mlstm_routes(label, run, want):
-    """Run ``run`` once with the route counters zeroed; check it took the
-    ``want`` route alone.  Returns its output."""
-    K.reset_launches()
-    out = run()
-    torch.cuda.synchronize()
-    check(K.ROUTES == {f"mlstm_attention/{want}": 1},
-          f"mlstm_attention {label}: routes {K.ROUTES}, expected {want}")
-    return out
-
-
 def mlstm_kernels(hbm):
     """mlstm_attention at xlstm-125m's prefill shape, (B, S, H, hd) = (8,
     2048, 4, 384) bf16 (BH = 32), on its tensor-core route (``wgmma``, the
@@ -822,11 +884,10 @@ def mlstm_kernels(hbm):
     bf16 = torch.bfloat16
     shape = (8, 2048, 4, 384)
     args = mlstm_inputs(gen, *shape, bf16, dev)
-    mlstm_routes("(8,2048,4,384) bf16", lambda: mlstm_attention(*args),
-                 "wgmma")
-    mlstm_routes("(8,2048,4,384) bf16 simt",
-                 lambda: mlstm_attention_cuda(*args, simt=True),
-                 "simt")
+    one_launch("mlstm_attention", "(8,2048,4,384) bf16",
+               lambda: mlstm_attention(*args), "wgmma")
+    one_launch("mlstm_attention", "(8,2048,4,384) bf16 simt",
+               lambda: mlstm_attention_cuda(*args, simt=True), "simt")
     rec = measure("mlstm_attention (8,2048,4,384) bf16 (wgmma)",
                   lambda: mlstm_attention(*args),
                   lambda: mlstm_attention_plain(*args), args,
@@ -845,8 +906,8 @@ def mlstm_kernels(hbm):
     del args
     shape = (2, 2048, 4, 384)
     args = mlstm_inputs(gen, *shape, torch.float32, dev)
-    mlstm_routes("(2,2048,4,384) f32", lambda: mlstm_attention(*args),
-                 "simt")
+    one_launch("mlstm_attention", "(2,2048,4,384) f32",
+               lambda: mlstm_attention(*args), "simt")
     records["mlstm_attention_f32"] = measure(
         "mlstm_attention (2,2048,4,384) f32 (simt)",
         lambda: mlstm_attention(*args),
@@ -857,8 +918,8 @@ def mlstm_kernels(hbm):
     args = mlstm_inputs(gen, 6, 2047, 1, 384, bf16, dev)
     want = mlstm_attention_plain(*args)
     held_close("mlstm_attention (6,2047,1,384) bf16 ragged (wgmma)",
-               mlstm_routes("(6,2047,1,384) bf16",
-                            lambda: mlstm_attention(*args), "wgmma"),
+               one_launch("mlstm_attention", "(6,2047,1,384) bf16",
+                          lambda: mlstm_attention(*args), "wgmma"),
                want, MLSTM_TOL[bf16])
     held_close("mlstm_attention (6,2047,1,384) bf16 ragged (simt, forced)",
                mlstm_attention_cuda(*args, simt=True), want,
@@ -916,16 +977,25 @@ def kernels(hbm):
         lambda: duct_exchange(*args, capacity=C, max_pops=pops),
         lambda: duct_exchange_torch(*args, capacity=C, max_pops=pops),
         args, ops, hbm)
-    # the variants the edge-major window launches; each bound counts what
-    # that variant reads (its own inputs) and writes
-    measure("duct_exchange E16384-C64 drain",
-            lambda: duct_drain(*args[:6], max_pops=pops),
-            lambda: duct_drain_torch(*args[:6], max_pops=pops),
-            args[:6], ops, hbm)
-    measure("duct_exchange E16384-C64 send",
-            lambda: duct_send(*args[:4], *args[6:], capacity=C),
-            lambda: duct_send_torch(*args[:4], *args[6:], capacity=C),
-            args[:4] + args[6:], ops, hbm)
+    one_launch("duct_exchange", "full",
+               lambda: duct_exchange(*args, capacity=C, max_pops=pops),
+               "full")
+    # the entry points the edge-major window launches, each on its own
+    # route; each bound counts the work that function must do
+    one_launch("duct_exchange", "drain",
+               lambda: duct_drain(*args[:6], max_pops=pops), "drain")
+    one_launch("duct_exchange", "send",
+               lambda: duct_send(*args[:4], *args[6:], capacity=C), "send")
+    records["duct_exchange_drain"] = measure(
+        "duct_exchange E16384-C64 drain",
+        lambda: duct_drain(*args[:6], max_pops=pops),
+        lambda: duct_drain_torch(*args[:6], max_pops=pops),
+        args[:6], ops, hbm, **drain_bytes(args, pops))
+    records["duct_exchange_send"] = measure(
+        "duct_exchange E16384-C64 send",
+        lambda: duct_send(*args[:4], *args[6:], capacity=C),
+        lambda: duct_send_torch(*args[:4], *args[6:], capacity=C),
+        args[:4] + args[6:], ops, hbm)
     records.update(attention_kernels(hbm))
     records.update(compress_kernels(hbm))
     records.update(scan_kernels(hbm))
@@ -1045,7 +1115,7 @@ def drive(label, app_name, n, simels, duration, kw, chunk=256):
     res = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches, routes = dict(K.LAUNCHES), dict(K.ROUTES)
     updates = sum(res.updates)
     windows = eng.windows[-1]
     dist = aggregate_reports(res.qos)
@@ -1054,9 +1124,9 @@ def drive(label, app_name, n, simels, duration, kw, chunk=256):
           f"updates/s, {wall:.2f}s wall, {windows} windows "
           f"({wall * 1e3 / windows:.3f} ms/window), delivery failure rate "
           f"{res.delivery_failure_rate:.4f}, quality {res.quality}, "
-          f"launches {launches}", flush=True)
+          f"launches {launches}, routes {routes}", flush=True)
     print(f"full size {label} QoS medians: {json.dumps(med)}", flush=True)
-    return res, windows, launches
+    return res, windows, launches, routes
 
 
 @phase("full_size")
@@ -1084,18 +1154,29 @@ def full_size():
     ]
     sigs, launched = {}, {}
     for label, app_name, n, simels, duration, kw, chunk, used in paths:
-        res, windows, launches = drive(label, app_name, n, simels, duration,
-                                       kw, chunk)
+        res, windows, launches, routes = drive(label, app_name, n, simels,
+                                               duration, kw, chunk)
         check(launches[used] > 0, f"{label}: {used} never launched")
         if used == "duct_exchange":
-            # the edge-major window drains and sends with one launch each
+            # the edge-major window drains and sends with one launch each,
+            # each through its own entry point
             check(launches[used] == 2 * windows,
                   f"{label}: {launches[used]} duct_exchange launches in "
                   f"{windows} windows")
-        # evo's halos are float32: its launches are the f32 entry points
-        entry = used + ("_f32" if app_name == "evo" and used != "duct_exchange"
-                        else "")
-        launched.setdefault(entry, launches[used])
+            check(routes == {"duct_exchange/drain": windows,
+                             "duct_exchange/send": windows},
+                  f"{label}: routes {routes} in {windows} windows")
+            # each record gets its own route's count: the fused form
+            # (record "duct_exchange") is not on this path
+            for route in ("drain", "send", "full"):
+                launched.setdefault(
+                    "duct_exchange" + ("" if route == "full"
+                                       else f"_{route}"),
+                    routes.get(f"duct_exchange/{route}", 0))
+        else:
+            # evo's halos are float32: its launches are the f32 entry points
+            entry = used + ("_f32" if app_name == "evo" else "")
+            launched.setdefault(entry, launches[used])
         sigs[label] = qos_signature(res)
     for app_name, base in (("graphcolor", "graphcolor torus-4096"),
                            ("evo", "evo torus-1024 3600 cells")):
@@ -1264,6 +1345,15 @@ def lm_card_vs_cpu():
                              else {}),
                   f"{arch} {dtype}: mlstm routes {routes} (float32: the "
                   f"CUDA-core route)")
+            n_scan = launches["mamba_scan"]
+            scan_route = mamba_route(cfg.mamba_expand * cfg.d_model,
+                                     cfg.mamba_d_state)
+            routes = {r: n for r, n in K.ROUTES.items()
+                      if r.startswith("mamba_scan/")}
+            check(routes == ({f"mamba_scan/{scan_route}": n_scan} if n_scan
+                             else {}),
+                  f"{arch} {dtype}: scan routes {routes}, expected "
+                  f"{scan_route}")
             if dtype == "float32":
                 f32_flash += n_flash
             check(all(bool(torch.isfinite(g).all()) for g in got),
@@ -1654,8 +1744,11 @@ def jamba_full_size():
     peak = torch.cuda.max_memory_allocated()
     want = expected_launches(cfg, JAMBA_T - 1)
     check(launches == want, f"jamba: launches {launches}, expected {want}")
-    check(K.ROUTES == {"flash_attention/wgmma": want["flash_attention"]},
-          f"jamba: flash routes {K.ROUTES}")
+    check(K.ROUTES == {"flash_attention/wgmma": want["flash_attention"],
+                       "mamba_scan/tma": want["mamba_scan"]}
+          and want["mamba_scan"] == 7,
+          f"jamba: routes {K.ROUTES}, expected {want['flash_attention']} "
+          f"flash wgmma and 7 mamba_scan tma")
     check(all(bool(torch.isfinite(x).all()) for x in res.logits),
           "jamba: non-finite logits")
     check(tuple(res.seqs.shape) == (JAMBA_B, JAMBA_T),
@@ -1827,6 +1920,10 @@ ENTRIES = (
     ("duct_commit_f32", "duct_commit",
      "src/repro/kernels/duct_exchange/kernel.py:197"),
     ("duct_exchange", "duct_exchange",
+     "src/repro/kernels/duct_exchange/kernel.py:31"),
+    ("duct_exchange_drain", "duct_exchange",
+     "src/repro/kernels/duct_exchange/kernel.py:31"),
+    ("duct_exchange_send", "duct_exchange",
      "src/repro/kernels/duct_exchange/kernel.py:31"),
     ("flash_attention", "flash_attention",
      "src/repro/kernels/flash_attention/kernel.py:20"),

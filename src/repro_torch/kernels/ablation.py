@@ -20,6 +20,14 @@ Two measurements, each printed as one line per variant:
     for k and for v, in the stabilizer's prologue, and the producer's
     waits for a free stage;
   - ``commit``: ``duct_commit`` at evo's and graph coloring's shapes;
+  - ``scan``: ``mamba_scan`` on both routes (``tma``, ``simt``), each
+    with the blocks resident on an SM, as built and built with
+    ``-DSCAN_CUT=1`` (1 + dt A in place of expf: the special-function
+    share) and ``=2`` (x and dt made in registers, not loaded: the load
+    share; both outputs wrong);
+  - ``exchange``: ``duct_exchange``'s drain, send and full entry points,
+    beside an empty kernel on the same grids (the launch ramp) and
+    ``clone()`` of both rings (a copy of the bytes the send moves);
 * ``before``: sources of the git history (``git show
   <commit>:src/repro_torch/kernels/...``), each timed with CUDA events:
   ``--topk``, the one-block-a-row top-k, built three times with early
@@ -27,20 +35,25 @@ Two measurements, each printed as one line per variant:
   one-thread-a-ring-row window, whole and without its payload copy;
   ``--mlstm``, the CUDA-core mLSTM at the bf16 prefill shape;
   ``--commit``, the one-thread-a-slot commit, whole and without its
-  payload copy.
+  payload copy; ``--scan``, the one-step-ahead scan (entry point
+  ``mamba_scan_f32``); ``--exchange``, the fused exchange kernel in the
+  three forms the ops launched it in (full; drain and send with the other
+  half fed zero vectors).
 
 Run on the card from the repository root::
 
-    PYTHONPATH=src python -m repro_torch.kernels.ablation stages [--only mlstm commit]
+    PYTHONPATH=src python -m repro_torch.kernels.ablation stages \\
+        [--only scan exchange]
     PYTHONPATH=src python -m repro_torch.kernels.ablation before \\
-        --mlstm build/before/mlstm_attention.cu \\
-        --commit build/before/duct_commit.cu
+        --scan build/before/mamba_scan.cu \\
+        --exchange build/before/duct_exchange.cu
 
 Shapes: top-k at qwen2-1.5b's stacked MLP rows, (28, 13,762,560), k =
 137,625; the window at evo's torus-1024 (1024, 4, 64, 60) float32; the
 mLSTM at xlstm-125m's prefill, (8, 2048, 4, 384) bf16; the commit at evo's
 (R 4096, C 64, L 60, W 8) float32 and graph coloring's (16384, 64, 1, 8)
-int32.
+int32; the scan at jamba's prefill, (8, 2048, 8192, 16) float32; the
+exchange at graph coloring's torus-4096 edge layout (E 16384, C 64).
 """
 from __future__ import annotations
 
@@ -62,6 +75,13 @@ MLSTM_SHAPE = (8, 2048, 4, 384)          # B, S, H, hd (bf16)
 #: (R, C, L, W, payload dtype)
 COMMIT_SHAPES = ((4096, 64, 60, 8, torch.float32),
                  (16384, 64, 1, 8, torch.int32))
+SCAN_SHAPE = (8, 2048, 8192, 16)         # Bb, S, di, N (float32)
+EXCHANGE_SHAPE = (16384, 64, 16)         # E, C, max_pops
+#: grids an empty kernel is launched on beside the exchange kernels:
+#: (label, blocks, threads) at E = 16384 (the fused kernel: 8 rows a
+#: block; drain and send: 32 rows a block)
+EMPTY_GRIDS = (("the fused kernel's grid", 2048, 256),
+               ("drain's and send's grid", 512, 256))
 
 #: cuts of the one-block-a-row top-k source: (text it follows, the early
 #: exit inserted after it, under ``STOP``); the exit writes what the pass
@@ -198,6 +218,38 @@ def commit_args(R, C, L, W, pay, seed=2024):
     return [torch.as_tensor(a, device="cuda") for a in arrays]
 
 
+def scan_args(Bb, S, di, N, seed=2027):
+    """x, dt > 0, B, C, A < 0 float32 on the card
+    (``chip_smoke.scan_inputs``'s distributions)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    return [randn(Bb, S, di) * 0.5,
+            torch.nn.functional.softplus(randn(Bb, S, di) - 1),
+            randn(Bb, S, N) * 0.5, randn(Bb, S, N) * 0.5,
+            -torch.exp(randn(di, N) * 0.3)]
+
+
+def exchange_args(E, C, seed=2024):
+    """Random edge-major rings, a quarter of them full, with random
+    receiver and sender activity (``chip_smoke.exchange_state``'s
+    construction)."""
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, C, E).astype(np.int32)
+    size = rng.integers(0, C + 1, E)
+    size = np.where(rng.random(E) < 0.25, C, size).astype(np.int32)
+    off = (np.arange(C)[None, :] - head[:, None]) % C
+    live = off < size[:, None]
+    qa = np.where(live, rng.random((E, C)) * 2, np.inf).astype(np.float32)
+    qt = np.where(live, rng.integers(0, 50, (E, C)), 0).astype(np.int32)
+    return [torch.as_tensor(a, device="cuda") for a in (
+        qa, qt, head, size, (rng.random(E) * 2).astype(np.float32),
+        rng.random(E) < 0.8, (rng.random(E) * 2).astype(np.float32),
+        rng.random(E) < 0.7, (rng.random(E) * 0.5).astype(np.float32),
+        rng.integers(0, 50, E).astype(np.int32))]
+
+
 def _launcher(lib, entry, argtypes):
     fn = getattr(lib, entry)
     fn.argtypes = argtypes
@@ -215,6 +267,19 @@ def _launcher(lib, entry, argtypes):
 _MLSTM_ARGTYPES = [_P] * 6 + [_I] * 4 + [_P]
 #: the commit launcher's: 9 inputs, 3 outputs; R, C, W, L; stream
 _COMMIT_ARGTYPES = [_P] * 12 + [ctypes.c_longlong] + [_I] * 3 + [_P]
+#: the scan launchers': x, dt, B, C, A, y, h; Bb, S, di, N; stream
+_SCAN_ARGTYPES = [_P] * 7 + [_I] * 4 + [_P]
+#: the fused exchange launcher's: 10 inputs, 9 outputs; E, C, capacity,
+#: max_pops; stream
+_EXCHANGE_ARGTYPES = [_P] * 19 + [_I] * 4 + [_P]
+#: an empty kernel, timed on an exchange kernel's grid: the launch ramp
+_EMPTY_SRC = """#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
 
 
 #: cuts of the current top-k source for ``stages``: (label, text, its
@@ -248,7 +313,7 @@ def _swap_topk(lib):
     return had
 
 
-STAGES = ("topk", "window", "mlstm", "commit")
+STAGES = ("topk", "window", "mlstm", "commit", "scan", "exchange")
 
 
 def stages(only=STAGES) -> None:
@@ -260,6 +325,10 @@ def stages(only=STAGES) -> None:
         _mlstm_stages()
     if "commit" in only:
         _commit_stages()
+    if "scan" in only:
+        _scan_stages()
+    if "exchange" in only:
+        _exchange_stages()
 
 
 def _print_kernels(rows):
@@ -365,9 +434,92 @@ def _commit_stages() -> None:
         _print_kernels(_by_kernel(run, 50))
 
 
+def _scan_entries(lib):
+    """The scan routes ``lib`` exports: [(route, entry)]."""
+    return [(r, f"mamba_scan_{r}_f32") for r in ("tma", "simt")
+            if hasattr(lib, f"mamba_scan_{r}_f32")]
+
+
+def _scan_stages() -> None:
+    """Both routes of the scan as built, and built with -DSCAN_CUT=1 (no
+    expf: 1 + dt A in its place) and =2 (no x and dt loads: made in
+    registers); both cut outputs are wrong.  Plus the blocks of each
+    route resident on one SM."""
+    Bb, S, di, N = SCAN_SHAPE
+    args = scan_args(*SCAN_SHAPE)
+    y = torch.empty((Bb, S, di), dtype=torch.float32, device="cuda")
+    h = torch.empty((Bb, di, N), dtype=torch.float32, device="cuda")
+    ptrs = [t.data_ptr() for t in (*args, y, h)]
+    src = K.source_path("mamba_scan").read_text()
+    lib = _build(src, "scan")
+    occ = lib.mamba_scan_blocks_per_sm
+    occ.argtypes, occ.restype = [_I, _I, ctypes.POINTER(_I)], ctypes.c_int
+    for route, entry in _scan_entries(lib):
+        blocks = _I(-1)
+        if occ(int(route == "tma"), N, ctypes.byref(blocks)) != 0:
+            raise RuntimeError(f"mamba_scan_blocks_per_sm({route}) failed")
+        print(f"mamba_scan {SCAN_SHAPE} {route}: {blocks.value} blocks "
+              f"resident an SM", flush=True)
+        for label, define in (("as built", None),
+                              ("no expf (1 + dt A)", "SCAN_CUT=1"),
+                              ("no x, dt loads", "SCAN_CUT=2")):
+            cut = lib if define is None else \
+                _build(src, "scan_cut", (define,))
+            call = _launcher(cut, entry, _SCAN_ARGTYPES)
+            run = lambda: call(*ptrs, Bb, S, di, N)  # noqa: E731
+            run()
+            torch.cuda.synchronize()
+            note = "" if define is None else " (output wrong)"
+            print(f"mamba_scan {SCAN_SHAPE} {route}, {label}: "
+                  f"{_events_ms(run, 10):.4f} ms (events){note}",
+                  flush=True)
+            if define is None:
+                _print_kernels(_by_kernel(run, 5))
+
+
+def _empty_launch():
+    fn = _build(_EMPTY_SRC, "empty").empty_launch
+    fn.argtypes, fn.restype = [_I, _I, _P], ctypes.c_int
+
+    def call(blocks, threads):
+        if fn(blocks, threads, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("empty kernel launch failed")
+    return call
+
+
+def _exchange_stages() -> None:
+    """The edge-major ops' kernels at graph coloring's torus-4096 edge
+    layout, device time of each under the profiler, beside an empty
+    kernel on the same grids and ``clone()`` of both rings (the launch
+    ramp and a copy of the bytes the send moves)."""
+    from repro_torch.kernels.duct_exchange.ops import (
+        duct_drain,
+        duct_exchange,
+        duct_send,
+    )
+    E, C, pops = EXCHANGE_SHAPE
+    a = exchange_args(E, C)
+    for label, run in (
+            ("drain", lambda: duct_drain(*a[:6], max_pops=pops)),
+            ("send", lambda: duct_send(*a[:4], *a[6:], capacity=C)),
+            ("full", lambda: duct_exchange(*a, capacity=C, max_pops=pops)),
+            ("clone of q_avail and q_touch",
+             lambda: (a[0].clone(), a[1].clone()))):
+        print(f"duct_exchange (E {E}, C {C}) {label}: "
+              f"{_events_ms(run, 50):.4f} ms a call (events)", flush=True)
+        _print_kernels(_by_kernel(run, 50))
+    empty = _empty_launch()
+    for label, blocks, threads in EMPTY_GRIDS:
+        run = lambda: empty(blocks, threads)  # noqa: E731
+        print(f"empty kernel on {label} ({blocks} x {threads}): "
+              f"{_events_ms(run, 50):.4f} ms a call (events)", flush=True)
+        _print_kernels(_by_kernel(run, 50))
+
+
 def before(topk_src: Path | None = None, window_src: Path | None = None,
-           mlstm_src: Path | None = None,
-           commit_src: Path | None = None) -> None:
+           mlstm_src: Path | None = None, commit_src: Path | None = None,
+           scan_src: Path | None = None,
+           exchange_src: Path | None = None) -> None:
     if topk_src is not None:
         _topk_before(topk_src)
     if window_src is not None:
@@ -384,6 +536,45 @@ def before(topk_src: Path | None = None, window_src: Path | None = None,
               flush=True)
     if commit_src is not None:
         _commit_before(commit_src)
+    if scan_src is not None:
+        Bb, S, di, N = SCAN_SHAPE
+        args = scan_args(*SCAN_SHAPE)
+        outs = [torch.empty((Bb, S, di), dtype=torch.float32, device="cuda"),
+                torch.empty((Bb, di, N), dtype=torch.float32, device="cuda")]
+        ptrs = [t.data_ptr() for t in (*args, *outs)]
+        call = _launcher(_build(scan_src.read_text(), "scan_before"),
+                         "mamba_scan_f32", _SCAN_ARGTYPES)
+        print(f"mamba_scan before {SCAN_SHAPE}: "
+              f"{_events_ms(lambda: call(*ptrs, Bb, S, di, N), 10):.4f} ms",
+              flush=True)
+    if exchange_src is not None:
+        _exchange_before(exchange_src)
+
+
+def _exchange_before(src: Path) -> None:
+    """The fused kernel (one entry point for all three forms) on the
+    inputs of ``_exchange_stages``: full, drain (every sender inactive,
+    zero vectors) and send (every receiver inactive, max_pops 0), as the
+    ops called it."""
+    E, C, pops = EXCHANGE_SHAPE
+    a = exchange_args(E, C)
+    zf = torch.zeros(E, dtype=torch.float32, device="cuda")
+    zb = torch.zeros(E, dtype=torch.bool, device="cuda")
+    zi = torch.zeros(E, dtype=torch.int32, device="cuda")
+    outs = [torch.empty(s, dtype=t, device="cuda") for s, t in (
+        ((E, C), torch.float32), ((E, C), torch.int32), (E, torch.int32),
+        (E, torch.int32), (E, torch.int32), (E, torch.int32),
+        (E, torch.int32), (E, torch.bool), (E, torch.int32))]
+    call = _launcher(_build(src.read_text(), "exchange_before"),
+                     "duct_exchange", _EXCHANGE_ARGTYPES)
+    for label, ins, max_pops in (
+            ("full", a, pops),
+            ("drain", a[:6] + [zf, zb, zf, zi], pops),
+            ("send", a[:4] + [zf, zb] + a[6:], 0)):
+        ptrs = [t.data_ptr() for t in (*ins, *outs)]
+        ms = _events_ms(lambda: call(*ptrs, E, C, C, max_pops), 50, 3)
+        print(f"duct_exchange before (E {E}, C {C}) {label}: {ms:.4f} ms",
+              flush=True)
 
 
 def _commit_before(src: Path) -> None:
@@ -475,7 +666,7 @@ def main(argv=None) -> int:
     st.add_argument("--only", nargs="+", choices=STAGES, default=STAGES,
                     help="which kernels (default: all)")
     b = sub.add_parser("before")
-    for name in ("topk", "window", "mlstm", "commit"):
+    for name in ("topk", "window", "mlstm", "commit", "scan", "exchange"):
         b.add_argument(f"--{name}", type=Path, metavar="SRC",
                        help=f"an earlier {name} source (git show)")
     args = ap.parse_args(argv)
@@ -488,7 +679,8 @@ def main(argv=None) -> int:
     if args.what == "stages":
         stages(args.only)
     else:
-        before(args.topk, args.window, args.mlstm, args.commit)
+        before(args.topk, args.window, args.mlstm, args.commit, args.scan,
+               args.exchange)
     return 0
 
 

@@ -11,8 +11,9 @@ with one ``nvcc`` per source, all started together.
 ``reset_launches()``; ``launch`` adds one exactly where it launches a
 kernel, and nowhere else adds to it.  A kernel with more than one route
 (``flash_attention`` and ``mlstm_attention``: ``wgmma`` and ``simt``;
-``topk_compress``: ``row`` and ``split``) also counts each launch in
-``ROUTES`` under ``"<kernel>/<route>"``.
+``topk_compress``: ``row`` and ``split``; ``mamba_scan``: ``tma`` and
+``simt``; ``duct_exchange``: ``drain``, ``send`` and ``full``) also counts
+each launch in ``ROUTES`` under ``"<kernel>/<route>"``.
 """
 from __future__ import annotations
 

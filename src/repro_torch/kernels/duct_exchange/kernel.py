@@ -9,10 +9,11 @@ Three kernels, each in its own source under ``csrc/`` and compiled by
   duct_commit    csrc/duct_commit.cu -> duct_commit_i32 / duct_commit_f32
                  replaces src/repro/kernels/duct_exchange/kernel.py
                  :_commit_kernel (Pallas TPU), once per W-window superstep
-  duct_exchange  csrc/duct_exchange.cu -> duct_exchange
+  duct_exchange  csrc/duct_exchange.cu -> duct_drain / duct_send /
+                 duct_exchange (routes ``drain``, ``send``, ``full``)
                  replaces src/repro/kernels/duct_exchange/kernel.py
                  :_duct_kernel (Pallas TPU), twice per edge-major window
-                 (drain, then send)
+                 (the drain, then the send)
 
 The two dense kernels take int32 (graph coloring) or float32 (evo)
 payloads, one entry point each, picked by the payload's dtype; the
@@ -24,7 +25,8 @@ libraries on first use, loads them and counts the launches.
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, allocate the outputs with ``torch.empty``, launch on the
 current stream, raise if the launch reports an error, and count each
-launch in ``LAUNCHES``.  There is no fallback: ``ops.py`` sends CPU tensors
+launch in ``LAUNCHES`` (the edge-major kernel's also by route in
+``build.ROUTES``).  There is no fallback: ``ops.py`` sends CPU tensors
 to the plain torch versions before anything here is reached.
 """
 from __future__ import annotations
@@ -50,26 +52,24 @@ LAUNCHES = LaunchCounts(KERNELS)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C signature of each library's launchers: tensor pointers, then the shape
-#: ints, then the stream
-_ARGTYPES = {
-    "duct_window": [_P] * 21 + [_I] * 5 + [_P],
-    "duct_commit": [_P] * 12 + [ctypes.c_longlong] + [_I] * 3 + [_P],
-    "duct_exchange": [_P] * 19 + [_I] * 4 + [_P],
-}
+_WINDOW = [_P] * 21 + [_I] * 5 + [_P]
+_COMMIT = [_P] * 12 + [ctypes.c_longlong] + [_I] * 3 + [_P]
 #: each library's exported launchers (one per payload dtype where the kernel
-#: carries a payload)
+#: carries a payload) and their C signatures: tensor pointers, then the
+#: shape ints, then the stream
 _ENTRY_POINTS = {
-    "duct_window": ("duct_window_i32", "duct_window_f32"),
-    "duct_commit": ("duct_commit_i32", "duct_commit_f32"),
-    "duct_exchange": ("duct_exchange",),
+    "duct_window": {"duct_window_i32": _WINDOW, "duct_window_f32": _WINDOW},
+    "duct_commit": {"duct_commit_i32": _COMMIT, "duct_commit_f32": _COMMIT},
+    "duct_exchange": {"duct_exchange": [_P] * 19 + [_I] * 4 + [_P],
+                      "duct_drain": [_P] * 12 + [_I] * 3 + [_P],
+                      "duct_send": [_P] * 13 + [_I] * 3 + [_P]},
 }
 #: payload dtype -> entry-point suffix of the dense kernels
 _PAYLOAD_SUFFIX = {torch.int32: "i32", torch.float32: "f32"}
 
 
 def _lib(name: str) -> ctypes.CDLL:
-    return load(name, {e: _ARGTYPES[name] for e in _ENTRY_POINTS[name]})
+    return load(name, _ENTRY_POINTS[name])
 
 
 def _payload_entry(name: str, q_pay: torch.Tensor):
@@ -166,39 +166,93 @@ def duct_commit_cuda(q_avail, q_touch, q_pay, head, size0, pb_cnt,
     return outs
 
 
+def _edge_shape(q_avail, what: str):
+    """(E, C) of edge-major rings on the card, refused where the kernel's
+    32-bit indexing would overflow."""
+    if q_avail.ndim != 2:
+        raise ValueError(f"{what} takes rings (E, C), got "
+                         f"{tuple(q_avail.shape)}")
+    E, C = q_avail.shape
+    if E * C >= 1 << 31:
+        raise ValueError(f"{what} indexes in 32 bits; E * C = {E * C} must "
+                         f"stay below 2**31")
+    dev = q_avail.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
+    return dev, E, C
+
+
+def _check_edge(dev, E, C, named):
+    """Check (tensor, name, dtype) of rings (the ``q_*``) and per-edge
+    vectors against (E, C)."""
+    for x, nm, dt in named:
+        _check(x, nm, (E, C) if nm.startswith("q_") else (E,), dt, dev)
+
+
+def _empty(dev, *specs):
+    return tuple(torch.empty(shape, dtype=dt, device=dev)
+                 for shape, dt in specs)
+
+
 def duct_exchange_cuda(q_avail, q_touch, head, size, recv_now, recv_active,
                        send_now, send_active, send_lat, send_touch,
                        *, capacity: int, max_pops: int):
-    """Launch the fused edge-major drain -> send kernel; returns the
-    ``ops.ExchangeResult`` field tuple.  Rings are ``(E, C)``; the eight
-    per-edge inputs are ``(E,)``."""
-    dev = q_avail.device
-    if dev.type != "cuda":
-        raise ValueError(f"duct_exchange_cuda needs CUDA tensors, got {dev}")
-    E, C = q_avail.shape
-    if E * C >= 1 << 31:
-        raise ValueError(f"duct_exchange_cuda indexes in 32 bits; E * C = "
-                         f"{E * C} must stay below 2**31")
+    """Launch the fused edge-major drain -> send (route ``full``); returns
+    the ``ops.ExchangeResult`` field tuple.  Rings are ``(E, C)``; the
+    eight per-edge inputs are ``(E,)``."""
+    dev, E, C = _edge_shape(q_avail, "duct_exchange_cuda")
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
-    for x, nm, shp, dt in (
-            (q_avail, "q_avail", (E, C), f32),
-            (q_touch, "q_touch", (E, C), i32),
-            (head, "head", (E,), i32), (size, "size", (E,), i32),
-            (recv_now, "recv_now", (E,), f32),
-            (recv_active, "recv_active", (E,), b8),
-            (send_now, "send_now", (E,), f32),
-            (send_active, "send_active", (E,), b8),
-            (send_lat, "send_lat", (E,), f32),
-            (send_touch, "send_touch", (E,), i32)):
-        _check(x, nm, shp, dt, dev)
-
-    def out(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    outs = (out((E, C), f32), out((E, C), i32), out(E, i32), out(E, i32),
-            out(E, i32), out(E, i32), out(E, i32), out(E, b8), out(E, i32))
+    _check_edge(dev, E, C, (
+        (q_avail, "q_avail", f32), (q_touch, "q_touch", i32),
+        (head, "head", i32), (size, "size", i32),
+        (recv_now, "recv_now", f32), (recv_active, "recv_active", b8),
+        (send_now, "send_now", f32), (send_active, "send_active", b8),
+        (send_lat, "send_lat", f32), (send_touch, "send_touch", i32)))
+    outs = _empty(dev, ((E, C), f32), ((E, C), i32), (E, i32), (E, i32),
+                  (E, i32), (E, i32), (E, i32), (E, b8), (E, i32))
     launch(_lib("duct_exchange").duct_exchange,
-            (q_avail, q_touch, head, size, recv_now, recv_active, send_now,
-             send_active, send_lat, send_touch) + outs,
-            (E, C, capacity, max_pops), dev, "duct_exchange")
+           (q_avail, q_touch, head, size, recv_now, recv_active, send_now,
+            send_active, send_lat, send_touch) + outs,
+           (E, C, capacity, max_pops), dev, "duct_exchange", route="full")
+    return outs
+
+
+def duct_drain_cuda(q_avail, q_touch, head, size, recv_now, recv_active,
+                    *, max_pops: int):
+    """Launch the edge-major drain (route ``drain``); returns the
+    ``ops.DrainResult`` field tuple.  q_touch is only read (one slot a
+    row): the result's q_touch is the input tensor itself, as in
+    ``ops.duct_drain_torch``."""
+    dev, E, C = _edge_shape(q_avail, "duct_drain_cuda")
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    _check_edge(dev, E, C, (
+        (q_avail, "q_avail", f32), (q_touch, "q_touch", i32),
+        (head, "head", i32), (size, "size", i32),
+        (recv_now, "recv_now", f32), (recv_active, "recv_active", b8)))
+    qa, *vecs = _empty(dev, ((E, C), f32), (E, i32), (E, i32), (E, i32),
+                       (E, i32), (E, i32))
+    launch(_lib("duct_exchange").duct_drain,
+           (q_avail, q_touch, head, size, recv_now, recv_active, qa, *vecs),
+           (E, C, max_pops), dev, "duct_exchange", route="drain")
+    return (qa, q_touch, *vecs)
+
+
+def duct_send_cuda(q_avail, q_touch, head, size, send_now, send_active,
+                   send_lat, send_touch, *, capacity: int):
+    """Launch the edge-major send (route ``send``); returns the
+    ``ops.SendResult`` field tuple, new rings (out of place, as
+    ``ops.duct_send_torch``)."""
+    dev, E, C = _edge_shape(q_avail, "duct_send_cuda")
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    _check_edge(dev, E, C, (
+        (q_avail, "q_avail", f32), (q_touch, "q_touch", i32),
+        (head, "head", i32), (size, "size", i32),
+        (send_now, "send_now", f32), (send_active, "send_active", b8),
+        (send_lat, "send_lat", f32), (send_touch, "send_touch", i32)))
+    outs = _empty(dev, ((E, C), f32), ((E, C), i32), (E, i32), (E, b8),
+                  (E, i32))
+    launch(_lib("duct_exchange").duct_send,
+           (q_avail, q_touch, head, size, send_now, send_active, send_lat,
+            send_touch) + outs,
+           (E, C, capacity), dev, "duct_exchange", route="send")
     return outs

@@ -11,9 +11,9 @@ it is given, and on nothing else:
   cuda  the hand-written CUDA kernels in ``kernel.py`` (built from
         ``csrc/`` on first use); a kernel that cannot build or launch
         raises, it never falls back to the plain version.  The three
-        edge-major ops all launch the one ``duct_exchange`` kernel: the
-        drain with every sender inactive, the send with every receiver
-        inactive.
+        edge-major ops each launch their own entry point of the
+        ``duct_exchange`` kernel (routes ``drain``, ``send``, ``full``),
+        which takes only that op's inputs.
 
 Every plain version is a slot-exact twin of the numpy oracles in the
 reference package (``duct_window_ref`` / ``duct_commit_ref`` /
@@ -289,38 +289,28 @@ def duct_exchange(q_avail, q_touch, head, size,
 
 def duct_drain(q_avail, q_touch, head, size, recv_now, recv_active,
                *, max_pops: int) -> DrainResult:
-    """Edge-major drain, dispatched on the rings' device.  On the card it
-    is the ``duct_exchange`` kernel with every sender inactive."""
+    """Edge-major drain, dispatched on the rings' device.  Both versions
+    return the input ``q_touch`` tensor itself (the drain never changes
+    it)."""
     if _device_kind(q_avail) == "cpu":
         return duct_drain_torch(q_avail, q_touch, head, size, recv_now,
                                 recv_active, max_pops=max_pops)
-    E, C = q_avail.shape
-    zf = torch.zeros(E, dtype=torch.float32, device=q_avail.device)
-    r = duct_exchange(q_avail, q_touch, head, size, recv_now, recv_active,
-                      zf, torch.zeros(E, dtype=torch.bool,
-                                      device=q_avail.device),
-                      zf, torch.zeros_like(head), capacity=C,
-                      max_pops=max_pops)
-    return DrainResult(r.q_avail, r.q_touch, r.head, r.size, r.drained,
-                       r.recv_touch, r.pop_pos)
+    from repro_torch.kernels.duct_exchange.kernel import duct_drain_cuda
+    return DrainResult(*duct_drain_cuda(q_avail, q_touch, head, size,
+                                        recv_now, recv_active,
+                                        max_pops=max_pops))
 
 
 def duct_send(q_avail, q_touch, head, size,
               send_now, send_active, send_lat, send_touch,
               *, capacity: int) -> SendResult:
-    """Best-effort edge-major push, dispatched on the rings' device.  On
-    the card it is the ``duct_exchange`` kernel with every receiver
-    inactive."""
+    """Best-effort edge-major push, dispatched on the rings' device; both
+    versions return new rings."""
     if _device_kind(q_avail) == "cpu":
         return duct_send_torch(q_avail, q_touch, head, size, send_now,
                                send_active, send_lat, send_touch,
                                capacity=capacity)
-    E = q_avail.shape[0]
-    r = duct_exchange(q_avail, q_touch, head, size,
-                      torch.zeros(E, dtype=torch.float32,
-                                  device=q_avail.device),
-                      torch.zeros(E, dtype=torch.bool,
-                                  device=q_avail.device),
-                      send_now, send_active, send_lat, send_touch,
-                      capacity=capacity, max_pops=0)
-    return SendResult(r.q_avail, r.q_touch, r.size, r.accepted, r.push_pos)
+    from repro_torch.kernels.duct_exchange.kernel import duct_send_cuda
+    return SendResult(*duct_send_cuda(q_avail, q_touch, head, size,
+                                      send_now, send_active, send_lat,
+                                      send_touch, capacity=capacity))

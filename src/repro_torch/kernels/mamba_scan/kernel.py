@@ -1,17 +1,27 @@
 """Hand-written CUDA Mamba-1 selective scan, bound with ctypes.
 
-``csrc/mamba_scan.cu`` -> ``mamba_scan`` (float32); it replaces
-src/repro/kernels/mamba_scan/kernel.py:_mamba_kernel (Pallas TPU).  The
-Mamba mixer's prefill (``models.ssm.mamba_forward``) launches it once per
-Mamba layer.  It is bound by bytes, with the special-function units close
-behind (the source's header gives the numbers and the design).
+``csrc/mamba_scan.cu`` holds two routes, picked by ``route`` from the
+channel count and the state size before the launch (never after a
+failure):
 
-The wrapper takes CUDA tensors only: it checks device, dtype, shape and
-contiguity, allocates y and h_final with ``torch.empty``, launches on the
-current stream, raises if the launch reports an error, and counts the
-launch in ``build.LAUNCHES["mamba_scan"]``.  There is no fallback:
-``ops.py`` sends CPU tensors to the plain torch version before anything
-here is reached.
+* ``"tma"``: di a multiple of 4 (``mamba_scan_tma_f32``): x and dt tiles
+  and the B and C rows stream through a shared-memory ring, loaded by TMA
+  through tensor maps whose strides must be multiples of 16 bytes;
+* ``"simt"``: any other di (``mamba_scan_simt_f32``): each thread loads
+  its own x and dt from global memory, one step ahead.
+
+Both replace src/repro/kernels/mamba_scan/kernel.py:_mamba_kernel (Pallas
+TPU), once per Mamba layer per prefill (``models.ssm.mamba_forward``), and
+both count as a launch of ``mamba_scan`` (``build.LAUNCHES``);
+``build.ROUTES`` counts them by route.  The scan is bound by bytes, with
+the special-function units close behind (the source's header gives the
+numbers and the design).
+
+The wrapper takes CUDA tensors only: it checks device, dtype, shape,
+contiguity and alignment, allocates y and h_final with ``torch.empty``,
+launches on the current stream, raises if the launch reports an error,
+and counts the launch.  There is no fallback: ``ops.py`` sends CPU tensors
+to the plain torch version before anything here is reached.
 """
 from __future__ import annotations
 
@@ -24,16 +34,50 @@ from repro_torch.kernels.build import check_tensor, launch, load
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: x, dt, B, C, A, y, h; Bb, S, di, N; stream
 _ARGTYPES = [_P] * 7 + [_I] * 4 + [_P]
+_ENTRIES = ("mamba_scan_tma_f32", "mamba_scan_simt_f32")
 
 #: the state sizes the kernel is instantiated for
 STATE_SIZES = (4, 8, 16, 32)
+#: TMA reads from 16-byte aligned addresses with 16-byte strides
+ALIGN = 16
+
+
+def route(di: int, N: int) -> str:
+    """The kernel that scans ``di`` channels of state size ``N``:
+    ``"tma"`` where a row of x (di float32) is a multiple of 16 bytes,
+    the tensor maps' stride rule, else ``"simt"``.  B and C rows (N
+    float32, N in ``STATE_SIZES``) always are."""
+    return "tma" if di % 4 == 0 else "simt"
+
+
+def _lib():
+    return load("mamba_scan", {e: _ARGTYPES for e in _ENTRIES})
+
+
+def blocks_per_sm(route_name: str, N: int) -> int:
+    """Blocks of ``route_name``'s kernel at state size ``N`` that fit on
+    one SM of the current card, with the route's shared memory and
+    registers (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    if N not in STATE_SIZES or route_name not in ("tma", "simt"):
+        raise ValueError(f"no {route_name} kernel at N = {N}")
+    fn = _lib().mamba_scan_blocks_per_sm
+    fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], ctypes.c_int
+    blocks = _I(-1)
+    err = fn(int(route_name == "tma"), N, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"mamba_scan_blocks_per_sm failed with CUDA "
+                           f"error {err}")
+    return blocks.value
 
 
 def mamba_scan_cuda(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
-                    C: torch.Tensor, A: torch.Tensor):
+                    C: torch.Tensor, A: torch.Tensor, *, simt: bool = False):
     """x, dt: (Bb, S, di); B, C: (Bb, S, N); A: (di, N); all float32,
     contiguous, on the card.  Returns (y (Bb, S, di), h_final
-    (Bb, di, N)), both float32."""
+    (Bb, di, N)), both float32.  ``simt=True`` takes the ``simt`` route
+    where ``route`` would take ``tma``: the chip smoke test, the card
+    tests and the ablation time both routes on the same inputs; the
+    model's path never passes it."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"mamba_scan_cuda needs CUDA tensors, got {dev}")
@@ -54,9 +98,13 @@ def mamba_scan_cuda(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     check_tensor(B, "B", (Bb, S, N), f32, dev)
     check_tensor(C, "C", (Bb, S, N), f32, dev)
     check_tensor(A, "A", (di, N), f32, dev)
-    lib = load("mamba_scan", {"mamba_scan_f32": _ARGTYPES})
+    name = "simt" if simt else route(di, N)
+    if name == "tma" and any(t.data_ptr() % ALIGN for t in (x, dt, B, C)):
+        raise ValueError(f"mamba_scan_cuda's tma route reads x, dt, B and C "
+                         f"by TMA from {ALIGN}-byte aligned addresses")
+    lib = _lib()
     y = torch.empty((Bb, S, di), dtype=f32, device=dev)
     h = torch.empty((Bb, di, N), dtype=f32, device=dev)
-    launch(lib.mamba_scan_f32, (x, dt, B, C, A, y, h), (Bb, S, di, N), dev,
-           "mamba_scan")
+    launch(getattr(lib, f"mamba_scan_{name}_f32"), (x, dt, B, C, A, y, h),
+           (Bb, S, di, N), dev, "mamba_scan", route=name)
     return y, h

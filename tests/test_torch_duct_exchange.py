@@ -8,9 +8,11 @@ numpy ring states with full rings, inactive senders and receivers, and pop
 budgets below the available prefix.  Its two degenerate forms (every
 sender inactive, every receiver inactive) are ``duct_drain_torch`` and
 ``duct_send_torch``, which are also held against the reference's jnp
-phases.  On the card, the ``cuda``-marked tests hold the one CUDA kernel,
-in its full and both degenerate forms, against the plain versions; they
-need no JAX (``python -m pytest -q -m cuda tests/test_torch_duct_exchange.py``).
+phases.  On the card, the ``cuda``-marked tests hold the CUDA kernel's
+three entry points (routes ``full``, ``drain`` and ``send``) against the
+plain versions, bitwise; they need no JAX (``python -m pytest -q -m cuda
+tests/test_torch_duct_exchange.py``).  On both devices the drain returns
+its input ``q_touch`` tensor and the send new rings.
 """
 import types
 
@@ -30,6 +32,7 @@ from repro_torch.kernels.duct_exchange.ops import (  # noqa: E402
     duct_send,
     duct_send_torch,
 )
+from repro_torch.kernels import build as kbuild  # noqa: E402
 from torch_cases import assert_bits_equal  # noqa: E402
 
 
@@ -188,6 +191,51 @@ def test_cpu_tensors_never_reach_the_exchange_kernel(monkeypatch):
                       max_pops=max_pops)
 
 
+@pytest.mark.parametrize("case", EXCHANGE_CASES, ids=IDS)
+def test_drain_returns_its_q_touch_and_send_new_rings(case):
+    """The aliasing contract the card must honour too: the drain hands back
+    its input q_touch (it never changes it), the send writes new rings and
+    leaves its inputs as they were."""
+    args, cap, max_pops = _case(case)
+    t = _t(args)
+    kept = [a.clone() for a in t]
+    d = duct_drain(*t[:6], max_pops=max_pops)
+    assert d.q_touch is t[1]
+    s = duct_send(*t[:4], *t[6:], capacity=cap)
+    assert s.q_avail is not t[0] and s.q_touch is not t[1]
+    assert s.q_avail.data_ptr() != t[0].data_ptr()
+    assert s.q_touch.data_ptr() != t[1].data_ptr()
+    for a, b in zip(kept, t):
+        assert torch.equal(a, b)
+
+
+def test_new_wrappers_refuse_cpu_tensors_and_bad_shapes_before_loading(
+        monkeypatch):
+    """duct_drain_cuda and duct_send_cuda check the rings' shape, the
+    32-bit index range and the device before the library is built or
+    loaded."""
+    def refuse(*a, **k):
+        raise AssertionError("kernel loader reached")
+
+    monkeypatch.setattr(tkernel, "_lib", refuse)
+    monkeypatch.setattr(tkernel, "build", refuse)
+    args, cap, max_pops = _case(EXCHANGE_CASES[0])
+    t = _t(args)
+    drain = lambda *r: tkernel.duct_drain_cuda(  # noqa: E731
+        *r, *t[2:6], max_pops=max_pops)
+    send = lambda *r: tkernel.duct_send_cuda(  # noqa: E731
+        *r, *t[2:4], *t[6:], capacity=cap)
+    huge = torch.zeros(1).expand(2 ** 16, 2 ** 15)      # E * C = 2^31
+    for call in (drain, send):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call(t[0], t[1])
+        with pytest.raises(ValueError, match=r"rings \(E, C\)"):
+            call(t[0].reshape(-1), t[1])
+        with pytest.raises(ValueError, match="32 bits"):
+            call(huge, t[1])
+    assert tkernel.LAUNCHES["duct_exchange"] == 0
+
+
 # ---------------------------------------------------------------------------
 # On the card: the CUDA kernel against the plain versions, bitwise
 # ---------------------------------------------------------------------------
@@ -215,3 +263,76 @@ def test_duct_exchange_kernel_matches_plain_on_card(case, cuda_device):
                        duct_send(*t[:4], *t[6:], capacity=cap), "send")
     torch.cuda.synchronize()
     assert tkernel.LAUNCHES["duct_exchange"] == before + 3
+
+
+#: rings wider than the register-held drain's 64 slots, which the drain
+#: and the fused form walk a slot at a time (C 200 and 400 even, C 601
+#: odd, which the send also copies a slot at a time);
+#: (E, C, cap, max_pops, p_recv, p_send)
+WIDE_CASES = [(9, 200, 200, 150, 0.9, 0.7), (11, 400, 400, 300, 0.8, 0.8),
+              (7, 601, 601, 500, 0.9, 0.7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EXCHANGE_CASES + WIDE_CASES,
+                         ids=IDS + ["E{}-C{}-wide".format(*c[:2])
+                                    for c in WIDE_CASES])
+def test_each_entry_point_is_one_launch_on_its_route(case, cuda_device):
+    """ops.duct_drain, duct_send and duct_exchange each launch their own
+    entry point once (routes drain, send, full), bitwise equal to the
+    plain versions; the drain returns its input q_touch, the send new
+    rings."""
+    args, cap, max_pops = _case(case)
+    t = _t(args, cuda_device)
+    for route, run, plain in (
+            ("drain", lambda: duct_drain(*t[:6], max_pops=max_pops),
+             lambda: duct_drain_torch(*t[:6], max_pops=max_pops)),
+            ("send", lambda: duct_send(*t[:4], *t[6:], capacity=cap),
+             lambda: duct_send_torch(*t[:4], *t[6:], capacity=cap)),
+            ("full", lambda: duct_exchange(*t, capacity=cap,
+                                           max_pops=max_pops),
+             lambda: duct_exchange_torch(*t, capacity=cap,
+                                         max_pops=max_pops))):
+        kbuild.reset_launches()
+        got = run()
+        torch.cuda.synchronize()
+        assert kbuild.ROUTES == {f"duct_exchange/{route}": 1}, route
+        assert kbuild.LAUNCHES["duct_exchange"] == 1
+        assert_bits_equal(plain(), got, route)
+        if route == "drain":
+            assert got.q_touch is t[1]
+        if route == "send":
+            assert got.q_avail.data_ptr() != t[0].data_ptr()
+            assert got.q_touch.data_ptr() != t[1].data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [1, 2], ids=["4-bytes", "8-bytes"])
+def test_rings_inside_their_buffer_take_the_slot_path(shift, cuda_device):
+    """Rings that are contiguous but start ``shift`` slots into their
+    buffer (not 16-byte aligned; at 4 bytes not even 8): every entry point
+    still launches once, bitwise equal to the plain versions, instead of
+    faulting on a misaligned vector load."""
+    args, cap, max_pops = _case((33, 64, 64, 16, 0.9, 0.6))
+    t = _t(args, cuda_device)
+    for i in (0, 1):                      # q_avail, q_touch
+        flat = torch.zeros(t[i].numel() + shift, dtype=t[i].dtype,
+                           device=cuda_device)
+        shifted = flat[shift:].view_as(t[i])
+        shifted.copy_(t[i])
+        assert shifted.data_ptr() % 16 != 0
+        t[i] = shifted
+    for route, run, plain in (
+            ("drain", lambda: duct_drain(*t[:6], max_pops=max_pops),
+             lambda: duct_drain_torch(*t[:6], max_pops=max_pops)),
+            ("send", lambda: duct_send(*t[:4], *t[6:], capacity=cap),
+             lambda: duct_send_torch(*t[:4], *t[6:], capacity=cap)),
+            ("full", lambda: duct_exchange(*t, capacity=cap,
+                                           max_pops=max_pops),
+             lambda: duct_exchange_torch(*t, capacity=cap,
+                                         max_pops=max_pops))):
+        kbuild.reset_launches()
+        got = run()
+        torch.cuda.synchronize()
+        assert kbuild.ROUTES == {f"duct_exchange/{route}": 1}, route
+        assert_bits_equal(plain(), got, route)

@@ -10,8 +10,10 @@ sums).  The CUDA kernel takes any S and di, where the Pallas kernel
 asserts S % chunk == 0 and di % bdi == 0, so a ragged shape is held
 against the oracle.  On the CPU the dispatching wrapper takes the plain
 version and never reaches the kernel loader.  The ``cuda``-marked tests at
-the end hold the CUDA kernel against the plain version on the card; they
-need no JAX (``python -m pytest -q -m cuda tests/test_torch_mamba_scan.py``).
+the end hold both routes of the CUDA kernel (``tma`` where di % 4 == 0,
+``simt`` otherwise or on request) against the plain version on the card;
+they need no JAX (``python -m pytest -q -m cuda
+tests/test_torch_mamba_scan.py``).
 """
 import types
 
@@ -99,6 +101,18 @@ def test_dispatch_keeps_x_dtype_and_never_launches_on_cpu():
 def test_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         mkernel.mamba_scan_cuda(*as_torch(inputs(3, 1, 4, 8, 4)))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        mkernel.mamba_scan_cuda(*as_torch(inputs(3, 1, 4, 8, 4)), simt=True)
+
+
+@pytest.mark.parametrize("N", mkernel.STATE_SIZES)
+def test_route_is_tma_iff_a_row_of_x_is_16_byte_strided(N):
+    """The tensor maps of the tma route need 16-byte strides: a row of x
+    (di float32) qualifies iff di % 4 == 0; B and C rows (N float32) always
+    do.  Jamba's di (8192) and the ragged smoke shape's (8100) take tma."""
+    for di in range(1, 400):
+        assert mkernel.route(di, N) == ("tma" if di % 4 == 0 else "simt")
+    assert mkernel.route(8192, N) == mkernel.route(8100, N) == "tma"
 
 
 # ---------------------------------------------------------------------------
@@ -112,9 +126,12 @@ def cuda_device():
 
 
 #: (Bb, S, di, N): the reference test's shapes, a ragged one, and a
-#: reduced jamba prefill (di 8192 of the full width)
+#: reduced jamba prefill (di 8192 of the full width); S not a multiple of
+#: the tma route's 16-step stage with di % 4 == 0 but di % 128 != 0; and
+#: Bb = 3 with a ragged S, where a box read across batch rows would show
 CARD_CASES = CASES[:1] + [(2, 77, 45, 16), (1, 300, 8192, 16),
-                          (2, 64, 100, 8), (1, 33, 64, 32)]
+                          (2, 64, 100, 8), (1, 33, 64, 32),
+                          (2, 77, 100, 16), (3, 77, 256, 8), (4, 45, 132, 4)]
 
 
 @pytest.mark.cuda
@@ -129,6 +146,68 @@ def test_kernel_matches_plain_on_card(case, cuda_device):
     wy, wh = mamba_scan_torch(*args)
     np.testing.assert_allclose(y.cpu().numpy(), wy.cpu().numpy(), **TOL)
     np.testing.assert_allclose(h.cpu().numpy(), wh.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_both_routes_match_plain_on_card(case, cuda_device):
+    """Each call is one launch on the route ``kernel.route`` picks, or on
+    ``simt`` when forced; both agree with the plain version at 1e-5, and
+    with each other, on the same inputs."""
+    Bb, S, di, N = case[:4]
+    args = as_torch(inputs(6, Bb, S, di, N), cuda_device)
+    wy, wh = mamba_scan_torch(*args)
+    got = {}
+    for simt in (False, True):
+        want_route = "simt" if simt else mkernel.route(di, N)
+        kbuild.reset_launches()
+        got[simt] = mkernel.mamba_scan_cuda(*args, simt=simt)
+        torch.cuda.synchronize()
+        assert kbuild.ROUTES == {f"mamba_scan/{want_route}": 1}
+        assert kbuild.LAUNCHES["mamba_scan"] == 1
+        y, h = got[simt]
+        np.testing.assert_allclose(y.cpu().numpy(), wy.cpu().numpy(), **TOL)
+        np.testing.assert_allclose(h.cpu().numpy(), wh.cpu().numpy(), **TOL)
+    for a, b in zip(got[False], got[True]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_tma_route_reads_no_other_batch_row(cuda_device):
+    """Batch rows of very different scale, S ragged against the stage: a
+    tma box that ran past S into the next batch row would carry that
+    row's large x into this row's last steps.  y and h are linear in x,
+    so the large row is held at its scale times the tolerance."""
+    Bb, S, di, N = 3, 37, 128, 16
+    x, dt, B, C, A = as_torch(inputs(7, Bb, S, di, N), cuda_device)
+    scale = [1e-3, 1e3, 1e-3]
+    x = x * torch.tensor(scale, device=cuda_device)[:, None, None]
+    kbuild.reset_launches()
+    y, h = mamba_scan(x, dt, B, C, A)
+    torch.cuda.synchronize()
+    assert kbuild.ROUTES == {"mamba_scan/tma": 1}
+    wy, wh = mamba_scan_torch(x, dt, B, C, A)
+    for b, sc in enumerate(scale):
+        tol = dict(rtol=TOL["rtol"], atol=TOL["atol"] * max(sc, 1.0))
+        np.testing.assert_allclose(y[b].cpu().numpy(), wy[b].cpu().numpy(),
+                                   **tol)
+        np.testing.assert_allclose(h[b].cpu().numpy(), wh[b].cpu().numpy(),
+                                   **tol)
+
+
+@pytest.mark.cuda
+def test_tma_route_refuses_misaligned_tensors(cuda_device):
+    x, dt, B, C, A = as_torch(inputs(8, 1, 9, 8, 4), cuda_device)
+    flat = torch.zeros(x.numel() + 1, device=cuda_device)
+    shifted = flat[1:].view_as(x)          # 4 bytes past an aligned base
+    shifted.copy_(x)
+    kbuild.reset_launches()
+    with pytest.raises(ValueError, match="aligned"):
+        mkernel.mamba_scan_cuda(shifted, dt, B, C, A)
+    assert kbuild.LAUNCHES["mamba_scan"] == 0
+    y, _ = mkernel.mamba_scan_cuda(shifted, dt, B, C, A, simt=True)
+    wy, _ = mamba_scan_torch(x, dt, B, C, A)
+    np.testing.assert_allclose(y.cpu().numpy(), wy.cpu().numpy(), **TOL)
 
 
 @pytest.mark.cuda
