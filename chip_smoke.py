@@ -15,8 +15,11 @@ LM's training path in best-effort mode 3, attention through
 ``quantize`` / ``dequantize`` or ``topk_compress`` kernels; the hybrid
 jamba's serving path, its Mamba prefill through the ``mamba_scan`` kernel,
 its one attention layer through the two attention kernels; xlstm-125m's
-serving path, its mLSTM prefill through the ``mlstm_attention`` kernel)
-and fails with a non-zero exit code if any phase fails:
+serving path, its mLSTM prefill through the ``mlstm_attention`` kernel;
+the MoE archs' serving and training paths and the audio and vision
+archs' serving path with their frontend prefix, through the two attention
+kernels and, in training, ``topk_compress``) and fails with a non-zero
+exit code if any phase fails:
 
   1. card      the ``nvidia-smi`` name and power limit
   2. build     the ten kernels from ``csrc/`` into ``build/`` (nine
@@ -33,18 +36,22 @@ and fails with a non-zero exit code if any phase fails:
                of the one PyTorch call that computes the same function
                (``scaled_dot_product_attention``) beside them:
                ``flash_attention``'s tensor-core route at the prefill
-               shape, at hd 64 and at a ragged S, its CUDA-core route at
+               shape, at hd 64, at a ragged S, at G = 1 (hd 128 and
+               64: the MHA prefills) and at G = 4 (llava-next-mistral-7b's
+               prefill), its CUDA-core route at
                float32 and at bf16 hd 16, each call's route read from
                ``build.ROUTES`` (as for every kernel with routes below);
                ``decode_attention`` as the whole function (one launch,
                partials and combine) against the plain
-               whole function at kv_len 2049, 2080 and 1; the
+               whole function at kv_len 2049, 2080 and 1, and at G = 1
+               (hd 128 and 64) and G = 4 (kv_len 2049); the
                compression kernels bitwise at every row shape of
                qwen2-1.5b's gradient leaves, ties and a ragged final
                block (``q * scale`` timed beside dequantize; every top-k
                shape and the tie-heavy ones timed with ``torch.topk`` of
                |x| beside them, each call's route read from
-               ``build.ROUTES``); ``mamba_scan`` at
+               ``build.ROUTES``; one row of 184,549,376 entries, k =
+               1,845,493: a deepseek-moe-16b expert leaf); ``mamba_scan`` at
                jamba's prefill shape (8, 2048, 8192, 16) on its ``tma``
                route and, on the same inputs, its ``simt`` route, with the
                blocks of each resident on an SM, a ragged ``tma`` shape on
@@ -130,6 +137,29 @@ and fails with a non-zero exit code if any phase fails:
                over one prefill and 8 decode steps; then the same serve
                in float32 (10 launches on the CUDA-core route), prefill
                against decode at float32's precision
+  13. moe full size  the reduced deepseek-moe-16b and dbrx-132b card =
+               CPU (phase 7's serving check, float32 and bf16; phase 9's
+               training check, float32, mode 3 top-k and mode 0, the aux
+               loss too); deepseek-moe-16b uncut (28 layers, 16.9 G
+               parameters) through ``repro_torch.launch.serve`` and
+               dbrx-132b at full width (depth cut 40 -> 8, built in bf16)
+               through ``serve.serve``: batch 8, prompt 2048, 32 new
+               tokens in bf16, exact launches (flash one a layer on the
+               tensor-core route, decode one a layer and step), finite
+               logits, the same tokens from a second serve, profiled;
+               then deepseek-moe-16b trained at full width (depth cut 28
+               -> 3) through ``train.run_training``: bf16 over float32
+               masters, batch 4 x 2048, mode 3 with top-k, 6 steps, exact
+               launches and routes, falling loss, positive aux loss
+  14. modality full size  the reduced musicgen-large and
+               llava-next-mistral-7b card = CPU with the frontend prefix
+               spliced (float32 and bf16), one training step each from the
+               ``Pipeline``'s batches on the card equal to the CPU's; both
+               uncut through ``repro_torch.launch.serve``: batch 8, prompt
+               2048 (its first 256 or 576 positions the frontend prefix),
+               32 new tokens in bf16, exact launches, the same tokens from
+               a second serve, prefill of the prompt plus k tokens against
+               decode step k (phase 8's tolerance), profiled
 
 It imports nothing of JAX or of the JAX package.  The line before the last
 is a JSON object with one record per kernel and float32 entry point; the
@@ -185,6 +215,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_torch,
 )
 from repro_torch import checkpoint as ckpt  # noqa: E402
+from repro_torch.data.pipeline import Pipeline  # noqa: E402
 from repro_torch.data.synthetic import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels.quantize import (  # noqa: E402
     dequantize_blocks,
@@ -217,6 +248,7 @@ from repro_torch.kernels.mlstm_attention.kernel import (  # noqa: E402
 )
 from repro_torch.launch import profile_serve, serve, train  # noqa: E402
 from repro_torch.models import layers, lm, moe, ssm, transformer  # noqa: E402
+from repro_torch.models.modality import frontend_input_name  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.optim.compression import TopKCompressor  # noqa: E402
 from repro_torch.optim.outer import OuterConfig  # noqa: E402
@@ -576,12 +608,15 @@ SDPA_TOL = {torch.float32: 4e-4, torch.bfloat16: 8e-2}
 def attention_kernels(hbm):
     """flash_attention's tensor-core route (bf16, hd 64 and 128) at the
     qwen2-1.5b prefill shape (B*KH = 16, G = 6, S = 2048, hd = 128), at hd
-    64 and at a ragged S, and its CUDA-core route at float32 and at bf16
-    hd 16 (the reduced configs' head dim), each call's route read from
+    64, at a ragged S and at the MHA and llava prefills (G = 1 at hd 128
+    and 64, G = 4), and its CUDA-core route at float32 and at bf16 hd 16
+    (the reduced configs' head dim), each call's route read from
     ``K.ROUTES``; decode_attention, the whole function in one launch (the
     partials are no longer the kernel's output), at the decode shape (B =
     8, KH = 2, G = 6, hd = 128) over a 2080-key cache with kv_len 2049,
-    2080 and 1, its output held against ``decode_attention_torch``."""
+    2080 and 1, and at the deepseek, llava and musicgen decodes (G = 1 hd
+    128, G = 4 hd 128, G = 1 hd 64) with kv_len 2049, each output held
+    against ``decode_attention_torch``."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2025)
@@ -599,7 +634,16 @@ def attention_kernels(hbm):
              None),
             ("(16,6,1024,128) f32", 16, 6, 1024, 128, f32, "simt",
              "flash_attention_f32"),
-            ("(16,6,1024,16) bf16", 16, 6, 1024, 16, bf16, "simt", None)):
+            ("(16,6,1024,16) bf16", 16, 6, 1024, 16, bf16, "simt", None),
+            # G = 1, the MHA prefills: deepseek-moe-16b's (8 x 16 heads, hd
+            # 128) and musicgen-large's (8 x 32 heads, hd 64)
+            ("(128,1,2048,128) bf16 G=1", 128, 1, 2048, 128, bf16, "wgmma",
+             None),
+            ("(256,1,2048,64) bf16 G=1", 256, 1, 2048, 64, bf16, "wgmma",
+             None),
+            # G = 4, llava-next-mistral-7b's GQA prefill (8 x 8 kv heads)
+            ("(64,4,2048,128) bf16 G=4", 64, 4, 2048, 128, bf16, "wgmma",
+             None)):
         q = randn((BK, G, S, hd), dtype)
         k, v = randn((BK, S, hd), dtype), randn((BK, S, hd), dtype)
         flops = 4 * hd * BK * G * (S * (S + 1) // 2)
@@ -648,6 +692,40 @@ def attention_kernels(hbm):
             peak=PEAK_BF16_FLOPS, tol=ATTN_TOL[bf16], library=library)
         if kv_len == 2049:
             records["decode_attention"] = r
+    del q, k, v
+    # G = 1 (deepseek-moe-16b's MHA decode, 16 kv heads), G = 4
+    # (llava-next-mistral-7b's GQA decode, 8 kv heads of 4 query heads) and
+    # G = 1 at hd 64 (musicgen-large's MHA decode, 32 kv heads)
+    for KH, G, hd in ((16, 1, 128), (8, 4, 128), (32, 1, 64)):
+        q = randn((B, KH, G, hd), bf16)
+        k, v = randn((B, S, KH, hd), bf16), randn((B, S, KH, hd), bf16)
+        kv_len = 2049
+
+        def library(q=q, k=k, v=v, KH=KH, G=G, hd=hd):
+            return F.scaled_dot_product_attention(
+                q.reshape(B, KH * G, 1, hd), k[:, :kv_len].transpose(1, 2),
+                v[:, :kv_len].transpose(1, 2), enable_gqa=True)
+        want = decode_attention_torch(q, k, v, kv_len=kv_len)
+        err = float((library().reshape(B, KH, G, hd) - want).abs().max())
+        check(err <= SDPA_TOL[bf16],
+              f"decode G={G} hd={hd}: SDPA is not the same function "
+              f"({err})")
+        K.reset_launches()
+        decode_attention(q, k, v, kv_len=kv_len)
+        torch.cuda.synchronize()
+        check(K.LAUNCHES["decode_attention"] == 1
+              and sum(K.LAUNCHES.values()) == 1,
+              f"decode G={G} hd={hd}: launches {K.LAUNCHES}, expected one")
+        measure(f"decode_attention ({B},{KH},{G},{hd}) cache {S} kv_len="
+                f"{kv_len} bf16 G={G}",
+                lambda q=q, k=k, v=v: decode_attention(q, k, v,
+                                                       kv_len=kv_len),
+                lambda q=q, k=k, v=v: decode_attention_torch(
+                    q, k, v, kv_len=kv_len),
+                (q, k[:, :kv_len], v[:, :kv_len]),
+                4 * hd * B * KH * G * kv_len, hbm, peak=PEAK_BF16_FLOPS,
+                tol=ATTN_TOL[bf16], library=library)
+        del q, k, v, want
     return records
 
 
@@ -681,6 +759,10 @@ TOPK_ROWS = [("gate/up/down (28,13762560) k=137625", 28, 13762560, 137625),
              ("norms/bq (28,1536) k=15", 28, 1536, 15),
              ("bk/bv (28,256) k=2", 28, 256, 2),
              ("final_norm (1,1536) k=15", 1, 1536, 15)]
+#: one row of deepseek-moe-16b's expert leaves, (L, 64, 2048, 1408) cut
+#: into L rows of 64 x 2048 x 1408 entries: 13x qwen2-1.5b's longest row
+TOPK_MOE = [("deepseek experts (1,184549376) k=1845493", 1, 184549376,
+             1845493, False)]
 #: tie-heavy rows (few distinct magnitudes of both signs, and zeros):
 #: (label, nb, block, k, ties)
 TOPK_TIES = [("(100,70001) k=700 ties", 100, 70001, 700, True),
@@ -702,7 +784,8 @@ def compress_kernels(hbm):
     compressors cut them), bitwise against their plain versions; the
     largest shape of quantize and dequantize is timed, and every top-k
     shape, with ``torch.topk`` of |x| beside it and the route it took
-    (``build.ROUTES``).  Plus ties and a ragged final block."""
+    (``build.ROUTES``), one row of deepseek-moe-16b's expert leaves
+    among them.  Plus ties and a ragged final block."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2026)
@@ -742,7 +825,7 @@ def compress_kernels(hbm):
     held("quantize ragged final block", quantize_blocks(ragged, residual=True),
          quantize_torch(ragged, residual=True))
     for i, (label, nb, block, k, ties) in enumerate(
-            [r + (False,) for r in TOPK_ROWS] + TOPK_TIES):
+            [r + (False,) for r in TOPK_ROWS] + TOPK_MOE + TOPK_TIES):
         x = grad_rows(gen, nb, block, dev, ties=ties)
         before = dict(K.ROUTES)
         rec = measure(
@@ -1217,10 +1300,11 @@ JAMBA_BF16_REL = 5e-2
 
 
 def moe_card_vs_cpu(cpu, card, cfg, B, P):
-    """One MoE layer of the reduced jamba on the same bf16 inputs on both
-    devices, over a sequence (grouped, with capacity drops) and one token
-    (dense): the same experts for every token, outputs within
-    JAMBA_BF16_REL of the largest magnitude."""
+    """The first MoE layer of a reduced config (jamba, deepseek-moe-16b,
+    dbrx-132b) on the same bf16 inputs on both devices, over a sequence
+    (grouped, with capacity drops) and one token (dense): the same experts
+    for every token, outputs within JAMBA_BF16_REL of the largest
+    magnitude."""
     layer = next(i for i, b in enumerate(cpu.stack.blocks)
                  if b.spec[1] == "moe")
     pc = layers.leaves(cpu.stack.blocks[layer].ffn)
@@ -1230,14 +1314,15 @@ def moe_card_vs_cpu(cpu, card, cfg, B, P):
         x = torch.randn((B, S, cfg.d_model), generator=gen).to(torch.bfloat16)
         check(torch.equal(moe._route(pc, x, cfg)[2],
                           moe._route(pg, x.cuda(), cfg)[2].cpu()),
-              f"jamba bf16 MoE S={S}: the card routes differently")
+              f"{cfg.name} bf16 MoE S={S}: the card routes differently")
         want = moe.apply_moe(pc, x, cfg)[0].float()
         got = moe.apply_moe(pg, x.cuda(), cfg)[0].float().cpu()
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         check(err <= JAMBA_BF16_REL * scale,
-              f"jamba bf16 MoE S={S}: differs by {err} (largest {scale})")
-        print(f"jamba bf16 MoE layer {layer}, S={S}: same experts, max "
+              f"{cfg.name} bf16 MoE S={S}: differs by {err} (largest "
+              f"{scale})")
+        print(f"{cfg.name} bf16 MoE layer {layer}, S={S}: same experts, max "
               f"|difference| {err:.3g} of largest {scale:.3g}", flush=True)
 
 
@@ -1277,116 +1362,119 @@ def expected_launches(cfg, decode_steps):
     return want
 
 
+def smoke_card_vs_cpu(arch, dtype, B=4, P=64, T=8):
+    """One reduced config (``reduce_for_smoke``) in ``dtype`` from the same
+    seeded weights on both devices: the CPU serves greedily (plain
+    versions), the card replays the CPU's tokens (teacher forcing) through
+    the kernels; a config with a frontend takes the same seeded prefix on
+    both.  Logits agree at every step and, in float32, the card's greedy
+    tokens are the CPU's; an MoE config in bf16 is held on its caches up
+    to the first MoE layer and on that MoE layer alone (JAMBA_BF16_REL
+    says why).  Exact launch counts and routes.  Returns the card's
+    flash launches."""
+    cfg = reduce_for_smoke(get_config(arch)).replace(dtype=dtype)
+    cpu = lm.cast_params_for_compute(lm.LM(cfg, seed=0, device="cpu"))
+    card = copy.deepcopy(cpu).to("cuda")
+    gen = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            dtype=torch.int32)
+    fe = serve.frontend_prefix(cfg, B, 0, "cpu")
+    fe_card = fe.cuda() if fe is not None else None
+    K.reset_launches()
+    want = serve.serve(cpu, prompts, T, fe)
+    check(sum(K.LAUNCHES.values()) == 0,
+          f"{arch}: the CPU run launched kernels")
+    held = cfg.num_experts > 0 and dtype == "bfloat16"
+    if held:    # the CPU's caches, teacher-forced as the card's
+        _, cpu_caches = lm.prefill_step(cpu, prompts, P + T, fe)
+        cpu_prefill = [{n: t.clone() for n, t in c.items()}
+                       for c in cpu_caches]
+        for i in range(T - 1):
+            lm.decode_step(cpu, want.seqs[:, i:i + 1], cpu_caches, P + i)
+    K.reset_launches()
+    logits, caches = lm.prefill_step(card, prompts.cuda(), P + T, fe_card)
+    if held:
+        worst = upstream_caches_agree(
+            f"{arch} bf16 prefill", caches, cpu_prefill, cfg)
+    got = [logits[:, -1]]
+    for i in range(T - 1):
+        tok = want.seqs[:, i:i + 1].cuda()
+        nxt, logits, caches = lm.decode_step(card, tok, caches, P + i)
+        got.append(logits[:, -1])
+        if dtype == "float32":
+            check(torch.equal(nxt.cpu()[:, 0], want.seqs[:, i + 1]),
+                  f"{arch}: greedy token {i + 1} differs on the card")
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check(launches == expected_launches(cfg, T - 1),
+          f"{arch} {dtype}: launches {launches}")
+    n_flash = launches["flash_attention"]
+    n_mlstm = launches["mlstm_attention"]
+    routes = {r: n for r, n in K.ROUTES.items()
+              if r.startswith("flash_attention/")}
+    check(routes == ({"flash_attention/simt": n_flash} if n_flash else {}),
+          f"{arch} {dtype}: flash routes {routes} (hd {cfg.hd}: the "
+          f"CUDA-core route)")
+    routes = {r: n for r, n in K.ROUTES.items()
+              if r.startswith("mlstm_attention/")}
+    check(routes == ({"mlstm_attention/simt": n_mlstm} if n_mlstm else {}),
+          f"{arch} {dtype}: mlstm routes {routes} (float32: the CUDA-core "
+          f"route)")
+    n_scan = launches["mamba_scan"]
+    scan_route = mamba_route(cfg.mamba_expand * cfg.d_model,
+                             cfg.mamba_d_state)
+    routes = {r: n for r, n in K.ROUTES.items()
+              if r.startswith("mamba_scan/")}
+    check(routes == ({f"mamba_scan/{scan_route}": n_scan} if n_scan else {}),
+          f"{arch} {dtype}: scan routes {routes}, expected {scan_route}")
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"{arch} {dtype}: non-finite logits on the card")
+    # stacked, so that a NaN at any step makes the max NaN
+    err = float(torch.stack([(g.cpu() - w).abs().max()
+                             for g, w in zip(got, want.logits)]).max())
+    scale = float(torch.stack([w.abs().max() for w in want.logits]).max())
+    if dtype == "float32":
+        check(err <= LM_F32_TOL, f"{arch}: card logits differ by {err}")
+    elif held:
+        worst = max(worst, upstream_caches_agree(
+            f"{arch} bf16 after {T - 1} steps", caches, cpu_caches, cfg))
+        print(f"{cfg.name} bf16: caches up to the first MoE layer agree "
+              f"within {worst:.3g} of their largest values after prefill "
+              f"and after {T - 1} steps (logits, not held: max |difference| "
+              f"{err:.3g} of largest {scale:.3g})", flush=True)
+        moe_card_vs_cpu(cpu, card, cfg, B, P)
+    else:
+        check(err <= LM_BF16_REL * scale,
+              f"{arch} bf16: card logits differ by {err} (largest logit "
+              f"{scale})")
+    print(f"{cfg.name} {dtype}: {T} steps"
+          + (f", a {cfg.frontend_len}-position {cfg.frontend} prefix"
+             if fe is not None else "")
+          + f", launches flash {launches['flash_attention']} decode "
+          f"{launches['decode_attention']} mamba_scan "
+          f"{launches['mamba_scan']} mlstm_attention "
+          f"{launches['mlstm_attention']}" + ("" if held else
+          f"; card == CPU (max |logit difference| {err:.3g}, largest logit "
+          f"{scale:.3g})"), flush=True)
+    return n_flash
+
+
 @phase("lm_card_vs_cpu")
 def lm_card_vs_cpu():
     """The reduced qwen2-1.5b (QKV bias) and qwen3-0.6b (qk_norm), 2
     layers, jamba-v0.1-52b (Mamba, attention, MoE; one 8-layer period)
-    and xlstm-125m (mLSTM, sLSTM; 6 layers, float32), from the same seeded
-    weights on both devices: the CPU serves greedily (plain versions), the
-    card replays the CPU's tokens (teacher forcing) through the kernels;
-    logits agree at every step and, in float32, the card's greedy tokens
-    are the CPU's.  Jamba in bf16 is held on its caches up to the first
-    MoE layer and on the MoE alone (JAMBA_BF16_REL says why).  Returns the
-    float32 flash launches (all on the CUDA-core route, hd 16)."""
-    B, P, T = 4, 64, 8
+    and xlstm-125m (mLSTM, sLSTM; 6 layers, float32), each through
+    ``smoke_card_vs_cpu``.  Returns the float32 flash launches (all on the
+    CUDA-core route, hd 16)."""
     f32_flash = 0
     for arch, dtypes in (("qwen2-1.5b", ("float32", "bfloat16")),
                          ("qwen3-0.6b", ("float32", "bfloat16")),
                          ("jamba-v0.1-52b", ("float32", "bfloat16")),
                          ("xlstm-125m", ("float32",))):
         for dtype in dtypes:
-            cfg = reduce_for_smoke(get_config(arch)).replace(dtype=dtype)
-            cpu = lm.cast_params_for_compute(lm.LM(cfg, seed=0, device="cpu"))
-            card = copy.deepcopy(cpu).to("cuda")
-            gen = torch.Generator().manual_seed(1)
-            prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
-                                    dtype=torch.int32)
-            K.reset_launches()
-            want = serve.serve(cpu, prompts, T)
-            check(sum(K.LAUNCHES.values()) == 0,
-                  f"{arch}: the CPU run launched kernels")
-            held = arch == "jamba-v0.1-52b" and dtype == "bfloat16"
-            if held:    # the CPU's caches, teacher-forced as the card's
-                _, cpu_caches = lm.prefill_step(cpu, prompts, P + T)
-                cpu_prefill = [{n: t.clone() for n, t in c.items()}
-                               for c in cpu_caches]
-                for i in range(T - 1):
-                    lm.decode_step(cpu, want.seqs[:, i:i + 1], cpu_caches,
-                                   P + i)
-            K.reset_launches()
-            logits, caches = lm.prefill_step(card, prompts.cuda(), P + T)
-            if held:
-                worst = upstream_caches_agree(
-                    f"{arch} bf16 prefill", caches, cpu_prefill, cfg)
-            got = [logits[:, -1]]
-            for i in range(T - 1):
-                tok = want.seqs[:, i:i + 1].cuda()
-                nxt, logits, caches = lm.decode_step(card, tok, caches,
-                                                     P + i)
-                got.append(logits[:, -1])
-                if dtype == "float32":
-                    check(torch.equal(nxt.cpu()[:, 0], want.seqs[:, i + 1]),
-                          f"{arch}: greedy token {i + 1} differs on the card")
-            torch.cuda.synchronize()
-            launches = dict(K.LAUNCHES)
-            check(launches == expected_launches(cfg, T - 1),
-                  f"{arch} {dtype}: launches {launches}")
-            n_flash = launches["flash_attention"]
-            n_mlstm = launches["mlstm_attention"]
-            routes = {r: n for r, n in K.ROUTES.items()
-                      if r.startswith("flash_attention/")}
-            check(routes == ({"flash_attention/simt": n_flash} if n_flash
-                             else {}),
-                  f"{arch} {dtype}: flash routes {routes} (hd "
-                  f"{cfg.hd}: the CUDA-core route)")
-            routes = {r: n for r, n in K.ROUTES.items()
-                      if r.startswith("mlstm_attention/")}
-            check(routes == ({"mlstm_attention/simt": n_mlstm} if n_mlstm
-                             else {}),
-                  f"{arch} {dtype}: mlstm routes {routes} (float32: the "
-                  f"CUDA-core route)")
-            n_scan = launches["mamba_scan"]
-            scan_route = mamba_route(cfg.mamba_expand * cfg.d_model,
-                                     cfg.mamba_d_state)
-            routes = {r: n for r, n in K.ROUTES.items()
-                      if r.startswith("mamba_scan/")}
-            check(routes == ({f"mamba_scan/{scan_route}": n_scan} if n_scan
-                             else {}),
-                  f"{arch} {dtype}: scan routes {routes}, expected "
-                  f"{scan_route}")
+            n_flash = smoke_card_vs_cpu(arch, dtype)
             if dtype == "float32":
                 f32_flash += n_flash
-            check(all(bool(torch.isfinite(g).all()) for g in got),
-                  f"{arch} {dtype}: non-finite logits on the card")
-            # stacked, so that a NaN at any step makes the max NaN
-            err = float(torch.stack([(g.cpu() - w).abs().max()
-                                     for g, w in zip(got, want.logits)]).max())
-            scale = float(torch.stack([w.abs().max()
-                                       for w in want.logits]).max())
-            if dtype == "float32":
-                check(err <= LM_F32_TOL,
-                      f"{arch}: card logits differ by {err}")
-            elif held:
-                worst = max(worst, upstream_caches_agree(
-                    f"{arch} bf16 after {T - 1} steps", caches, cpu_caches,
-                    cfg))
-                print(f"{cfg.name} bf16: caches up to the first MoE layer "
-                      f"agree within {worst:.3g} of their largest values "
-                      f"after prefill and after {T - 1} steps (logits, not "
-                      f"held: max |difference| {err:.3g} of largest "
-                      f"{scale:.3g})", flush=True)
-                moe_card_vs_cpu(cpu, card, cfg, B, P)
-            else:
-                check(err <= LM_BF16_REL * scale,
-                      f"{arch} bf16: card logits differ by {err} "
-                      f"(largest logit {scale})")
-            print(f"{cfg.name} {dtype}: {T} steps, launches flash "
-                  f"{launches['flash_attention']} decode "
-                  f"{launches['decode_attention']} mamba_scan "
-                  f"{launches['mamba_scan']} mlstm_attention "
-                  f"{launches['mlstm_attention']}" + ("" if held else
-                  f"; card == CPU (max |logit difference| {err:.3g}, "
-                  f"largest logit {scale:.3g})"), flush=True)
     return {"flash_attention_f32": f32_flash}
 
 
@@ -1399,14 +1487,15 @@ def lm_card_vs_cpu():
 CROSS_REL = 5e-2
 
 
-def cross_check(label, model, prompts, res, rel):
-    """The logits of a prefill of the prompt plus k generated tokens
-    against decode step k's (k = 1 and the last), within ``rel`` of the
-    largest logit."""
+def cross_check(label, model, prompts, res, rel, frontend=None):
+    """The logits of a prefill of the prompt plus k generated tokens (with
+    ``frontend``, the prefix the serve took, where it took one) against decode
+    step k's (k = 1 and the last), within ``rel`` of the largest logit."""
     T = res.seqs.shape[1]
     for k in (1, T - 1):
         full = torch.cat([prompts, res.seqs[:, :k]], dim=1)
-        logits, _ = lm.prefill_step(model, full)
+        logits, _ = lm.prefill_step(model, full,
+                                    frontend_embeds=frontend)
         want = res.logits[k]
         err = float((logits[:, -1] - want).abs().max())
         scale = float(want.abs().max())
@@ -1429,7 +1518,7 @@ def lm_full_size():
             "--tokens", "32", "--device", "cuda", "--seed", "0"]
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    model, prompts, res = serve.main(argv)
+    model, prompts, _, res = serve.main(argv)
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -1519,6 +1608,52 @@ def leaves_per_pod_step(cfg):
     return len(lm.init_params(cfg, device="cpu"))
 
 
+def train_case_card_vs_cpu(cfg, mode, comp, adamw):
+    """TRAIN_STEPS steps of ``cfg`` at n_pods = 2 in ``mode`` with
+    compressor ``comp`` on the CPU (plain versions) and on the card
+    (kernels) from the same state: losses, aux losses, grad norms and the
+    states agree; exact launch counts."""
+    leaves = leaves_per_pod_step(cfg)
+    spec = train.TrainSpec(mode=AsyncMode(mode), compressor=comp,
+                           adamw=adamw, outer=OuterConfig(sync_period=2))
+    label = f"{cfg.name} mode {mode} {comp or 'plain'}"
+    cpu = train.init_train_state(cfg, spec, TRAIN_PODS, seed=0,
+                                 device="cpu")
+    card = to_device(cpu, "cuda")
+    step = train.make_train_step(cfg, spec, TRAIN_PODS)
+    lr_sum = 0.0
+    K.reset_launches()
+    for b in smoke_batches(cfg, TRAIN_STEPS):
+        card, got = step(card, to_device(b, "cuda"))
+        cpu, want = step(cpu, b)
+        lr_sum += float(want["lr"])
+        gl, wl = float(got["loss"]), float(want["loss"])
+        check(abs(gl / wl - 1) <= TRAIN_LOSS_RTOL,
+              f"{label}: loss {gl} on the card, {wl} on the CPU")
+        ga, wa = float(got["aux"]), float(want["aux"])
+        check(abs(ga - wa) <= TRAIN_LOSS_RTOL * abs(wa),
+              f"{label}: aux loss {ga} on the card, {wa} on the CPU")
+        gn, wn = float(got["grad_norm"]), float(want["grad_norm"])
+        check(abs(gn / wn - 1) <= TRAIN_NORM_RTOL,
+              f"{label}: grad norm {gn} vs {wn}")
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    per = TRAIN_STEPS * TRAIN_PODS
+    want_l = {n: 0 for n in launches}
+    want_l["flash_attention"] = 2 * cfg.num_layers * per
+    if comp == "int8":
+        want_l["quantize"] = want_l["dequantize"] = leaves * per
+    elif comp == "topk":
+        want_l["topk_compress"] = leaves * per
+    check(launches == want_l,
+          f"{label}: launches {launches}, expected {want_l}")
+    worst = state_agrees(label, card, cpu, lr_sum, comp is not None)
+    used = {k: v for k, v in launches.items() if v}
+    print(f"{label}: {TRAIN_STEPS} steps card == CPU (loss {wl:.6f}, aux "
+          f"{wa:.6g}, largest parameter difference {worst:.3g}); launches "
+          f"{used}", flush=True)
+
+
 @phase("train_card_vs_cpu")
 def train_card_vs_cpu():
     """The reduced qwen2-1.5b and qwen3-0.6b, float32, every mode at
@@ -1529,44 +1664,8 @@ def train_card_vs_cpu():
     adamw = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
     for arch in ("qwen2-1.5b", "qwen3-0.6b"):
         cfg = reduce_for_smoke(get_config(arch)).replace(dtype="float32")
-        leaves = leaves_per_pod_step(cfg)
         for mode, comp in TRAIN_CASES:
-            spec = train.TrainSpec(mode=AsyncMode(mode), compressor=comp,
-                                   adamw=adamw,
-                                   outer=OuterConfig(sync_period=2))
-            label = f"{cfg.name} mode {mode} {comp or 'plain'}"
-            cpu = train.init_train_state(cfg, spec, TRAIN_PODS, seed=0,
-                                         device="cpu")
-            card = to_device(cpu, "cuda")
-            step = train.make_train_step(cfg, spec, TRAIN_PODS)
-            lr_sum = 0.0
-            K.reset_launches()
-            for b in smoke_batches(cfg, TRAIN_STEPS):
-                card, got = step(card, to_device(b, "cuda"))
-                cpu, want = step(cpu, b)
-                lr_sum += float(want["lr"])
-                gl, wl = float(got["loss"]), float(want["loss"])
-                check(abs(gl / wl - 1) <= TRAIN_LOSS_RTOL,
-                      f"{label}: loss {gl} on the card, {wl} on the CPU")
-                gn, wn = float(got["grad_norm"]), float(want["grad_norm"])
-                check(abs(gn / wn - 1) <= TRAIN_NORM_RTOL,
-                      f"{label}: grad norm {gn} vs {wn}")
-            torch.cuda.synchronize()
-            launches = dict(K.LAUNCHES)
-            per = TRAIN_STEPS * TRAIN_PODS
-            want_l = {n: 0 for n in launches}
-            want_l["flash_attention"] = 2 * cfg.num_layers * per
-            if comp == "int8":
-                want_l["quantize"] = want_l["dequantize"] = leaves * per
-            elif comp == "topk":
-                want_l["topk_compress"] = leaves * per
-            check(launches == want_l,
-                  f"{label}: launches {launches}, expected {want_l}")
-            worst = state_agrees(label, card, cpu, lr_sum, comp is not None)
-            used = {k: v for k, v in launches.items() if v}
-            print(f"{label}: {TRAIN_STEPS} steps card == CPU (loss "
-                  f"{wl:.6f}, largest parameter difference {worst:.3g}); "
-                  f"launches {used}", flush=True)
+            train_case_card_vs_cpu(cfg, mode, comp, adamw)
     # a checkpoint from the card continues on the CPU
     spec = train.TrainSpec(mode=AsyncMode.BEST_EFFORT, compressor="topk",
                            adamw=adamw)
@@ -1633,6 +1732,20 @@ def real_gradient_kernels(cfg):
     torch.cuda.empty_cache()
 
 
+def leaf_topk_routes(params, steps):
+    """Each leaf's top-k route, from its rows as TopKCompressor cuts them
+    (every leaf is stacked over pods: shape[1:] is a pod's), counted
+    ``steps`` times: {"topk_compress/<route>": launches}."""
+    routes = {}
+    for leaf in params.values():
+        shape = leaf.shape[1:]
+        block = math.prod(shape[1:]) if len(shape) >= 2 else \
+            math.prod(shape)
+        key = f"topk_compress/{topk_route(block)}"
+        routes[key] = routes.get(key, 0) + steps
+    return routes
+
+
 @phase("train_full_size")
 def train_full_size():
     """qwen2-1.5b at full width through the training entry point: bf16
@@ -1651,15 +1764,7 @@ def train_full_size():
         peak = torch.cuda.max_memory_allocated()
         cfg = train.resolve_config("qwen2-1.5b")
         leaves, steps = len(state["params"]), len(history)
-        # each leaf's top-k route, from its rows as TopKCompressor cuts
-        # them (every leaf is stacked over pods: shape[1:] is a pod's)
-        topk_routes = {}
-        for leaf in state["params"].values():
-            shape = leaf.shape[1:]
-            block = math.prod(shape[1:]) if len(shape) >= 2 else \
-                math.prod(shape)
-            key = f"topk_compress/{topk_route(block)}"
-            topk_routes[key] = topk_routes.get(key, 0) + steps
+        topk_routes = leaf_topk_routes(state["params"], steps)
         del state
         torch.cuda.empty_cache()
         want = {n: 0 for n in launches}
@@ -1835,7 +1940,7 @@ def serve_xlstm(dtype):
     result, launches)."""
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    model, prompts, res = serve.main(XLSTM_ARGV + ["--dtype", dtype])
+    model, prompts, _, res = serve.main(XLSTM_ARGV + ["--dtype", dtype])
     torch.cuda.synchronize()
     launches, routes = dict(K.LAUNCHES), dict(K.ROUTES)
     peak = torch.cuda.max_memory_allocated()
@@ -1908,6 +2013,266 @@ def xlstm_full_size():
             "mlstm_attention_f32": launches_f32["mlstm_attention"]}
 
 
+# ---------------------------------------------------------------------------
+# 13. the MoE LMs: deepseek-moe-16b and dbrx-132b serving at full width,
+#     deepseek-moe-16b training at full width
+# ---------------------------------------------------------------------------
+FULL_B, FULL_P, FULL_T = 8, 2048, 32
+#: dbrx-132b's depth cut, 40 -> 8 layers: 8 x 3.26 G parameters and the
+#: two 0.62 G tables are 27.3 G parameters, 54.6 GB in bf16, beside about
+#: 10 GB of prefill transients (the grouped experts at capacity 640)
+DBRX_LAYERS = 8
+#: deepseek-moe-16b's training depth cut, 28 -> 3 layers (2.18 G
+#: parameters), the deepest that fits: the train state (float32 masters,
+#: AdamW m and v, mode 3's ``others``, the top-k residual, the gradient,
+#: the bf16 cast) and the step's transients peaked at 48.62 GiB with 2
+#: layers and 63.18 GiB with 3 on an H100 80GB HBM3; with 4 the step ran
+#: out of the card's 79.18 GiB (each layer adds 0.59 G parameters)
+DEEPSEEK_TRAIN_LAYERS = 3
+
+
+def serve_argv(arch):
+    return ["--arch", arch, "--batch", str(FULL_B), "--prompt-len",
+            str(FULL_P), "--tokens", str(FULL_T), "--device", "cuda",
+            "--seed", "0"]
+
+
+def full_serve_checked(label, model, prompts, res, launches, routes, peak,
+                       frontend=None):
+    """The checks of a full-width serve: one ``flash_attention`` a layer
+    on the tensor-core route and one ``decode_attention`` a layer and step
+    (``expected_launches``), finite logits, (FULL_B, FULL_T) tokens, the
+    same tokens from a second serve (with ``frontend``, the prefix the
+    first took); prints the ``[serve]`` line."""
+    cfg = model.cfg
+    want = expected_launches(cfg, FULL_T - 1)
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+    check(routes == {"flash_attention/wgmma": want["flash_attention"]},
+          f"{label}: routes {routes}, expected {want['flash_attention']} "
+          f"flash wgmma")
+    check(all(bool(torch.isfinite(x).all()) for x in res.logits),
+          f"{label}: non-finite logits")
+    check(tuple(res.seqs.shape) == (FULL_B, FULL_T),
+          f"{label}: seqs {tuple(res.seqs.shape)}")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[serve] {label} ({n_params} parameters, {cfg.dtype}) "
+          f"{FULL_B}x({FULL_P}+{FULL_T}): prefill {res.prefill_ms:.1f} ms, "
+          f"decode {res.decode_ms_per_token:.3f} ms/step, "
+          f"{res.tokens_per_s:.1f} tokens/s, peak {peak / 2 ** 30:.2f} GiB; "
+          f"launches {dict((k, v) for k, v in launches.items() if v)}, "
+          f"routes {routes}", flush=True)
+    again = serve.serve(model, prompts, FULL_T, frontend)
+    check(torch.equal(again.seqs, res.seqs),
+          f"{label}: a second serve gave other tokens")
+    print(f"second serve: same tokens (prefill {again.prefill_ms:.1f} ms, "
+          f"decode {again.decode_ms_per_token:.3f} ms/step)", flush=True)
+
+
+def profiled(label, model, prompts, frontend_embeds=None):
+    """``profile_serve.profile_serving`` over one prefill and 8 decode
+    steps, summarised in one line."""
+    torch.cuda.empty_cache()
+    pre, dec = profile_serve.profile_serving(model, prompts, 8,
+                                             frontend_embeds)
+    print(f"[serve] {label} profiled: prefill {pre['wall_ms_per_call']:.1f} "
+          f"ms ({pre['kernel_launches_per_call']:.0f} launches, device busy "
+          f"{pre['device_busy_share']:.3f}), decode "
+          f"{dec['wall_ms_per_call']:.3f} ms/step "
+          f"({dec['kernel_launches_per_call']:.0f} launches/step, device "
+          f"busy {dec['device_busy_share']:.3f})", flush=True)
+
+
+def deepseek_train_full_size():
+    """deepseek-moe-16b at full width (d 2048, 64 experts of width 1408
+    top-6, 2 shared; depth cut to DEEPSEEK_TRAIN_LAYERS) through
+    ``train.run_training``: bf16 compute over float32 masters, batch 4 x
+    seq 2048, one pod, mode 3 with the top-k compressor, 6 steps, the
+    launch counters zeroed just before and read just after: 2 flash
+    launches a layer and step (the forward and its recompute), all on the
+    tensor-core route, one ``topk_compress`` a leaf and step on its route
+    (each expert leaf a row of 184,549,376 a layer); finite, falling loss
+    and a positive, finite aux loss on every step."""
+    cfg = get_config("deepseek-moe-16b").replace(
+        num_layers=DEEPSEEK_TRAIN_LAYERS)
+    steps = 6
+    spec = train.TrainSpec(mode=AsyncMode.BEST_EFFORT, compressor="topk",
+                           adamw=AdamWConfig(lr=3e-3, warmup_steps=20,
+                                             total_steps=steps))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    state, history = train.run_training(
+        cfg, spec, DataConfig(cfg.vocab_size, 2048, 4, seed=0), steps=steps,
+        log_every=1, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    launches, routes = dict(K.LAUNCHES), dict(K.ROUTES)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(v[0].numel() for v in state["params"].values())
+    leaves = len(state["params"])
+    want = {n: 0 for n in launches}
+    want["flash_attention"] = 2 * cfg.num_layers * steps
+    want["topk_compress"] = leaves * steps
+    check(launches == want,
+          f"deepseek train: launches {launches}, expected {want}")
+    want_routes = {"flash_attention/wgmma": want["flash_attention"],
+                   **leaf_topk_routes(state["params"], steps)}
+    check(routes == want_routes,
+          f"deepseek train: routes {routes}, expected {want_routes}")
+    del state
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in history]
+    auxes = [h["aux"] for h in history]
+    check(len(history) == steps and all(np.isfinite(losses)),
+          f"deepseek train: losses {losses}")
+    check(losses[-1] < losses[0], f"deepseek train: loss did not fall: "
+                                  f"{losses}")
+    check(all(np.isfinite(a) and a > 0 for a in auxes),
+          f"deepseek train: aux losses {auxes}")
+    ms = [h["ms"] for h in history]
+    steady = statistics.mean(ms[1:])
+    print(f"[train] deepseek-moe-16b at full width, {cfg.num_layers} "
+          f"layers ({n_params} parameters), bf16 over float32 masters, "
+          f"batch 4 x 2048, mode 3 top-k: losses "
+          f"{[round(x, 4) for x in losses]}, aux {[round(a, 5) for a in auxes]}"
+          f", step ms {[round(x, 1) for x in ms]}, {steady:.1f} ms/step and "
+          f"{4 * 2048 * 1e3 / steady:.0f} tokens/s after step 1, peak "
+          f"{peak / 2 ** 30:.2f} GiB; launches "
+          f"{dict((k, v) for k, v in launches.items() if v)}, routes "
+          f"{routes}", flush=True)
+
+
+@phase("moe_full_size")
+def moe_full_size():
+    """The MoE archs.  Their reduced configs card against CPU: serving
+    (``smoke_card_vs_cpu``, float32 and bf16) and training (float32, mode
+    3 with top-k and mode 0, ``train_case_card_vs_cpu``).  deepseek-moe-16b
+    uncut (28 layers, 16.9 G parameters) through ``serve.main`` and
+    dbrx-132b at full width (d 6144, 16 experts of width 10752 top-4, GQA
+    48/8), depth cut to DBRX_LAYERS, built leaf by leaf in bf16, through
+    ``serve.serve``: batch 8, prompt 2048, 32 new tokens, each with the
+    launch counters zeroed just before and read just after, and profiled.
+    An MoE's prefill drops pairs over capacity and its decode drops none,
+    so prefill and decode are not held to each other.  Then
+    ``deepseek_train_full_size``."""
+    adamw = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    for arch in ("deepseek-moe-16b", "dbrx-132b"):
+        for dtype in ("float32", "bfloat16"):
+            smoke_card_vs_cpu(arch, dtype)
+        cfg = reduce_for_smoke(get_config(arch)).replace(dtype="float32")
+        for mode, comp in ((3, "topk"), (0, None)):
+            train_case_card_vs_cpu(cfg, mode, comp, adamw)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    model, prompts, _, res = serve.main(serve_argv("deepseek-moe-16b"))
+    torch.cuda.synchronize()
+    full_serve_checked("deepseek-moe-16b", model, prompts, res,
+                       dict(K.LAUNCHES), dict(K.ROUTES),
+                       torch.cuda.max_memory_allocated())
+    profiled("deepseek-moe-16b", model, prompts)
+    del model, res
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = get_config("dbrx-132b").replace(num_layers=DBRX_LAYERS,
+                                          param_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.LM(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"dbrx-132b at full width, {DBRX_LAYERS} layers: built in bf16 in "
+          f"{time.perf_counter() - t0:.1f}s (each leaf drawn in float32 and "
+          f"cast at once; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+          f" GiB)", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (FULL_B, FULL_P),
+                            generator=gen, device=dev, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    res = serve.serve(model, prompts, FULL_T)
+    torch.cuda.synchronize()
+    full_serve_checked(f"dbrx-132b ({DBRX_LAYERS} layers)", model, prompts,
+                       res, dict(K.LAUNCHES), dict(K.ROUTES),
+                       torch.cuda.max_memory_allocated())
+    profiled(f"dbrx-132b ({DBRX_LAYERS} layers)", model, prompts)
+    del model, res
+    torch.cuda.empty_cache()
+    deepseek_train_full_size()
+
+
+# ---------------------------------------------------------------------------
+# 14. the audio and vision LMs: musicgen-large and llava-next-mistral-7b
+#     serving uncut, with their frontend prefix
+# ---------------------------------------------------------------------------
+def pipeline_step_card_vs_cpu(arch):
+    """One training step of ``arch``'s reduced config, float32, on each
+    device from the same state, its batch from a ``Pipeline`` on that
+    device (the frontend input included): the same loss and state."""
+    cfg = reduce_for_smoke(get_config(arch)).replace(dtype="float32")
+    spec = train.TrainSpec(adamw=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                             total_steps=20))
+    data = DataConfig(cfg.vocab_size, 64, 4, seed=3)
+    cpu = train.init_train_state(cfg, spec, 1, seed=0, device="cpu")
+    card = to_device(cpu, "cuda")
+    step = train.make_train_step(cfg, spec, 1)
+    out = {}
+    for dev, state in (("cuda", card), ("cpu", cpu)):
+        pipe = Pipeline(data, cfg, device=dev)
+        k, batch = next(pipe)
+        pipe.close()
+        check(k == 0 and sorted(batch) == sorted(
+            ["tokens", "labels", frontend_input_name(cfg)])
+            and all(v.device.type == dev for v in batch.values()),
+            f"{arch}: pipeline batch {k} {sorted(batch)} on {dev}")
+        K.reset_launches()
+        out[dev] = step(state, {n: v[None] for n, v in batch.items()})[1]
+        torch.cuda.synchronize()
+        check(K.LAUNCHES["flash_attention"] == (2 * cfg.num_layers if
+                                                 dev == "cuda" else 0),
+              f"{arch}: launches {K.LAUNCHES} on {dev}")
+    gl, wl = float(out["cuda"]["loss"]), float(out["cpu"]["loss"])
+    check(abs(gl / wl - 1) <= TRAIN_LOSS_RTOL,
+          f"{arch}: pipeline step loss {gl} on the card, {wl} on the CPU")
+    worst = state_agrees(f"{arch} pipeline step", card, cpu,
+                         float(out["cpu"]["lr"]), False)
+    print(f"{cfg.name}: one step from the Pipeline's batches, card == CPU "
+          f"(loss {wl:.6f}, largest parameter difference {worst:.3g})",
+          flush=True)
+
+
+@phase("modality_full_size")
+def modality_full_size():
+    """The audio and vision archs.  Their reduced configs card against CPU
+    with the frontend prefix spliced (``smoke_card_vs_cpu``, float32 and
+    bf16) and one training step each through the ``Pipeline``.  Then
+    musicgen-large uncut (48 layers, 3.2 G parameters, MHA at hd 64) and
+    llava-next-mistral-7b uncut (32 layers, 7.2 G parameters, GQA 32/8 at
+    hd 128) through ``serve.main``: batch 8, prompt 2048 whose first 256
+    (musicgen) or 576 (llava) positions are the frontend prefix, 32 new
+    tokens, in bf16, the launch counters zeroed just before and read just
+    after; prefill of the prompt plus k tokens gives decode step k's
+    logits within CROSS_REL (phase 8's); profiled."""
+    for arch in ("musicgen-large", "llava-next-mistral-7b"):
+        for dtype in ("float32", "bfloat16"):
+            smoke_card_vs_cpu(arch, dtype)
+        pipeline_step_card_vs_cpu(arch)
+    for arch in ("musicgen-large", "llava-next-mistral-7b"):
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        model, prompts, frontend, res = serve.main(serve_argv(arch))
+        torch.cuda.synchronize()
+        cfg = model.cfg
+        check(frontend is not None and tuple(frontend.shape) == (
+            FULL_B, cfg.frontend_len, cfg.d_model),
+              f"{arch}: frontend prefix {frontend}")
+        full_serve_checked(arch, model, prompts, res, dict(K.LAUNCHES),
+                           dict(K.ROUTES), torch.cuda.max_memory_allocated(),
+                           frontend)
+        cross_check(arch, model, prompts, res, CROSS_REL, frontend)
+        profiled(arch, model, prompts, frontend)
+        del model, res, frontend
+        torch.cuda.empty_cache()
+
+
 #: each kernel entry point of the kernels JSON line: (name, kernel source
 #: key, TPU kernel it replaces)
 ENTRIES = (
@@ -1960,6 +2325,8 @@ def main():
     launched.update(train_full_size())
     launched.update(jamba_full_size())
     launched.update(xlstm_full_size())
+    moe_full_size()
+    modality_full_size()
     kernels_line = []
     for entry, kname, replaces in ENTRIES:
         rec = records[entry]

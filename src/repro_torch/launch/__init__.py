@@ -1,1 +1,2 @@
-"""Launchers of the port: so far the serving driver."""
+"""Launchers of the port: the serving and training entry points and
+their profilers."""

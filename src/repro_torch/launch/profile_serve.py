@@ -14,9 +14,11 @@ wall ms per call (profiler on), CUDA kernel launches per call, the
 device's busy ms per call (the sum of kernel times), the busy share of the
 wall time, the kernels that take the most device time, and the host-side
 operations that take the most CPU time.  Needs a CUDA device.
-``profile_serving(model, prompts, steps)`` does the same for a model built
-by the caller (``chip_smoke.py`` profiles the one-period full-width jamba
-with it).  ``--arch xlstm-125m`` profiles xLSTM at full width and depth.
+``profile_serving(model, prompts, steps[, frontend_embeds])`` does the
+same for a model built by the caller (``chip_smoke.py`` profiles the
+one-period full-width jamba and dbrx-132b's 8 layers with it).  ``--arch
+xlstm-125m`` profiles xLSTM at full width and depth; an arch with a
+frontend is profiled with its prefix.
 """
 from __future__ import annotations
 
@@ -52,16 +54,19 @@ def _summary(prof, wall: float, calls: int, label: str) -> dict:
                       for e in top_host])
 
 
-def profile_serving(model: lm.LM, prompts: torch.Tensor, steps: int) -> list:
-    """Warm ``model`` up with one prefill of ``prompts`` (B, P) and two
-    decode steps, then profile one prefill (with the cache allocation and
-    copy) and ``steps`` decode steps; returns one summary for each (see
-    the module's docstring).  Works for any model the server serves (the
-    dense archs, jamba and xLSTM)."""
+def profile_serving(model: lm.LM, prompts: torch.Tensor, steps: int,
+                    frontend_embeds=None) -> list:
+    """Warm ``model`` up with one prefill of ``prompts`` (B, P) (with
+    ``frontend_embeds`` over their first positions where the model has a
+    frontend) and two decode steps, then profile one prefill (with the
+    cache allocation and copy) and ``steps`` decode steps; returns one
+    summary for each (see the module's docstring).  Works for any model
+    the server serves."""
     B, P = prompts.shape
 
     def prefill():
-        logits, caches = lm.prefill_step(model, prompts, P + steps + 2)
+        logits, caches = lm.prefill_step(model, prompts, P + steps + 2,
+                                         frontend_embeds)
         return logits.argmax(dim=-1).to(torch.int32), caches
 
     def decode(tok, caches, n, start):
@@ -105,8 +110,8 @@ def main(argv=None) -> list:
     a = p.parse_args(argv)
     if torch.device(a.device).type != "cuda":
         p.error("profile_serve profiles the card: --device cuda")
-    model, prompts = serve.build_server(a)
-    return profile_serving(model, prompts, a.steps)
+    model, prompts, frontend = serve.build_server(a)
+    return profile_serving(model, prompts, a.steps, frontend)
 
 
 if __name__ == "__main__":

@@ -5,9 +5,11 @@ step of ``repro_torch.launch.train``.
         [--batch 4] [--seq 2048] [--mode 3] [--compressor topk]
 
 Takes ``train``'s flags (with qwen2-1.5b, batch 4, seq 2048, mode 3 and
-the top-k compressor as the defaults), builds the train state as
-``run_training`` does (seeded float32 masters, pod-stacked), runs two
-steps to warm up, then profiles one step on the third batch and prints
+the top-k compressor as the defaults; any arch ``train`` takes), builds
+the train state as ``run_training`` does (seeded float32 masters,
+pod-stacked) and its batches as the ``Pipeline`` does (the frontend input
+too, where the arch has one), runs two steps to warm up, then profiles
+one step on the third batch and prints
 one JSON line: wall ms (profiler on), CUDA kernel launches, the device's
 busy ms (the sum of kernel times), the busy share of the wall time, the
 kernels that take the most device time and the host-side operations that
@@ -23,7 +25,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core.modes import AsyncMode
-from repro_torch.data.synthetic import DataConfig, SyntheticLM
+from repro_torch.data.pipeline import Pipeline
+from repro_torch.data.synthetic import DataConfig
 from repro_torch.launch import train
 from repro_torch.launch.profile_serve import _summary
 from repro_torch.optim.adamw import AdamWConfig
@@ -44,21 +47,21 @@ def main(argv=None) -> dict:
                                              total_steps=a.steps),
                            compressor=(None if a.compressor == "none"
                                        else a.compressor))
-    src = SyntheticLM(DataConfig(cfg.vocab_size, a.seq, a.batch,
-                                 seed=a.seed))
+    pipeline = Pipeline(DataConfig(cfg.vocab_size, a.seq, a.batch,
+                                   seed=a.seed), cfg, device=dev)
 
-    def batch(k):
-        return {n: torch.as_tensor(v).to(dev).reshape(
-                    a.n_pods, a.batch // a.n_pods, a.seq)
-                for n, v in src.batch_for_step(k).items()}
+    def batch():
+        return {n: v.reshape(a.n_pods, a.batch // a.n_pods, *v.shape[1:])
+                for n, v in next(pipeline)[1].items()}
 
     torch.cuda.reset_peak_memory_stats(dev)
     state = train.init_train_state(cfg, spec, a.n_pods, seed=a.seed,
                                    device=dev)
     step = train.make_train_step(cfg, spec, a.n_pods)
-    for k in range(2):
-        state, _ = step(state, batch(k))
-    third = batch(2)
+    for _ in range(2):
+        state, _ = step(state, batch())
+    third = batch()
+    pipeline.close()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

@@ -7,14 +7,19 @@ the compute dtype once, prefills a batch of random prompts, allocates each
 attention layer's KV cache to ``prompt + tokens`` positions with the
 prefill's k/v in front (a Mamba layer's cache is its state, as the prompt
 leaves it) and runs ``tokens - 1`` decode steps, each writing its token's
-k/v or new state into the caches in place.  It serves the dense archs,
-jamba (``jamba-v0.1-52b``, and ``jamba-v0.1-52b-smoke``, its reduced
-8-layer config) and xLSTM (``xlstm-125m``, and ``xlstm-125m-smoke``, its
-reduced 6-layer config).  On the card, attention runs through the
-hand-written CUDA flash-attention (prefill) and flash-decoding (decode)
-kernels, the Mamba prefill through the selective-scan kernel and the
-mLSTM prefill through the mLSTM kernel; on the CPU through their plain
-torch versions.  The sLSTM is plain torch on both.
+k/v or new state into the caches in place.  It serves every registered
+arch, and ``NAME-smoke``, NAME's reduced config: the dense archs, the MoE
+archs (``deepseek-moe-16b``, ``dbrx-132b``), the audio and vision archs
+(``musicgen-large``, ``llava-next-mistral-7b``), jamba
+(``jamba-v0.1-52b``) and xLSTM (``xlstm-125m``).  An arch with a frontend
+takes a stub frontend input, the first ``frontend_len`` positions of
+every prompt: embeddings drawn from the seed as the training data draws
+them (``SyntheticLM.frontend_for_step``).  On the card, attention runs
+through the hand-written CUDA flash-attention (prefill) and
+flash-decoding (decode) kernels, the Mamba prefill through the
+selective-scan kernel and the mLSTM prefill through the mLSTM kernel; on
+the CPU through their plain torch versions.  The sLSTM is plain torch on
+both.
 
 Run::
 
@@ -25,9 +30,15 @@ Run::
         --arch jamba-v0.1-52b-smoke --dtype float32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch xlstm-125m-smoke --dtype float32
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch deepseek-moe-16b-smoke --dtype float32
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch llava-next-mistral-7b-smoke --prompt-len 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --batch 8 --prompt-len 2048 --tokens 32          # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
+        --batch 8 --prompt-len 2048 --tokens 32          # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large \\
         --batch 8 --prompt-len 2048 --tokens 32          # on the card
 """
 from __future__ import annotations
@@ -42,8 +53,10 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.smoke import reduce_for_smoke
+from repro_torch.data.synthetic import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
+from repro_torch.models.modality import frontend_shape
 
 #: examples/serve_lm.py's model, the default
 SERVE_DEMO = ModelConfig(name="serve-demo", family="dense", num_layers=4,
@@ -52,8 +65,8 @@ SERVE_DEMO = ModelConfig(name="serve-demo", family="dense", num_layers=4,
 
 
 def make_prefill_step(model: lm.LM, cache_len: Optional[int] = None):
-    def prefill_step(tokens):
-        return lm.prefill_step(model, tokens, cache_len)
+    def prefill_step(tokens, frontend_embeds=None):
+        return lm.prefill_step(model, tokens, cache_len, frontend_embeds)
     return prefill_step
 
 
@@ -90,14 +103,18 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(model: lm.LM, prompts: torch.Tensor, tokens: int) -> ServeResult:
-    """Prefill ``prompts`` (B, P), then ``tokens - 1`` greedy decode steps;
-    timed on the host clock around work that ends in a synchronize."""
+def serve(model: lm.LM, prompts: torch.Tensor, tokens: int,
+          frontend_embeds: Optional[torch.Tensor] = None) -> ServeResult:
+    """Prefill ``prompts`` (B, P), with ``frontend_embeds`` (B,
+    ``frontend_len``, d) over their first positions where the model has a
+    frontend, then ``tokens - 1`` greedy decode steps; timed on the host
+    clock around work that ends in a synchronize."""
     dev = prompts.device
     B, P = prompts.shape
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = make_prefill_step(model, P + tokens)(prompts)
+    logits, caches = make_prefill_step(model, P + tokens)(prompts,
+                                                          frontend_embeds)
     _sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     tok = logits.argmax(dim=-1).to(torch.int32)
@@ -119,9 +136,8 @@ def serve(model: lm.LM, prompts: torch.Tensor, tokens: int) -> ServeResult:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default=SERVE_DEMO.name,
-                    help="serve-demo (default), a registered dense arch, "
-                         "jamba-v0.1-52b or xlstm-125m, or NAME-smoke for "
-                         "its reduced config")
+                    help="serve-demo (default), a registered arch, or "
+                         "NAME-smoke for its reduced config")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--tokens", type=int, default=16)
@@ -133,28 +149,48 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build_server(args) -> Tuple[lm.LM, torch.Tensor]:
+def frontend_prefix(cfg, batch: int, seed: int, device
+                    ) -> Optional[torch.Tensor]:
+    """The stub frontend input for ``batch`` prompts, (batch,
+    ``cfg.frontend_len``, d) float32 on ``device``, drawn from ``seed`` as
+    the training data draws step 0's (``SyntheticLM.frontend_for_step``);
+    None for a config without a frontend."""
+    if not cfg.frontend:
+        return None
+    B, P, d = frontend_shape(cfg, batch)
+    source = SyntheticLM(DataConfig(cfg.vocab_size, P, B, seed=seed))
+    return torch.from_numpy(source.frontend_for_step(0, P, d)).to(device)
+
+
+def build_server(args) -> Tuple[lm.LM, torch.Tensor, Optional[torch.Tensor]]:
     """The model the flags name, from ``--seed`` and cast once to the
-    compute dtype, and a batch of random prompts (B, prompt_len)."""
+    compute dtype, a batch of random prompts (B, prompt_len), and their
+    frontend input (``frontend_prefix``; None without a frontend)."""
     dev = resolve_device(args.device)
     cfg = resolve_config(args.arch, args.dtype)
+    if args.prompt_len < cfg.frontend_len:
+        raise ValueError(f"--prompt-len {args.prompt_len} is shorter than "
+                         f"{cfg.name}'s frontend prefix ({cfg.frontend_len})")
     model = lm.cast_params_for_compute(lm.LM(cfg, seed=args.seed, device=dev))
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=dev, dtype=torch.int32)
-    return model, prompts
+    return model, prompts, frontend_prefix(cfg, args.batch, args.seed, dev)
 
 
 def main(argv=None):
     """Build a server from the flags, serve one batch, print the timings.
-    Returns (model, prompts, ServeResult)."""
+    Returns (model, prompts, frontend, ServeResult), ``frontend`` the
+    input the prompts were served with (``build_server``'s)."""
     args = build_parser().parse_args(argv)
-    model, prompts = build_server(args)
+    model, prompts, frontend = build_server(args)
     cfg, dev = model.cfg, prompts.device
-    res = serve(model, prompts, args.tokens)
+    res = serve(model, prompts, args.tokens, frontend)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"[serve] {cfg.name} ({cfg.dtype}) on {name}")
+    print(f"[serve] {cfg.name} ({cfg.dtype}) on {name}"
+          + (f", a {cfg.frontend} frontend prefix of {cfg.frontend_len} "
+             f"positions" if cfg.frontend else ""))
     print(f"[serve] prefill {args.batch}x{args.prompt_len}: "
           f"{res.prefill_ms:.1f} ms")
     print(f"[serve] decoded {args.tokens} tokens/seq x {args.batch} seqs: "
@@ -162,7 +198,7 @@ def main(argv=None):
           f"{res.tokens_per_s:.1f} tokens/s")
     for b in range(min(args.batch, 2)):
         print(f"  seq{b}: {res.seqs[b].tolist()}")
-    return model, prompts, res
+    return model, prompts, frontend, res
 
 
 if __name__ == "__main__":

@@ -17,6 +17,13 @@ run one after another on one device, each on its slice of the batch.
            only the next step's update.
   mode 4 — fully independent pods.
 
+It trains every arch whose blocks train: the dense archs, the MoE archs
+(``deepseek-moe-16b``, ``dbrx-132b``; the router's aux loss joins the
+loss) and the audio and vision archs (``musicgen-large``,
+``llava-next-mistral-7b``; each step's batch carries the stub frontend
+input), each also as ``NAME-smoke``, its reduced config.  A ``Pipeline``
+thread makes each step's batch and moves it to the device one step ahead.
+
 The step updates the state IN PLACE (the reference returns a new one):
 at qwen2-1.5b's width the float32 state is 31 GB, and a second copy
 would not fit beside the activations.  On the card attention runs
@@ -31,6 +38,10 @@ Run::
         --arch qwen2-1.5b-smoke --steps 30 --batch 8 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch qwen2-1.5b-smoke --mode 3 --n-pods 2 --compressor topk
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch deepseek-moe-16b-smoke --steps 10 --batch 4 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch musicgen-large-smoke --steps 10 --batch 4 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
         --batch 4 --seq 2048 --steps 6 --mode 3 --compressor int8   # card
 """
@@ -48,7 +59,8 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.smoke import reduce_for_smoke
 from repro_torch.core.modes import AsyncMode
-from repro_torch.data.synthetic import DataConfig, SyntheticLM
+from repro_torch.data.pipeline import Pipeline
+from repro_torch.data.synthetic import DataConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.optim import adamw as adamw_mod
@@ -270,12 +282,13 @@ def run_training(cfg, spec: TrainSpec, data_cfg: DataConfig, *, steps: int,
     """Train for ``steps`` steps with checkpoint/restart.
 
     Restores from the latest checkpoint in ``ckpt_dir`` if one exists; the
-    per-step data stream (``SyntheticLM.batch_for_step``) resumes exactly.
-    Returns (state, history): one entry per logged step with the metrics
-    and ``ms``, the wall time per step since the previous entry (the host
-    clock around work that ends in a synchronize)."""
+    per-step data stream (``SyntheticLM.batch_for_step``, and the frontend
+    input where ``cfg`` has one), prefetched onto the device by a
+    ``Pipeline`` thread, resumes exactly.  Returns (state, history): one
+    entry per logged step with the metrics and ``ms``, the wall time per
+    step since the previous entry (the host clock around work that ends in
+    a synchronize)."""
     dev = resolve_device(device)
-    source = SyntheticLM(data_cfg)
     state = init_train_state(cfg, spec, n_pods, seed=seed, device=dev)
     start = 0
     if ckpt_dir is not None:
@@ -288,28 +301,31 @@ def run_training(cfg, spec: TrainSpec, data_cfg: DataConfig, *, steps: int,
     step_fn = make_train_step(cfg, spec, n_pods)
     history = []
 
-    def pod_batch(k):
-        return {key: torch.as_tensor(v).to(dev).reshape(
-                    n_pods, v.shape[0] // n_pods, *v.shape[1:])
-                for key, v in source.batch_for_step(k).items()}
+    def pod_batch(batch):
+        return {key: v.reshape(n_pods, v.shape[0] // n_pods, *v.shape[1:])
+                for key, v in batch.items()}
 
-    _sync(dev)
-    t_prev, k_prev = time.perf_counter(), start
-    for k in range(start, steps):
-        state, metrics = step_fn(state, pod_batch(k))
-        if (k + 1) % log_every == 0 or k == steps - 1:
-            m = {key: float(v) for key, v in metrics.items()}
-            _sync(dev)
-            now = time.perf_counter()
-            m["ms"] = (now - t_prev) * 1e3 / (k + 1 - k_prev)
-            t_prev, k_prev = now, k + 1
-            history.append({"step": k + 1, **m})
-            log(f"[train] step {k + 1}: loss={m['loss']:.4f} "
-                f"grad_norm={m['grad_norm']:.3f} lr={m['lr']:.2e} "
-                f"{m['ms']:.1f} ms/step")
-        if ckpt_dir is not None and (k + 1) % ckpt_every == 0:
-            ckpt_mod.save(ckpt_dir, state, k + 1)
-            ckpt_mod.prune(ckpt_dir, keep=2)
+    pipeline = Pipeline(data_cfg, cfg, start_step=start, device=dev)
+    try:
+        _sync(dev)
+        t_prev, k_prev = time.perf_counter(), start
+        for k in range(start, steps):
+            state, metrics = step_fn(state, pod_batch(next(pipeline)[1]))
+            if (k + 1) % log_every == 0 or k == steps - 1:
+                m = {key: float(v) for key, v in metrics.items()}
+                _sync(dev)
+                now = time.perf_counter()
+                m["ms"] = (now - t_prev) * 1e3 / (k + 1 - k_prev)
+                t_prev, k_prev = now, k + 1
+                history.append({"step": k + 1, **m})
+                log(f"[train] step {k + 1}: loss={m['loss']:.4f} "
+                    f"aux={m['aux']:.4g} grad_norm={m['grad_norm']:.3f} "
+                    f"lr={m['lr']:.2e} {m['ms']:.1f} ms/step")
+            if ckpt_dir is not None and (k + 1) % ckpt_every == 0:
+                ckpt_mod.save(ckpt_dir, state, k + 1)
+                ckpt_mod.prune(ckpt_dir, keep=2)
+    finally:
+        pipeline.close()
     return state, history
 
 
@@ -342,7 +358,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="10m",
                     help="10m (default) or 100m (examples/train_lm.py's "
-                         "presets), a registered dense arch, or NAME-smoke")
+                         "presets), a registered arch whose blocks train "
+                         "(dense, MoE, audio, vision), or NAME-smoke")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--steps", type=int, default=200)

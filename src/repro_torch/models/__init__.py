@@ -1,3 +1,4 @@
-"""The decoder-only LM of the port: layers, attention, the block stack and
-the top-level LM.  So far the dense ``('attn', 'mlp')`` block, which the
-serving path runs; the other block kinds come with their slices."""
+"""The decoder-only LM of the port: layers, attention, the MoE FFN, the
+Mamba, mLSTM and sLSTM mixers, the block stack, the modality frontend
+stubs and the top-level LM.  Every block kind serves; the attention
+blocks (MLP or MoE FFN) also train."""

@@ -1,6 +1,9 @@
 """Top-level decoder-only LM: init, the compute cast, forward, loss,
-prefill and decode.  The counterpart of src/repro/models/lm.py (modality
-frontends come with the audio and VLM families).
+prefill and decode.  The counterpart of src/repro/models/lm.py.  A
+config with a frontend (audio, vision) takes its stub input, precomputed
+embeddings (B, ``cfg.frontend_len``, d), spliced over the first positions
+of the token embedding (``models/modality.py``) in prefill and in the
+training forward; decode takes tokens only.
 
 Serving holds the weights in an ``LM`` module, one block per layer; the
 reference casts its float32 masters to the compute dtype inside every
@@ -23,6 +26,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
+from repro_torch.models.modality import frontend_input_name, splice_frontend
 from repro_torch.models.transformer import Stack, block_specs, stack_forward
 from repro_torch.pytree import flatten, unflatten
 
@@ -36,10 +40,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg, *, seed: int = 0, device="cuda"):
         super().__init__()
-        if cfg.frontend is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: modality frontends are not ported yet; their "
-                f"reference is src/repro/models/modality.py (ROADMAP Queue 1)")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -65,18 +65,36 @@ class LM(nn.Module):
         x = layers.rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return layers.unembed(self._table(), x)
 
-    def _prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Caches]:
+    def _prefill(self, tokens: torch.Tensor,
+                 frontend_embeds: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Caches]:
         B, S = tokens.shape
-        x = layers.embed(self.embed, tokens, self.compute_dtype)
+        x = embed_inputs(self.embed, tokens, self.cfg, frontend_embeds,
+                         self.compute_dtype)
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
         return self.stack.prefill(x, positions)
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: (B, S) -> logits (B, S, V) float32."""
-        x, _ = self._prefill(tokens)
+    def forward(self, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """tokens: (B, S), frontend_embeds: (B, P, d) or None -> logits
+        (B, S, V) float32."""
+        x, _ = self._prefill(tokens, frontend_embeds)
         return self._logits(x)
+
+
+def embed_inputs(table: torch.Tensor, tokens: torch.Tensor, cfg,
+                 frontend_embeds: Optional[torch.Tensor],
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The token embedding in ``dtype``, its first P positions replaced by
+    ``frontend_embeds`` (B, P, d) where ``cfg`` has a frontend and they
+    are given (the reference's ``_embed_inputs``)."""
+    x = layers.embed(table, tokens, dtype)
+    if cfg.frontend is not None and frontend_embeds is not None:
+        x = splice_frontend(x, frontend_embeds)
+    return x
 
 
 def _cast_rule(path: str, leaf_ndim: int) -> bool:
@@ -142,21 +160,23 @@ def cast_leaves(params: Dict[str, torch.Tensor], cfg
             else v for k, v in params.items()}
 
 
-def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor, cfg
+def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor, cfg,
+            frontend_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward, differentiable.  ``params``: {path: leaf} in
-    the reference's layout (``init_params``); tokens (B, S).  Returns
-    (logits (B, S, V) float32, aux loss).  The counterpart of the
-    reference's ``lm.forward``."""
+    the reference's layout (``init_params``); tokens (B, S);
+    frontend_embeds (B, P, d) or None.  Returns (logits (B, S, V) float32,
+    the stack's aux loss, float32).  The counterpart of the reference's
+    ``lm.forward``."""
     tree = unflatten(cast_leaves(params, cfg))
     B, S = tokens.shape
-    x = layers.embed(tree["embed"], tokens, getattr(torch, cfg.dtype))
+    x = embed_inputs(tree["embed"], tokens, cfg, frontend_embeds,
+                     getattr(torch, cfg.dtype))
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
-    x = stack_forward(tree["stack"], x, cfg, positions)
+    x, aux = stack_forward(tree["stack"], x, cfg, positions)
     x = layers.rms_norm(x, tree["final_norm"], cfg.norm_eps)
     table = tree["embed"] if cfg.tie_embeddings else tree["unembed"]
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return layers.unembed(table, x), aux
 
 
@@ -164,9 +184,12 @@ def loss_fn(params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
             cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy (logsumexp minus the gold logit, averaged
     over the tokens whose label is >= 0) plus the aux loss.  batch:
-    {"tokens", "labels"} (B, S).  Returns (ce + aux, {"ce", "aux"}), as
-    the reference's ``lm.loss_fn``."""
-    logits, aux = forward(params, batch["tokens"], cfg)
+    {"tokens", "labels"} (B, S), and the frontend input (B, P, d) under
+    ``frontend_input_name(cfg)`` where ``cfg`` has a frontend.  Returns
+    (ce + aux, {"ce", "aux"}), as the reference's ``lm.loss_fn``."""
+    logits, aux = forward(params, batch["tokens"], cfg,
+                          batch.get(frontend_input_name(cfg))
+                          if cfg.frontend else None)
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
@@ -177,16 +200,19 @@ def loss_fn(params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
 
 @torch.no_grad()
 def prefill_step(model: LM, tokens: torch.Tensor,
-                 cache_len: Optional[int] = None
+                 cache_len: Optional[int] = None,
+                 frontend_embeds: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Caches]:
-    """Prefill: logits (B, 1, V) for the last position, and one decode
+    """Prefill of ``tokens`` (B, S), with ``frontend_embeds`` (B, P, d)
+    over the first P positions where the model has a frontend: logits
+    (B, 1, V) for the last position, and one decode
     cache per layer: an attention layer's {"k", "v"} (B, cache_len, KH,
     hd), the prompt's k/v in the first S positions and zeros after them
     for the decode steps to fill (``cache_len`` defaults to S, the
     reference's prefill caches); a recurrent layer's state as the prompt
     leaves it (Mamba {"h", "conv"}, mLSTM {"C", "n", "m", "conv"}, sLSTM
     {"c", "n", "h", "m"})."""
-    x, caches = model._prefill(tokens)
+    x, caches = model._prefill(tokens, frontend_embeds)
     S = tokens.shape[1]
     if cache_len is not None and cache_len != S:
         if cache_len < S:

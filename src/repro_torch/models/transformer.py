@@ -9,12 +9,14 @@ unstacks); training keeps the reference's stacked leaves and reads each
 layer as a slice of them (``stack_forward``).  Both run ``block_forward``.
 Serving takes every mixer (``attn``, ``mamba``, ``mlstm``, ``slstm``) and
 every FFN (``mlp``, ``moe``, ``ffn43``, ``none``): the dense, jamba and
-xLSTM blocks; training so far only the dense ``('attn', 'mlp')`` block.
+xLSTM blocks; training the attention blocks, ``('attn', 'mlp')`` and
+``('attn', 'moe')``, whose router aux loss ``stack_forward`` sums over the
+layers as the reference does.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -77,7 +79,6 @@ _FORWARD = {"mamba": mamba_forward, "mlstm": mlstm_forward,
 #: block parts served but not yet trained, with what training them needs
 _UNTRAINED = {"mamba": "src/repro/models/ssm.py (mamba; the scan kernel "
                        "has no backward yet)",
-              "moe": "src/repro/models/moe.py (the router aux loss)",
               "mlstm": "src/repro/models/ssm.py (mlstm; the mlstm_attention "
                        "kernel has no backward yet)",
               "slstm": "src/repro/models/ssm.py (slstm; no backward of "
@@ -100,18 +101,22 @@ def check_ported(spec: Tuple[str, str], training: bool = False) -> None:
                 f"training; its reference is {missing} (ROADMAP Queue 1)")
 
 
-def ffn_forward(p, x: torch.Tensor, cfg, ffn: str) -> torch.Tensor:
-    """``x + ffn(norm(x))`` with the SwiGLU MLP (``mlp``, or xLSTM's
-    ``ffn43`` of width ``int(d * 4 / 3)``) or the MoE (whose aux loss
-    serving does not need); ``x`` itself for ``none`` (the mLSTM block has
-    no FFN)."""
+def ffn_forward(p, x: torch.Tensor, cfg, ffn: str
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(``x + ffn(norm(x))``, the FFN's aux loss) with the SwiGLU MLP
+    (``mlp``, or xLSTM's ``ffn43`` of width ``int(d * 4 / 3)``) or the MoE
+    (its router's load-balance loss, scaled, float32); ``x`` itself for
+    ``none`` (the mLSTM block has no FFN).  The aux is None but for the
+    MoE: the reference's float32 zero would cost a device launch a layer
+    on every decode step, and adding it changes no sum."""
     if ffn == "none":
-        return x
+        return x, None
     h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     if ffn in ("mlp", "ffn43"):
-        return x + layers.apply_mlp(p["ffn"], h)
+        return x + layers.apply_mlp(p["ffn"], h), None
     if ffn == "moe":
-        return x + apply_moe(p["ffn"], h, cfg)[0]
+        y, aux = apply_moe(p["ffn"], h, cfg)
+        return x + y, aux
     raise ValueError(ffn)
 
 
@@ -121,10 +126,10 @@ def block_forward(p, x: torch.Tensor, cfg, spec: Tuple[str, str],
     ``x + ffn(norm(x))``, over the whole sequence.  ``p`` is one layer's
     leaves under the reference's names ({"mixer_norm", "mixer": {...},
     "ffn_norm", "ffn": {...}}; no FFN leaves for ``none``); ``spec`` its
-    (mixer, ffn).  Returns (x, the mixer's decode cache: {"k", "v"} for
-    attention, {"h", "conv"} for Mamba, {"C", "n", "m", "conv"} for mLSTM,
-    {"c", "n", "h", "m"} for sLSTM).  Differentiable for the dense
-    block."""
+    (mixer, ffn).  Returns (x, the FFN's aux loss or None, the mixer's decode
+    cache: {"k", "v"} for attention, {"h", "conv"} for Mamba, {"C", "n",
+    "m", "conv"} for mLSTM, {"c", "n", "h", "m"} for sLSTM), in the
+    reference's order.  Differentiable for the attention blocks."""
     mixer, ffn = spec
     h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     if mixer == "attn":
@@ -134,15 +139,17 @@ def block_forward(p, x: torch.Tensor, cfg, spec: Tuple[str, str],
         y, cache = _FORWARD[mixer](p["mixer"], h, cfg, return_state=True)
     else:
         raise ValueError(mixer)
-    return ffn_forward(p, x + y, cfg, ffn), cache
+    x, aux = ffn_forward(p, x + y, cfg, ffn)
+    return x, aux, cache
 
 
 def _block_output(p, x, cfg, spec, positions):
-    return block_forward(p, x, cfg, spec, positions)[0]
+    """(x, aux) of one block: what ``cfg.remat`` recomputes."""
+    return block_forward(p, x, cfg, spec, positions)[:2]
 
 
 def stack_forward(stack, x: torch.Tensor, cfg, positions: torch.Tensor
-                  ) -> torch.Tensor:
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward of the layer stack.  ``stack`` is the
     reference's layout: a tuple over period positions of {name: leaf}
     dicts (nested as the reference nests them), each leaf stacked over
@@ -150,8 +157,11 @@ def stack_forward(stack, x: torch.Tensor, cfg, positions: torch.Tensor
     position ``i % n_pos``'s leaves (``unbind``: views, so gradients land
     in the stacked leaves).  With ``cfg.remat`` each block is recomputed
     in the backward pass (``torch.utils.checkpoint``, the counterpart of
-    the reference's ``jax.checkpoint``).  Only the dense block trains so
-    far: Mamba, MoE, mLSTM and sLSTM blocks raise."""
+    the reference's ``jax.checkpoint``).  Returns (x, aux): the MoE
+    blocks' aux losses added to a float32 zero in layer order, as the
+    reference's scan body adds every block's (the others' are zeros).
+    The attention blocks train (MLP or MoE FFN); Mamba, mLSTM and sLSTM
+    blocks raise."""
     specs = block_specs(cfg)
     for spec in specs:
         check_ported(spec, training=True)
@@ -165,15 +175,18 @@ def stack_forward(stack, x: torch.Tensor, cfg, positions: torch.Tensor
                 for k, v in tree.items()}
 
     views = [unbind(pos) for pos in stack]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(num_periods(cfg)):
         for pos, spec in enumerate(specs):
             p = layer(views[pos], i)
             if cfg.remat:
-                x = checkpoint(_block_output, p, x, cfg, spec, positions,
-                               use_reentrant=False)
+                x, a = checkpoint(_block_output, p, x, cfg, spec, positions,
+                                  use_reentrant=False)
             else:
-                x = _block_output(p, x, cfg, spec, positions)
-    return x
+                x, a = _block_output(p, x, cfg, spec, positions)
+            if a is not None:
+                aux = aux + a
+    return x, aux
 
 
 class Block(nn.Module):
@@ -201,9 +214,11 @@ class Block(nn.Module):
             self.ffn = layers.MLP(gen, d, width, dtype)
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor):
-        """Whole-sequence forward that also returns the decode cache."""
-        return block_forward(layers.leaves(self), x, self.cfg, self.spec,
-                             positions)
+        """Whole-sequence forward that also returns the decode cache
+        (serving drops the aux loss, as the reference's prefill does)."""
+        x, _, cache = block_forward(layers.leaves(self), x, self.cfg,
+                                    self.spec, positions)
+        return x, cache
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                write_idx: int) -> torch.Tensor:
@@ -212,7 +227,7 @@ class Block(nn.Module):
         h = layers.rms_norm(x, self.mixer_norm, self.cfg.norm_eps)
         y = (self.mixer.decode(h, cache, write_idx) if mixer == "attn"
              else self.mixer.decode(h, cache))
-        return ffn_forward(layers.leaves(self), x + y, self.cfg, ffn)
+        return ffn_forward(layers.leaves(self), x + y, self.cfg, ffn)[0]
 
 
 class Stack(nn.Module):

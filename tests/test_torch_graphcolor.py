@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+import torch_cases  # noqa: E402,F401  (caps torch's CPU threads)
 import jax.numpy as jnp  # noqa: E402
 
 from repro.apps.graphcolor import GraphColorApp, GraphColorConfig  # noqa: E402

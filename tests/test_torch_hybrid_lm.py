@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cases  # noqa: E402,F401  (caps torch's CPU threads)
 
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -350,7 +351,7 @@ def test_init_caches_follow_each_spec():
 
 def test_serve_main_runs_on_cpu_and_launches_no_kernel(capsys):
     kbuild.reset_launches()
-    model, prompts, res = serve.main(
+    model, prompts, _, res = serve.main(
         ["--device", "cpu", "--arch", "jamba-v0.1-52b-smoke", "--batch", "2",
          "--prompt-len", "12", "--tokens", "5"])
     assert tuple(res.seqs.shape) == (2, 5)
@@ -363,13 +364,21 @@ def test_serve_main_runs_on_cpu_and_launches_no_kernel(capsys):
 
 @pytest.mark.parametrize("part", ["mamba", "moe"])
 def test_training_refuses_mamba_and_moe(part):
-    """Serving takes jamba's blocks; training (no scan backward yet) does
-    not."""
+    """Serving takes jamba's blocks; training refuses its Mamba blocks (no
+    scan backward yet).  Its MoE blocks train since the router's aux loss
+    runs through the stack: under attention mixers the training forward
+    returns finite logits and a positive aux
+    (``tests/test_torch_moe_train.py`` holds it to the reference)."""
     cfg = reduce_for_smoke(get_config(ARCH)).replace(dtype="float32")
     if part == "moe":                   # MoE blocks under attention mixers
         cfg = cfg.replace(block_pattern=("attn",))
     params = lm.init_params(cfg, device="cpu")
     toks = torch.as_tensor(tokens(cfg))
+    if part == "moe":
+        assert ("attn", "moe") in transformer.block_specs(cfg)
+        logits, aux = lm.forward(params, toks, cfg)
+        assert bool(torch.isfinite(logits).all()) and float(aux) > 0
+        return
     with pytest.raises(NotImplementedError,
                        match=f"'{part}' is not ported yet for training"):
         lm.forward(params, toks, cfg)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cases  # noqa: E402,F401  (caps torch's CPU threads)
 
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -291,7 +292,7 @@ def test_unported_block_spec_raises(spec):
 
 def test_serve_main_runs_on_cpu(capsys):
     kbuild.reset_launches()
-    model, prompts, res = serve.main(
+    model, prompts, _, res = serve.main(
         ["--device", "cpu", "--arch", "qwen2-1.5b-smoke", "--batch", "2",
          "--prompt-len", "12", "--tokens", "5", "--dtype", "float32"])
     assert tuple(res.seqs.shape) == (2, 5)
@@ -301,7 +302,7 @@ def test_serve_main_runs_on_cpu(capsys):
     assert "qwen2-1.5b-smoke" in out and "on cpu" in out
     again = serve.serve(model, prompts, 5)
     assert torch.equal(again.seqs, res.seqs)
-    model, _, res = serve.main(["--device", "cpu", "--tokens", "3"])
+    model, _, _, res = serve.main(["--device", "cpu", "--tokens", "3"])
     assert model.cfg.name == "serve-demo" and tuple(res.seqs.shape) == (4, 3)
 
 

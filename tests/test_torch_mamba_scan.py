@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cases  # noqa: E402,F401  (caps torch's CPU threads)
 
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.mamba_scan import (  # noqa: E402

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cases  # noqa: E402,F401  (caps torch's CPU threads)
 
 from repro_torch import interop  # noqa: E402
 from repro_torch.core.modes import AsyncMode  # noqa: E402

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cases  # noqa: E402,F401  (caps torch's CPU threads)
 
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.quantize import (  # noqa: E402

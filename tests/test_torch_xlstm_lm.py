@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cases  # noqa: E402,F401  (caps torch's CPU threads)
 
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -437,7 +438,7 @@ def test_init_caches_follow_each_spec():
 
 def test_serve_main_runs_on_cpu_and_launches_no_kernel(capsys):
     kbuild.reset_launches()
-    model, prompts, res = serve.main(
+    model, prompts, _, res = serve.main(
         ["--device", "cpu", "--arch", "xlstm-125m-smoke", "--batch", "2",
          "--prompt-len", "12", "--tokens", "5"])
     assert tuple(res.seqs.shape) == (2, 5)

@@ -4,8 +4,11 @@ The port keeps its own copies of the app, config, topology and fault
 modules, so a parity pair needs the same scenario built twice: once from
 ``repro`` (``Scenario.app/config/fault_model``) and once from
 ``repro_torch`` here, with the same topology, seed and parameters.  It
-also holds the bitwise comparison of op results the op tests share; it
-imports no JAX, so the card-side tests can use it.
+also holds the bitwise comparison of op results the op tests share, the
+relative closeness and the perturbed reference weights the LM tests
+share, and the cap on torch's CPU threads that every port test file
+takes by importing it; it imports no JAX, so the card-side tests can use
+it.
 """
 from __future__ import annotations
 
@@ -21,6 +24,14 @@ from repro_torch.runtime.faults import (FaultModel, crashed_host,
                                         flapping_host, lossy_host)
 from repro_torch.runtime.simulator import SimConfig
 from repro_torch.runtime.topologies import make_topology
+
+#: torch's intra-op CPU threads in a test process.  A tier-1 run puts six
+#: xdist workers on one 8-core host, and torch's default of one thread per
+#: core in each of them oversubscribes it; of 1 and 2 threads, 2 gave the
+#: shorter run.  Every ``tests/test_torch_*.py`` imports this module, so
+#: the cap holds in any process that runs one.
+TORCH_THREADS = 2
+torch.set_num_threads(TORCH_THREADS)
 
 
 def torch_app(n: int, topology: str, seed: int, simels: int = 1):
@@ -79,3 +90,22 @@ def assert_bits_equal(want, got, label):
         if a.dtype == np.float32:
             a, b = a.view(np.uint32), b.view(np.uint32)
         np.testing.assert_array_equal(b, a, err_msg=f"{label}: field {name}")
+
+
+def close(got, want, tol):
+    """(|got - want| <= tol x max|want| over the array, max |got - want|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want).max() if want.size else 0.0
+    return err <= tol * max(np.abs(want).max(), 1e-30), err
+
+
+def perturbed_params(ref, ref_cfg, seed):
+    """The reference's initial LM leaves for ``ref_cfg`` (numpy), each
+    plus seeded noise of scale 0.05, so that norm scales and biases are
+    not zero.  ``ref`` holds the reference's ``jax`` and ``lm``."""
+    params = ref.jax.tree.map(np.asarray, ref.lm.init_params(
+        ref.jax.random.PRNGKey(seed), ref_cfg))
+    rng = np.random.default_rng(seed)
+    return ref.jax.tree.map(
+        lambda a: (a + rng.standard_normal(a.shape) * 0.05).astype(a.dtype),
+        params)
