@@ -18,11 +18,14 @@ its one attention layer through the two attention kernels; xlstm-125m's
 serving path, its mLSTM prefill through the ``mlstm_attention`` kernel;
 the MoE archs' serving and training paths and the audio and vision
 archs' serving path with their frontend prefix, through the two attention
-kernels and, in training, ``topk_compress``) and fails with a non-zero
-exit code if any phase fails:
+kernels and, in training, ``topk_compress``; the jamba and xLSTM blocks'
+training path, through ``mamba_scan`` and ``mlstm_attention`` forward and
+their hand-written backward kernels ``mamba_scan_backward`` and
+``mlstm_attention_backward``) and fails with a non-zero exit code if any
+phase fails:
 
   1. card      the ``nvidia-smi`` name and power limit
-  2. build     the ten kernels from ``csrc/`` into ``build/`` (nine
+  2. build     the twelve kernels from ``csrc/`` into ``build/`` (eleven
                sources, one nvcc each, started together)
   3. kernels   each kernel, and each float32 entry point, against its plain
                torch version on the same CUDA inputs at the main paths'
@@ -64,7 +67,14 @@ exit code if any phase fails:
                ragged one on both routes within a stated tolerance (no
                PyTorch call computes the mLSTM's signed, max-clamped
                normaliser); ``duct_commit_f32`` must be faster than its
-               plain version
+               plain version; the two backward kernels within a stated
+               share of each gradient's largest magnitude:
+               ``mamba_scan_backward`` at jamba's training shape (4, 2048,
+               8192, 16), run twice for bitwise equal gradients, and at
+               S = 2047 with di % 4 != 0 and at N = 4, 8, 32;
+               ``mlstm_attention_backward`` at xlstm-125m's training shape
+               (4, 2048, 4, 384) bf16 and at hd 64, 128 and 384 in bf16
+               and float32 at S = 2047
   4. oracle    dyadic 16-process scenarios on both duct layouts: the torch
                engine on the card gives the event simulator's
                ``qos_signature``
@@ -148,9 +158,10 @@ exit code if any phase fails:
                tensor-core route, decode one a layer and step), finite
                logits, the same tokens from a second serve, profiled;
                then deepseek-moe-16b trained at full width (depth cut 28
-               -> 3) through ``train.run_training``: bf16 over float32
-               masters, batch 4 x 2048, mode 3 with top-k, 6 steps, exact
-               launches and routes, falling loss, positive aux loss
+               -> 3) through ``train_run`` (``train.run_training``: bf16
+               over float32 masters, batch 4 x 2048, 6 steps, exact
+               launches and routes, falling loss), mode 3 with top-k,
+               positive aux loss
   14. modality full size  the reduced musicgen-large and
                llava-next-mistral-7b card = CPU with the frontend prefix
                spliced (float32 and bf16), one training step each from the
@@ -160,6 +171,20 @@ exit code if any phase fails:
                32 new tokens in bf16, exact launches, the same tokens from
                a second serve, prefill of the prompt plus k tokens against
                decode step k (phase 8's tolerance), profiled
+  15. ssm train card=cpu  the reduced jamba-v0.1-52b and xlstm-125m in
+               float32: one pass's ce, aux and every gradient leaf on the
+               card (kernels, forward and backward) equal the CPU's, exact
+               launches
+  16. jamba train full size  jamba-v0.1-52b at full width cut to one
+               period with no experts (2.73 G parameters) through
+               ``train_run``: remat, mode 3 uncompressed, 7
+               ``mamba_scan_backward`` launches a step, falling loss, the
+               peak printed; then one step profiled
+               (``profile_train.profile_step``)
+  17. xlstm train full size  xlstm-125m uncut through ``train_run``:
+               mode 3 with top-k, 10 ``mlstm_attention_backward`` launches
+               a step, falling loss; one sLSTM layer's training work
+               profiled (its Python loop's launches and busy share)
 
 It imports nothing of JAX or of the JAX package.  The line before the last
 is a JSON object with one record per kernel and float32 entry point; the
@@ -234,6 +259,10 @@ from repro_torch.kernels.mamba_scan import (  # noqa: E402
     mamba_scan,
     mamba_scan_torch,
 )
+from repro_torch.kernels.mamba_scan.ops import (  # noqa: E402
+    mamba_scan_backward,
+    mamba_scan_backward_torch,
+)
 from repro_torch.kernels.mamba_scan.kernel import (  # noqa: E402
     blocks_per_sm as mamba_blocks_per_sm,
     mamba_scan_cuda,
@@ -246,7 +275,16 @@ from repro_torch.kernels.mlstm_attention import (  # noqa: E402
 from repro_torch.kernels.mlstm_attention.kernel import (  # noqa: E402
     mlstm_attention_cuda,
 )
-from repro_torch.launch import profile_serve, serve, train  # noqa: E402
+from repro_torch.kernels.mlstm_attention.ops import (  # noqa: E402
+    mlstm_attention_backward,
+    mlstm_attention_backward_plain,
+)
+from repro_torch.launch import (  # noqa: E402
+    profile_serve,
+    profile_train,
+    serve,
+    train,
+)
 from repro_torch.models import layers, lm, moe, ssm, transformer  # noqa: E402
 from repro_torch.models.modality import frontend_input_name  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
@@ -337,7 +375,7 @@ def build():
     secs = K.build()
     for name in K.SOURCES:
         check(K.library_path(name).exists(), f"{name} library missing")
-    check(len(K.SOURCES) == 10, f"expected ten kernels, got {K.SOURCES}")
+    check(len(K.SOURCES) == 12, f"expected twelve kernels, got {K.SOURCES}")
     print(f"built {sorted(K.SOURCES)} in {secs:.1f}s into {K.BUILD_DIR}")
 
 
@@ -436,11 +474,13 @@ def drain_bytes(args, pops):
 
 def one_launch(kernel, label, run, route):
     """Run ``run`` once with the counters zeroed; check it was one launch
-    of ``kernel``, on ``route``, and nothing else.  Returns its output."""
+    of ``kernel``, on ``route`` (None: a kernel with one route), and
+    nothing else.  Returns its output."""
     K.reset_launches()
     out = run()
     torch.cuda.synchronize()
-    check(K.ROUTES == {f"{kernel}/{route}": 1} and K.LAUNCHES[kernel] == 1
+    routes = {} if route is None else {f"{kernel}/{route}": 1}
+    check(K.ROUTES == routes and K.LAUNCHES[kernel] == 1
           and sum(K.LAUNCHES.values()) == 1,
           f"{kernel} {label}: launches {K.LAUNCHES}, routes {K.ROUTES}, "
           f"expected one on {route}")
@@ -536,15 +576,34 @@ def compare_close(want, got, rtol, atol):
     return bad, err
 
 
+def compare_scaled(want, got, tol):
+    """(elements that disagree, max |difference|) over every output field,
+    an element agreeing when |got - want| <= tol x the field's largest
+    |want|: a gradient summed over many terms (dA over batch and time, dF
+    over keys) has entries near 0 whose own scale says nothing."""
+    bad, err = 0, 0.0
+    for a, b in zip(want, got):
+        a, b = a.double(), b.double()
+        d = (a - b).abs()
+        scale = float(a.abs().max())
+        ok = torch.isfinite(b) & (d <= tol * scale)
+        bad += int((~ok).sum())
+        e = float(d.max())
+        err = e if (e != e or e > err) else err
+    return bad, err
+
+
 def fields(x):
     return x if isinstance(x, tuple) else (x,)
 
 
 def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
             peak=PEAK_OPS_PER_S, tol=None, library=None, plain_runs=None,
-            read=None, written=None):
+            read=None, written=None, scaled=None):
     """Hold one kernel call against its plain version (0 mismatching
-    elements, or with ``tol = (rtol, atol)`` every element within it), time
+    elements, or with ``tol = (rtol, atol)`` every element within it, or
+    with ``scaled`` every element within that share of its field's largest
+    magnitude, ``compare_scaled``), time
     both (device time, and per call with the launch overhead), time
     ``library`` (the one PyTorch call that computes the same function,
     where there is one), record how each of the three device times was
@@ -560,7 +619,14 @@ def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
     want = fields(run_plain())
     got = fields(run_kernel())
     torch.cuda.synchronize()
-    if tol is None:
+    if scaled is not None:
+        bad, err = compare_scaled(want, got, scaled)
+        check(bad == 0, f"{label}: {bad} elements further than {scaled} of "
+                        f"their field's largest magnitude from the plain "
+                        f"version (max |difference| {err:.3g})")
+        agree = (f"max |difference| {err:.3g}, within {scaled} of each "
+                 f"field's largest magnitude")
+    elif tol is None:
         bad, err = compare(want, got)
         check(bad == 0, f"{label}: {bad} mismatching elements")
         agree = "0 mismatches"
@@ -1012,6 +1078,123 @@ def mlstm_kernels(hbm):
     return records
 
 
+#: the backward kernels against their plain versions, as a share of each
+#: gradient's largest magnitude (``compare_scaled``): float32 on both sides
+#: in other orders (the scan's sums over d and n are shuffles and
+#: per-block partials, dA a sum over 8192 batch-steps; the mLSTM's
+#: products run key tile by key tile); in bf16, dq, dk and dv are rounded
+#: once to bf16 on both sides, a relative 2^-8 each
+SCAN_BWD_TOL = 1e-4
+MLSTM_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def scan_bwd_inputs(gen, Bb, S, di, N, dev):
+    """``scan_inputs`` plus the output gradients dy (Bb, S, di) and
+    dh_final (Bb, di, N)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    return (*scan_inputs(gen, Bb, S, di, N, dev), randn(Bb, S, di),
+            randn(Bb, di, N))
+
+
+def scan_backward_kernels(hbm):
+    """mamba_scan_backward at jamba's training shape, (Bb, S, di, N) = (4,
+    2048, 8192, 16) float32, with dh_final = None as training has it:
+    held against the plain backward, timed, and run twice for bitwise
+    equal gradients; then at odd shapes: S = 2047 (not a multiple of the
+    16-step chunk) with di = 8102 (di % 4 != 0) and a nonzero dh_final, and
+    N = 4, 8, 32.  The bound: every input read and every gradient written
+    once (x, dt, dy, dx and ddt are 268 MB each; B, C, A and theirs are
+    small), about 14 operations per (b, t, d, n).  No PyTorch call
+    computes this gradient."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2029)
+    shape = (4, 2048, 8192, 16)
+    args = scan_bwd_inputs(gen, *shape, dev)[:6]
+    got = one_launch("mamba_scan_backward", "(4,2048,8192,16)",
+                     lambda: mamba_scan_backward(*args), None)
+    again = mamba_scan_backward(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "mamba_scan_backward: two runs on the same inputs differ")
+    print("mamba_scan_backward (4,2048,8192,16): two runs bitwise equal",
+          flush=True)
+    del got, again
+    rec = measure("mamba_scan_backward (4,2048,8192,16) f32",
+                  lambda: mamba_scan_backward(*args),
+                  lambda: mamba_scan_backward_torch(*args), args,
+                  14 * math.prod(shape), hbm, scaled=SCAN_BWD_TOL,
+                  plain_runs=1)
+    del args
+    torch.cuda.empty_cache()
+    for shape in ((3, 2047, 8102, 16), (2, 300, 1000, 4), (2, 300, 999, 8),
+                  (2, 300, 1001, 32)):
+        args = scan_bwd_inputs(gen, *shape, dev)
+        got = one_launch("mamba_scan_backward", str(shape),
+                         lambda: mamba_scan_backward(*args), None)
+        want = mamba_scan_backward_torch(*args)
+        bad, err = compare_scaled(want, got, SCAN_BWD_TOL)
+        check(bad == 0, f"mamba_scan_backward {shape}: {bad} elements "
+                        f"outside {SCAN_BWD_TOL} (max |difference| {err:.3g})")
+        print(f"mamba_scan_backward {shape} f32 with dh_final: max "
+              f"|difference| {err:.3g} within {SCAN_BWD_TOL} of each "
+              f"gradient's largest magnitude", flush=True)
+        del args, got, want
+    torch.cuda.empty_cache()
+    return {"mamba_scan_backward": rec}
+
+
+def mlstm_backward_inputs(gen, B, S, H, hd, dtype, dev):
+    """``mlstm_inputs`` plus the output gradient dh in ``dtype``; every
+    7th input gate is -6, so some rows take den's exp(-m) branch."""
+    q, k, v, F_, I = mlstm_inputs(gen, B, S, H, hd, dtype, dev)
+    I[:, ::7] = -6.0
+    dh = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
+    return q, k, v, F_, I, dh
+
+
+def mlstm_backward_kernels(hbm):
+    """mlstm_attention_backward at xlstm-125m's training shape, (B, S, H,
+    hd) = (4, 2048, 4, 384) bf16 (BH = 16), held against the plain
+    backward and timed; then hd 64 and 128 as well as 384, in bf16 and
+    float32, at a ragged S (2047, not a multiple of the 32-row tiles).
+    The bound counts the five causal products the function needs (q k^T,
+    dh v^T, dq, dk, dv) at the bf16 tensor-core peak.  No PyTorch call
+    computes this gradient."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2030)
+    bf16 = torch.bfloat16
+    shape = (4, 2048, 4, 384)
+    args = mlstm_backward_inputs(gen, *shape, bf16, dev)
+    one_launch("mlstm_attention_backward", "(4,2048,4,384) bf16",
+               lambda: mlstm_attention_backward(*args), None)
+    rec = measure("mlstm_attention_backward (4,2048,4,384) bf16",
+                  lambda: mlstm_attention_backward(*args),
+                  lambda: mlstm_attention_backward_plain(*args), args,
+                  5 * mlstm_flops(*shape) // 2, hbm, peak=PEAK_BF16_FLOPS,
+                  scaled=MLSTM_BWD_TOL[bf16], plain_runs=2)
+    del args
+    for hd in (64, 128, 384):
+        for dtype in (bf16, torch.float32):
+            args = mlstm_backward_inputs(gen, 1, 2047, 2, hd, dtype, dev)
+            got = one_launch("mlstm_attention_backward", f"hd {hd}",
+                             lambda: mlstm_attention_backward(*args), None)
+            want = mlstm_attention_backward_plain(*args)
+            tol = MLSTM_BWD_TOL[dtype]
+            bad, err = compare_scaled(want, got, tol)
+            check(bad == 0, f"mlstm_attention_backward (1,2047,2,{hd}) "
+                            f"{dtype}: {bad} elements outside {tol} (max "
+                            f"|difference| {err:.3g})")
+            print(f"mlstm_attention_backward (1,2047,2,{hd}) {dtype}: max "
+                  f"|difference| {err:.3g} within {tol} of each gradient's "
+                  f"largest magnitude", flush=True)
+            del args, got, want
+    torch.cuda.empty_cache()
+    return {"mlstm_attention_backward": rec}
+
+
 @phase("kernels")
 def kernels(hbm):
     dev = torch.device("cuda")
@@ -1083,6 +1266,8 @@ def kernels(hbm):
     records.update(compress_kernels(hbm))
     records.update(scan_kernels(hbm))
     records.update(mlstm_kernels(hbm))
+    records.update(scan_backward_kernels(hbm))
+    records.update(mlstm_backward_kernels(hbm))
     return records
 
 
@@ -1608,6 +1793,25 @@ def leaves_per_pod_step(cfg):
     return len(lm.init_params(cfg, device="cpu"))
 
 
+def train_launches(cfg, pod_steps):
+    """The kernel launches of ``pod_steps`` (steps x pods) gradient passes
+    of ``cfg``: per attention layer one ``flash_attention``, per Mamba
+    layer one ``mamba_scan`` and one ``mamba_scan_backward``, per mLSTM
+    layer one ``mlstm_attention`` and one ``mlstm_attention_backward``;
+    ``cfg.remat`` runs each forward kernel once more (the recompute).  No
+    compressor (the caller adds its kernels)."""
+    specs = transformer.block_specs(cfg)
+    mixers = [specs[i % len(specs)][0] for i in range(cfg.num_layers)]
+    fwd = 2 if cfg.remat else 1
+    want = {n: 0 for n in K.LAUNCHES}
+    want["flash_attention"] = fwd * mixers.count("attn") * pod_steps
+    want["mamba_scan"] = fwd * mixers.count("mamba") * pod_steps
+    want["mamba_scan_backward"] = mixers.count("mamba") * pod_steps
+    want["mlstm_attention"] = fwd * mixers.count("mlstm") * pod_steps
+    want["mlstm_attention_backward"] = mixers.count("mlstm") * pod_steps
+    return want
+
+
 def train_case_card_vs_cpu(cfg, mode, comp, adamw):
     """TRAIN_STEPS steps of ``cfg`` at n_pods = 2 in ``mode`` with
     compressor ``comp`` on the CPU (plain versions) and on the card
@@ -1639,8 +1843,7 @@ def train_case_card_vs_cpu(cfg, mode, comp, adamw):
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     per = TRAIN_STEPS * TRAIN_PODS
-    want_l = {n: 0 for n in launches}
-    want_l["flash_attention"] = 2 * cfg.num_layers * per
+    want_l = train_launches(cfg, per)
     if comp == "int8":
         want_l["quantize"] = want_l["dequantize"] = leaves * per
     elif comp == "topk":
@@ -2082,63 +2285,81 @@ def profiled(label, model, prompts, frontend_embeds=None):
           f"busy {dec['device_busy_share']:.3f})", flush=True)
 
 
-def deepseek_train_full_size():
-    """deepseek-moe-16b at full width (d 2048, 64 experts of width 1408
-    top-6, 2 shared; depth cut to DEEPSEEK_TRAIN_LAYERS) through
-    ``train.run_training``: bf16 compute over float32 masters, batch 4 x
-    seq 2048, one pod, mode 3 with the top-k compressor, 6 steps, the
-    launch counters zeroed just before and read just after: 2 flash
-    launches a layer and step (the forward and its recompute), all on the
-    tensor-core route, one ``topk_compress`` a leaf and step on its route
-    (each expert leaf a row of 184,549,376 a layer); finite, falling loss
-    and a positive, finite aux loss on every step."""
-    cfg = get_config("deepseek-moe-16b").replace(
-        num_layers=DEEPSEEK_TRAIN_LAYERS)
-    steps = 6
-    spec = train.TrainSpec(mode=AsyncMode.BEST_EFFORT, compressor="topk",
-                           adamw=AdamWConfig(lr=3e-3, warmup_steps=20,
-                                             total_steps=steps))
+#: every full-width training run: steps, batch, sequence length
+TRAIN_RUN_STEPS, TRAIN_RUN_B, TRAIN_RUN_S = 6, 4, 2048
+
+
+def train_run(label, cfg, spec):
+    """``train.run_training`` of ``cfg`` at batch TRAIN_RUN_B x TRAIN_RUN_S
+    for TRAIN_RUN_STEPS steps, one pod, on the card, the launch counters
+    zeroed just before and read just after: exact launches
+    (``train_launches``, plus one ``topk_compress`` a leaf with the top-k
+    compressor) and routes (the forward kernels on their tensor-core or
+    ``tma`` routes, each leaf's top-k on its own), finite and falling loss,
+    finite aux losses.  Prints the ``[train]`` line; returns (launches,
+    history, steady ms a step after step 1)."""
+    steps = TRAIN_RUN_STEPS
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     state, history = train.run_training(
-        cfg, spec, DataConfig(cfg.vocab_size, 2048, 4, seed=0), steps=steps,
-        log_every=1, device="cuda", seed=0)
+        cfg, spec, DataConfig(cfg.vocab_size, TRAIN_RUN_S, TRAIN_RUN_B,
+                              seed=0), steps=steps, log_every=1,
+        device="cuda", seed=0)
     torch.cuda.synchronize()
     launches, routes = dict(K.LAUNCHES), dict(K.ROUTES)
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(v[0].numel() for v in state["params"].values())
-    leaves = len(state["params"])
-    want = {n: 0 for n in launches}
-    want["flash_attention"] = 2 * cfg.num_layers * steps
-    want["topk_compress"] = leaves * steps
-    check(launches == want,
-          f"deepseek train: launches {launches}, expected {want}")
-    want_routes = {"flash_attention/wgmma": want["flash_attention"],
-                   **leaf_topk_routes(state["params"], steps)}
-    check(routes == want_routes,
-          f"deepseek train: routes {routes}, expected {want_routes}")
+    want = train_launches(cfg, steps)
+    want_routes = {f"{n}/{r}": want[n] for n, r in (
+        ("flash_attention", "wgmma"), ("mamba_scan", "tma"),
+        ("mlstm_attention", "wgmma")) if want[n]}
+    if spec.compressor == "topk":
+        want["topk_compress"] = len(state["params"]) * steps
+        want_routes.update(leaf_topk_routes(state["params"], steps))
     del state
     torch.cuda.empty_cache()
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+    check(routes == want_routes,
+          f"{label}: routes {routes}, expected {want_routes}")
     losses = [h["loss"] for h in history]
     auxes = [h["aux"] for h in history]
-    check(len(history) == steps and all(np.isfinite(losses)),
-          f"deepseek train: losses {losses}")
-    check(losses[-1] < losses[0], f"deepseek train: loss did not fall: "
-                                  f"{losses}")
-    check(all(np.isfinite(a) and a > 0 for a in auxes),
-          f"deepseek train: aux losses {auxes}")
+    check(len(history) == steps and all(np.isfinite(losses + auxes)),
+          f"{label}: losses {losses}, aux {auxes}")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
     ms = [h["ms"] for h in history]
     steady = statistics.mean(ms[1:])
-    print(f"[train] deepseek-moe-16b at full width, {cfg.num_layers} "
-          f"layers ({n_params} parameters), bf16 over float32 masters, "
-          f"batch 4 x 2048, mode 3 top-k: losses "
-          f"{[round(x, 4) for x in losses]}, aux {[round(a, 5) for a in auxes]}"
-          f", step ms {[round(x, 1) for x in ms]}, {steady:.1f} ms/step and "
-          f"{4 * 2048 * 1e3 / steady:.0f} tokens/s after step 1, peak "
-          f"{peak / 2 ** 30:.2f} GiB; launches "
+    print(f"[train] {label} ({n_params} parameters), {cfg.dtype} over "
+          f"float32 masters, batch {TRAIN_RUN_B} x {TRAIN_RUN_S}, mode "
+          f"{int(spec.mode)} {spec.compressor or 'uncompressed'}: losses "
+          f"{[round(x, 4) for x in losses]}, aux "
+          f"{[round(x, 5) for x in auxes]}, step ms "
+          f"{[round(x, 1) for x in ms]}, {steady:.1f} ms/step and "
+          f"{TRAIN_RUN_B * TRAIN_RUN_S * 1e3 / steady:.0f} tokens/s after "
+          f"step 1, peak {peak / 2 ** 30:.2f} GiB; launches "
           f"{dict((k, v) for k, v in launches.items() if v)}, routes "
           f"{routes}", flush=True)
+    return launches, history, steady
+
+
+def deepseek_train_full_size():
+    """deepseek-moe-16b at full width (d 2048, 64 experts of width 1408
+    top-6, 2 shared; depth cut to DEEPSEEK_TRAIN_LAYERS) through
+    ``train_run``: bf16 compute over float32 masters, mode 3 with the
+    top-k compressor: 2 flash launches a layer and step (the forward and
+    its recompute), one ``topk_compress`` a leaf and step (each expert
+    leaf a row of 184,549,376 a layer); the aux loss positive on every
+    step."""
+    cfg = get_config("deepseek-moe-16b").replace(
+        num_layers=DEEPSEEK_TRAIN_LAYERS)
+    spec = train.TrainSpec(mode=AsyncMode.BEST_EFFORT, compressor="topk",
+                           adamw=AdamWConfig(lr=3e-3, warmup_steps=20,
+                                             total_steps=TRAIN_RUN_STEPS))
+    _, history, _ = train_run(
+        f"deepseek-moe-16b at full width, {cfg.num_layers} layers", cfg,
+        spec)
+    auxes = [h["aux"] for h in history]
+    check(all(a > 0 for a in auxes), f"deepseek train: aux losses {auxes}")
 
 
 @phase("moe_full_size")
@@ -2273,6 +2494,145 @@ def modality_full_size():
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 15. the jamba and xLSTM blocks trained: card vs CPU on the reduced
+#     configs, then jamba (one period, no experts) and xlstm-125m (uncut)
+#     at full width
+# ---------------------------------------------------------------------------
+#: jamba-v0.1-52b cut for training on one card: one period (8 layers, the
+#: least ``block_specs`` allows) and no experts (16 -> 0): 2.73 G
+#: parameters, whose float32 masters, AdamW moments, mode 3's delayed sum
+#: and gradients take about 55 GB; with the 16 experts one period is 13.3 G
+#: (266 GB of such state).  The MoE FFN trains at full width in phase 13
+JAMBA_TRAIN_CUT = dict(num_layers=8, num_experts=0, experts_per_tok=0,
+                       moe_d_ff=0)
+#: its peak learning rate (warmup 20 steps).  At 3e-3, as phase 13 trains
+#: deepseek, the loss spikes at step 3 (8.38 -> 30.18), and the rate at this
+#: width is the cause, not the Mamba blocks, their kernels or bf16
+#: (``python -m repro_torch.launch.train_ablation`` on an H100 80GB HBM3 at
+#: 700 W): in float32 compute the loss spikes alike (8.38 -> 29.79), with
+#: attention in place of every Mamba mixer it spikes at step 2 (11.89 ->
+#: 18.39), and the scan's backward kernel stays within 2.1e-6 of its plain
+#: version on every step's own inputs, step 3's included
+JAMBA_TRAIN_LR = 1e-3
+#: positions of the profiled sLSTM layer: its Python loop launches the same
+#: kernels at every position, so a profile at 256 gives the launches a
+#: position; one at 2048 takes minutes of the profiler's own time
+SLSTM_PROFILE_S = 256
+
+
+def grads_card_vs_cpu(cfg):
+    """One pod's loss and gradients (``train.pod_grads``, remat on) of
+    ``cfg`` on the CPU (plain versions) and on the card (kernels, forward
+    and backward) from the same weights and batch: ce and aux within
+    TRAIN_LOSS_RTOL, every gradient leaf within TRAIN_STATE of its largest
+    magnitude (the CPU tests' tolerance against jax.grad), exact
+    launches."""
+    params = lm.init_params(cfg, seed=6, device="cpu")
+    batch = {k: torch.as_tensor(v) for k, v in SyntheticLM(DataConfig(
+        cfg.vocab_size, 64, 4, seed=6)).batch_for_step(0).items()}
+    want, wm = train.pod_grads(params, batch, cfg)
+    K.reset_launches()
+    got, gm = train.pod_grads(to_device(params, "cuda"),
+                              to_device(batch, "cuda"), cfg)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check(launches == train_launches(cfg, 1),
+          f"{cfg.name} gradients: launches {launches}, expected "
+          f"{train_launches(cfg, 1)}")
+    for name in ("ce", "aux"):
+        g, w = float(gm[name]), float(wm[name])
+        check(abs(g - w) <= TRAIN_LOSS_RTOL * abs(w),
+              f"{cfg.name} gradients: {name} {g} on the card, {w} on the "
+              f"CPU")
+    worst = 0.0
+    for k, w in want.items():
+        d = float((got[k].cpu().double() - w.double()).abs().max())
+        scale = float(w.double().abs().max())
+        check(d <= TRAIN_STATE * scale,
+              f"{cfg.name} gradients: {k} differs by {d} (largest {scale})")
+        worst = max(worst, d / max(scale, 1e-30))
+    print(f"{cfg.name} float32 gradients card == CPU (ce "
+          f"{float(wm['ce']):.6f}, aux {float(wm['aux']):.6g}; worst leaf "
+          f"{worst:.3g} of its largest magnitude); launches "
+          f"{dict((k, v) for k, v in launches.items() if v)}", flush=True)
+
+
+@phase("ssm_train_card_vs_cpu")
+def ssm_train_card_vs_cpu():
+    """The reduced jamba-v0.1-52b (7 Mamba blocks, one attention, MoE on
+    every other layer) and xlstm-125m (mLSTM, sLSTM and ffn43 blocks) in
+    float32 through ``grads_card_vs_cpu``.  Their gradients are held after
+    one pass from the same weights, not by phase 9's multi-step check:
+    after TRAIN_STEPS steps the two devices' weights differ by AdamW's
+    noise-level moves, and on the reduced jamba that check fails with no
+    fault in a kernel (uncompressed, a rarely routed expert's moments
+    drift past TRAIN_STATE; with top-k, one flipped choice moves a weight
+    by a step's learning rate)."""
+    for arch in ("jamba-v0.1-52b", "xlstm-125m"):
+        grads_card_vs_cpu(reduce_for_smoke(get_config(arch)).replace(
+            dtype="float32"))
+
+
+@phase("jamba_train_full_size")
+def jamba_train_full_size():
+    """jamba-v0.1-52b at full width (d 4096, di 8192, N 16, GQA 32/8, d_ff
+    14336, vocab 65536) cut to JAMBA_TRAIN_CUT, through ``train_run``:
+    bf16 compute over float32 masters, remat, mode 3 without a
+    compressor: 7 ``mamba_scan_backward`` launches a step, 14
+    ``mamba_scan`` (forward and recompute, on ``tma``), 2
+    ``flash_attention``; the loss falls.  Then one step profiled
+    (``profile_train.profile_step``: launches, busy share, the kernels
+    that take the most device time).  Returns the backward kernel's
+    launches on the training run."""
+    cfg = get_config("jamba-v0.1-52b").replace(**JAMBA_TRAIN_CUT)
+    spec = train.TrainSpec(mode=AsyncMode.BEST_EFFORT,
+                           adamw=AdamWConfig(lr=JAMBA_TRAIN_LR,
+                                             warmup_steps=20,
+                                             total_steps=TRAIN_RUN_STEPS))
+    label = "jamba-v0.1-52b at full width, one period, no experts"
+    launches, _, _ = train_run(label, cfg, spec)
+    rec = profile_train.profile_step(cfg, spec, TRAIN_RUN_B, TRAIN_RUN_S,
+                                     device=torch.device("cuda"))
+    torch.cuda.empty_cache()
+    print(f"[train] {label}, one step profiled: {json.dumps(rec)}",
+          flush=True)
+    return {"mamba_scan_backward": launches["mamba_scan_backward"]}
+
+
+@phase("xlstm_train_full_size")
+def xlstm_train_full_size():
+    """xlstm-125m uncut (12 layers, d 768, hd 384) through ``train_run``:
+    bf16 over float32 masters, remat, mode 3 with the top-k compressor
+    (phase 10's): 10 ``mlstm_attention_backward`` launches a step, 20
+    ``mlstm_attention`` (forward and recompute, on ``wgmma``), one
+    ``topk_compress`` a leaf; the loss falls.  Then one sLSTM layer's
+    work in a step, profiled (``profile_train.profile_slstm``) at
+    SLSTM_PROFILE_S positions: the Python loop's launches a position and
+    busy share, and from them the launches of a step's sLSTM loops,
+    extrapolated.  Returns the backward kernel's launches on the training
+    run."""
+    cfg = get_config("xlstm-125m")
+    spec = train.TrainSpec(mode=AsyncMode.BEST_EFFORT, compressor="topk",
+                           adamw=AdamWConfig(lr=3e-3, warmup_steps=20,
+                                             total_steps=TRAIN_RUN_STEPS))
+    launches, _, steady = train_run("xlstm-125m uncut", cfg, spec)
+    rec = profile_train.profile_slstm(cfg, TRAIN_RUN_B, SLSTM_PROFILE_S,
+                                      torch.device("cuda"))
+    n = rec["slstm_layers_per_step"]
+    per = rec["kernel_launches_per_call"] / SLSTM_PROFILE_S
+    print(f"[train] xlstm-125m: one sLSTM layer's forward, recompute and "
+          f"backward at batch {TRAIN_RUN_B} x {SLSTM_PROFILE_S}: "
+          f"{rec['wall_ms_per_call']:.1f} ms (profiler on), "
+          f"{rec['kernel_launches_per_call']:.0f} launches ({per:.1f} a "
+          f"position), device busy {rec['device_busy_share']:.3f}; "
+          f"extrapolated to {TRAIN_RUN_S} positions and {n} such layers: "
+          f"{per * TRAIN_RUN_S * n:.0f} launches in the step of "
+          f"{steady:.1f} ms", flush=True)
+    return {"mlstm_attention_backward":
+            launches["mlstm_attention_backward"]}
+
+
 #: each kernel entry point of the kernels JSON line: (name, kernel source
 #: key, TPU kernel it replaces)
 ENTRIES = (
@@ -2305,6 +2665,12 @@ ENTRIES = (
      "src/repro/kernels/mlstm_attention/kernel.py:26"),
     ("mlstm_attention_f32", "mlstm_attention",
      "src/repro/kernels/mlstm_attention/kernel.py:26"),
+    ("mamba_scan_backward", "mamba_scan_backward",
+     "no Pallas backward: the gradient of "
+     "src/repro/kernels/mamba_scan/ref.py:8 mamba_scan_ref"),
+    ("mlstm_attention_backward", "mlstm_attention_backward",
+     "no Pallas backward: the gradient of "
+     "src/repro/kernels/mlstm_attention/ref.py:8 mlstm_attention_ref"),
 )
 
 
@@ -2327,6 +2693,9 @@ def main():
     launched.update(xlstm_full_size())
     moe_full_size()
     modality_full_size()
+    ssm_train_card_vs_cpu()
+    launched.update(jamba_train_full_size())
+    launched.update(xlstm_train_full_size())
     kernels_line = []
     for entry, kname, replaces in ENTRIES:
         rec = records[entry]

@@ -44,7 +44,10 @@ SOURCES = {
     "dequantize": "quantize/csrc/quantize.cu",
     "topk_compress": "topk_compress/csrc/topk_compress.cu",
     "mamba_scan": "mamba_scan/csrc/mamba_scan.cu",
+    "mamba_scan_backward": "mamba_scan/csrc/mamba_scan_backward.cu",
     "mlstm_attention": "mlstm_attention/csrc/mlstm_attention.cu",
+    "mlstm_attention_backward":
+        "mlstm_attention/csrc/mlstm_attention_backward.cu",
 }
 
 #: launches per kernel since the last reset_launches()

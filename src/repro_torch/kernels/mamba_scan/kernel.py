@@ -1,4 +1,5 @@
-"""Hand-written CUDA Mamba-1 selective scan, bound with ctypes.
+"""Hand-written CUDA Mamba-1 selective scan and its gradient, bound with
+ctypes.
 
 ``csrc/mamba_scan.cu`` holds two routes, picked by ``route`` from the
 channel count and the state size before the launch (never after a
@@ -11,17 +12,23 @@ failure):
   its own x and dt from global memory, one step ahead.
 
 Both replace src/repro/kernels/mamba_scan/kernel.py:_mamba_kernel (Pallas
-TPU), once per Mamba layer per prefill (``models.ssm.mamba_forward``), and
+TPU), once per Mamba layer per prefill or training forward
+(``models.ssm.mamba_forward``; twice a train step under ``remat``), and
 both count as a launch of ``mamba_scan`` (``build.LAUNCHES``);
 ``build.ROUTES`` counts them by route.  The scan is bound by bytes, with
 the special-function units close behind (the source's header gives the
 numbers and the design).
 
-The wrapper takes CUDA tensors only: it checks device, dtype, shape,
-contiguity and alignment, allocates y and h_final with ``torch.empty``,
-launches on the current stream, raises if the launch reports an error,
-and counts the launch.  There is no fallback: ``ops.py`` sends CPU tensors
-to the plain torch version before anything here is reached.
+``csrc/mamba_scan_backward.cu`` holds the gradient
+(``mamba_scan_backward_f32``, any di): it replaces no Pallas kernel (the
+reference differentiates its jnp scan), runs once per Mamba layer per
+train step and counts as a launch of ``mamba_scan_backward``.
+
+The wrappers take CUDA tensors only: they check device, dtype, shape,
+contiguity and alignment, allocate the outputs with ``torch.empty``,
+launch on the current stream, raise if the launch reports an error,
+and count the launch.  There is no fallback: ``ops.py`` sends CPU tensors
+to the plain torch versions before anything here is reached.
 """
 from __future__ import annotations
 
@@ -108,3 +115,75 @@ def mamba_scan_cuda(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     launch(getattr(lib, f"mamba_scan_{name}_f32"), (x, dt, B, C, A, y, h),
            (Bb, S, di, N), dev, "mamba_scan", route=name)
     return y, h
+
+
+#: x, dt, B, C, A, dy, dh_final, dx, ddt, dB, dC, dA, the scratch (chunk
+#: boundaries, dB / dC / dA partials); Bb, S, di, N; stream
+_BACKWARD_ARGTYPES = [_P] * 16 + [_I] * 4 + [_P]
+
+
+def _backward_lib():
+    return load("mamba_scan_backward",
+                {"mamba_scan_backward_f32": _BACKWARD_ARGTYPES})
+
+
+def backward_geometry(N: int):
+    """(steps a chunk, channels a block) of the backward kernel at state
+    size ``N``: they size its scratch."""
+    fn = _backward_lib().mamba_scan_backward_geometry
+    fn.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    fn.restype = ctypes.c_int
+    chunk, channels = _I(-1), _I(-1)
+    if fn(N, ctypes.byref(chunk), ctypes.byref(channels)) != 0:
+        raise ValueError(f"mamba_scan_backward has no kernel at N = {N}")
+    return chunk.value, channels.value
+
+
+def mamba_scan_backward_cuda(x: torch.Tensor, dt: torch.Tensor,
+                             B: torch.Tensor, C: torch.Tensor,
+                             A: torch.Tensor, dy: torch.Tensor,
+                             dh_final: torch.Tensor | None = None):
+    """The gradient of the scan: x, dt, dy (Bb, S, di); B, C (Bb, S, N); A
+    (di, N); dh_final (Bb, di, N) or None (zero); all float32, contiguous,
+    on the card.  Returns (dx, ddt, dB, dC, dA), float32, in the inputs'
+    shapes.  One launch of ``mamba_scan_backward_f32`` (the backward
+    kernel, then the kernel that adds its partials in a fixed order), any
+    di; the scratch (the states at chunk boundaries and the partial sums)
+    is allocated here and dropped on return."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"mamba_scan_backward_cuda needs CUDA tensors, got "
+                         f"{dev}")
+    if x.ndim != 3 or A.ndim != 2:
+        raise ValueError(f"mamba_scan_backward_cuda takes x (Bb, S, di) and "
+                         f"A (di, N), got {tuple(x.shape)} and "
+                         f"{tuple(A.shape)}")
+    Bb, S, di = x.shape
+    N = A.shape[1]
+    if N not in STATE_SIZES:
+        raise ValueError(f"mamba_scan_backward_cuda takes N in "
+                         f"{STATE_SIZES}, got {N}")
+    if not (1 <= Bb <= 65535 and 1 <= S < 2 ** 31 and 1 <= di < 2 ** 31):
+        raise ValueError(f"mamba_scan_backward_cuda takes Bb in [1, 65535] "
+                         f"and S, di in [1, 2^31), got {tuple(x.shape)}")
+    f32 = torch.float32
+    for t, name, shape in ((x, "x", (Bb, S, di)), (dt, "dt", (Bb, S, di)),
+                           (B, "B", (Bb, S, N)), (C, "C", (Bb, S, N)),
+                           (A, "A", (di, N)), (dy, "dy", (Bb, S, di))):
+        check_tensor(t, name, shape, f32, dev)
+    if dh_final is not None:
+        check_tensor(dh_final, "dh_final", (Bb, di, N), f32, dev)
+    chunk, channels = backward_geometry(N)
+    blocks = -(-di // channels)
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dA = torch.empty_like(A)
+    hbound = torch.empty((Bb, -(-S // chunk), di, N), dtype=f32, device=dev)
+    part_dB = torch.empty((Bb, blocks, S, N), dtype=f32, device=dev)
+    part_dC = torch.empty_like(part_dB)
+    part_dA = torch.empty((Bb, di, N), dtype=f32, device=dev)
+    launch(_backward_lib().mamba_scan_backward_f32,
+           (x, dt, B, C, A, dy, dh_final, dx, ddt, dB, dC, dA, hbound,
+            part_dB, part_dC, part_dA), (Bb, S, di, N), dev,
+           "mamba_scan_backward")
+    return dx, ddt, dB, dC, dA

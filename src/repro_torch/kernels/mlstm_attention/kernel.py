@@ -1,4 +1,5 @@
-"""Hand-written CUDA mLSTM sequence mix (forward), bound with ctypes.
+"""Hand-written CUDA mLSTM sequence mix and its gradient, bound with
+ctypes.
 
 ``csrc/mlstm_attention.cu`` holds two routes, picked by ``route`` from the
 dtype and the head dim before the launch (never after a failure):
@@ -11,17 +12,24 @@ dtype and the head dim before the launch (never after a failure):
   CUDA cores.
 
 Both replace src/repro/kernels/mlstm_attention/kernel.py:26 _mlstm_kernel
-(Pallas TPU), once per mLSTM layer per prefill, and both count as a launch
-of ``mlstm_attention`` (``build.LAUNCHES``); ``build.ROUTES`` counts them
-by route.  The kernel is bound by operations (the source's header gives
+(Pallas TPU), once per mLSTM layer per prefill or training forward (twice
+a train step under ``remat``), and both count as a launch of
+``mlstm_attention`` (``build.LAUNCHES``); ``build.ROUTES`` counts them by
+route.  The kernel is bound by operations (the source's header gives
 the numbers and the design).  Both read the model's (B, S, H, hd) layout
 in place, so no transposed or widened copy of q, k or v is made.
 
-The wrapper takes CUDA tensors only: it checks device, dtype, shape,
-contiguity and alignment, allocates the output with ``torch.empty``,
-launches on the current stream, raises if the launch reports an error, and
-counts the launch.  There is no fallback: ``ops.py`` sends CPU tensors to
-the plain torch version before anything here is reached.
+``csrc/mlstm_attention_backward.cu`` holds the gradient
+(``mlstm_attention_backward_bf16`` / ``_f32``, float32 FMA on the CUDA
+cores, every head dim of ``HEAD_DIMS``): it replaces no Pallas kernel (the
+reference differentiates its jnp mLSTM), runs once per mLSTM layer per
+train step and counts as a launch of ``mlstm_attention_backward``.
+
+The wrappers take CUDA tensors only: they check device, dtype, shape,
+contiguity and alignment, allocate the outputs with ``torch.empty``,
+launch on the current stream, raise if the launch reports an error, and
+count the launch.  There is no fallback: ``ops.py`` sends CPU tensors to
+the plain torch versions before anything here is reached.
 """
 from __future__ import annotations
 
@@ -107,3 +115,52 @@ def mlstm_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch(fn, (q, k, v, F, I, out), (B, S, H, hd), dev, "mlstm_attention",
            route=name)
     return out
+
+
+#: q, k, v, F, I, dh, dq, dk, dv, dF, dI, the scratch m / den / dn; B, S,
+#: H, hd; stream
+_BACKWARD_ARGTYPES = [_P] * 14 + [_I] * 4 + [_P]
+
+
+def mlstm_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, F: torch.Tensor,
+                                  I: torch.Tensor, dh: torch.Tensor):
+    """The gradient of the mix: q, k, v and the output gradient dh (B, S,
+    H, hd) of one dtype (bf16 or float32); F, I (B, S, H) float32; all
+    contiguous, on the card, at a head dim of ``HEAD_DIMS``.  Returns (dq,
+    dk, dv) in q's dtype and (dF, dI) float32.  One launch of
+    ``mlstm_attention_backward_{bf16,f32}`` (a pass over query tiles, then
+    one over key tiles); the scratch (each row's m, den and dn) is
+    allocated here and dropped on return."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"mlstm_attention_backward_cuda needs CUDA tensors, "
+                         f"got {dev}")
+    if q.ndim != 4:
+        raise ValueError(f"mlstm_attention_backward_cuda takes q (B, S, H, "
+                         f"hd), got {tuple(q.shape)}")
+    B, S, H, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"mlstm_attention_backward_cuda is instantiated for "
+                         f"head dims {HEAD_DIMS}, got {hd}")
+    if not (1 <= S and 1 <= B * H < 2 ** 31 and -(-S // 32) <= 65535):
+        raise ValueError(f"mlstm_attention_backward_cuda takes B * H < 2^31 "
+                         f"and S in [1, {65535 * 32}], got {tuple(q.shape)}")
+    suffix = _SUFFIX.get(q.dtype)
+    if suffix is None:
+        raise TypeError(f"mlstm_attention_backward_cuda takes bfloat16 or "
+                        f"float32 q, k, v, dh, got {q.dtype}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (dh, "dh")):
+        check_tensor(t, name, (B, S, H, hd), q.dtype, dev)
+    check_tensor(F, "F", (B, S, H), torch.float32, dev)
+    check_tensor(I, "I", (B, S, H), torch.float32, dev)
+    entry = f"mlstm_attention_backward_{suffix}"
+    lib = load("mlstm_attention_backward",
+               {f"mlstm_attention_backward_{s}": _BACKWARD_ARGTYPES
+                for s in _SUFFIX.values()})
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dF, dI, m, den, dn = (torch.empty_like(F) for _ in range(5))
+    launch(getattr(lib, entry), (q, k, v, F, I, dh, dq, dk, dv, dF, dI, m,
+                                 den, dn), (B, S, H, hd), dev,
+           "mlstm_attention_backward")
+    return dq, dk, dv, dF, dI

@@ -17,18 +17,21 @@ run one after another on one device, each on its slice of the batch.
            only the next step's update.
   mode 4 — fully independent pods.
 
-It trains every arch whose blocks train: the dense archs, the MoE archs
+It trains every arch of the registry: the dense archs, the MoE archs
 (``deepseek-moe-16b``, ``dbrx-132b``; the router's aux loss joins the
-loss) and the audio and vision archs (``musicgen-large``,
+loss), the audio and vision archs (``musicgen-large``,
 ``llava-next-mistral-7b``; each step's batch carries the stub frontend
-input), each also as ``NAME-smoke``, its reduced config.  A ``Pipeline``
+input), the hybrid ``jamba-v0.1-52b`` (Mamba, attention and MoE blocks)
+and ``xlstm-125m`` (mLSTM, sLSTM and ``ffn43`` blocks), each also as
+``NAME-smoke``, its reduced config.  A ``Pipeline``
 thread makes each step's batch and moves it to the device one step ahead.
 
 The step updates the state IN PLACE (the reference returns a new one):
 at qwen2-1.5b's width the float32 state is 31 GB, and a second copy
 would not fit beside the activations.  On the card attention runs
 through the hand-written CUDA flash-attention kernel (forward, and its
-recompute under ``cfg.remat``) and the compressors through the int8
+recompute under ``cfg.remat``), the Mamba scan and the mLSTM mix through
+their kernels forward and backward, and the compressors through the int8
 quantize / dequantize and top-k kernels; on the CPU through their plain
 torch versions.
 
@@ -42,6 +45,10 @@ Run::
         --arch deepseek-moe-16b-smoke --steps 10 --batch 4 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch musicgen-large-smoke --steps 10 --batch 4 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch jamba-v0.1-52b-smoke --steps 10 --batch 4 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch xlstm-125m-smoke --steps 10 --batch 4 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
         --batch 4 --seq 2048 --steps 6 --mode 3 --compressor int8   # card
 """
@@ -358,8 +365,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="10m",
                     help="10m (default) or 100m (examples/train_lm.py's "
-                         "presets), a registered arch whose blocks train "
-                         "(dense, MoE, audio, vision), or NAME-smoke")
+                         "presets), a registered arch (dense, MoE, audio, "
+                         "vision, jamba-v0.1-52b, xlstm-125m), or "
+                         "NAME-smoke")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--steps", type=int, default=200)

@@ -1,6 +1,6 @@
 """Sub-quadratic sequence mixers: Mamba (the selective SSM, jamba's
 mixer), mLSTM and sLSTM (xLSTM's), each as a whole-sequence forward
-(prefill) and an O(1)-state decode step.  The counterpart of
+(prefill and training) and an O(1)-state decode step.  The counterpart of
 src/repro/models/ssm.py.
 
 The reference's forwards run in jnp and never call their Pallas kernels;
@@ -8,15 +8,20 @@ here the Mamba recurrence goes through ``mamba_scan`` and the mLSTM's
 stabilized parallel mix through ``mlstm_attention``, each on a CUDA tensor
 the hand-written CUDA kernel and on a CPU tensor its plain torch version
 (the reference oracle's form), so the JAX model is the oracle (the Mamba
-scans differ by float32 ulps, ROADMAP Queue 3).  The sLSTM is a sequential
-recurrence with no kernel in the reference (a ``lax.scan``): here a Python
-loop over the sequence in plain torch.  As in the reference, the scans,
-the mLSTM mix and the sLSTM state run in float32 and the projections in
-the compute dtype; decode is plain torch and writes the state in place.
-The functions take the reference's leaf dicts ({"in_proj", "conv_w",
-...}), as ``attention_forward`` does; the ``Mamba``, ``MLSTM`` and
-``SLSTM`` modules hold one layer's leaves.  The reference's sharding
-constraints are no-ops on one device and are left out.
+scans differ by float32 ulps, ROADMAP Queue 3).  Both are differentiable:
+their backwards are hand-written kernels too (``mamba_scan_backward``,
+``mlstm_attention_backward``), held to ``jax.grad`` of the reference's jnp
+forms.  The sLSTM is a sequential recurrence with no kernel in the
+reference (a ``lax.scan``): here a Python loop over the sequence in plain
+torch, differentiated by autograd.  As in the reference, the scans, the
+mLSTM mix and the sLSTM state run in float32 and the projections in the
+compute dtype; decode is plain torch and writes the state in place.  The
+forwards build the decode state only when ``return_state`` asks for it
+(training never does).  The functions take the reference's leaf dicts
+({"in_proj", "conv_w", ...}), as ``attention_forward`` does; the
+``Mamba``, ``MLSTM`` and ``SLSTM`` modules hold one layer's leaves.  The
+reference's sharding constraints are no-ops on one device and are left
+out.
 """
 from __future__ import annotations
 
@@ -103,7 +108,9 @@ def mamba_scan_inputs(p, x: torch.Tensor, cfg):
     (B, S, di) in x's dtype, the conv output xc (B, S, di) in x's dtype,
     dt (B, S, di), B and C (B, S, N) float32, and A = -exp(A_log) (di, N),
     computed in A_log's dtype (bf16 once cast, as in the reference) and
-    then widened to float32."""
+    then widened to float32.  Differentiable: in training A_log arrives
+    cast from its float32 master (``lm.cast_leaves``), and the casts pass
+    its gradient back to the master, as the reference's do."""
     cd = x.dtype
     xz = x @ p["in_proj"].to(cd)
     xin, z = xz.chunk(2, dim=-1)
@@ -115,11 +122,11 @@ def mamba_scan_inputs(p, x: torch.Tensor, cfg):
 
 def mamba_forward(p, x: torch.Tensor, cfg, return_state: bool = False):
     """x: (B, S, d) -> (B, S, d), the selective scan through
-    ``mamba_scan``.  With ``return_state`` also the decode state: {"h":
-    the scan's final state (B, di, N) float32, "conv": the last
-    ``d_conv - 1`` pre-conv inputs (B, d_conv - 1, di) in x's dtype}.  Any
-    S: where S < d_conv - 1 the conv state is zero-padded in front (the
-    reference requires S >= d_conv - 1)."""
+    ``mamba_scan`` (differentiable).  With ``return_state`` also the
+    decode state: {"h": the scan's final state (B, di, N) float32, "conv":
+    the last ``d_conv - 1`` pre-conv inputs (B, d_conv - 1, di) in x's
+    dtype}.  Any S: where S < d_conv - 1 the conv state is zero-padded in
+    front (the reference requires S >= d_conv - 1)."""
     S = x.shape[1]
     _, _, _, dconv, _ = _mamba_dims(cfg)
     cd = x.dtype
@@ -240,11 +247,11 @@ def _mlstm_qkv_gates(p, x: torch.Tensor, cfg):
 
 def mlstm_forward(p, x: torch.Tensor, cfg, return_state: bool = False):
     """x: (B, S, d) -> (B, S, d), the sequence mix through
-    ``mlstm_attention``.  With ``return_state`` also the decode state the
-    reference computes from the whole sequence: {"C" (B, H, hd, hd), "n"
-    (B, H, hd), "m" (B, H), all float32, with the running stabilizer
-    m = max_s D_Ss; "conv": the last 3 pre-conv inputs (B, 3, di) in x's
-    dtype}.  Any S (the reference asserts S % 1024 == 0 once S > 1024);
+    ``mlstm_attention`` (differentiable).  With ``return_state`` also the
+    decode state the reference computes from the whole sequence: {"C"
+    (B, H, hd, hd), "n" (B, H, hd), "m" (B, H), all float32, with the
+    running stabilizer m = max_s D_Ss; "conv": the last 3 pre-conv inputs
+    (B, 3, di) in x's dtype}.  Any S (the reference asserts S % 1024 == 0 once S > 1024);
     where S < 3 the conv state is zero-padded in front."""
     _, di, H, hd = _mlstm_dims(cfg)
     B, S, _ = x.shape
@@ -382,18 +389,22 @@ def _gate_inputs(p, x: torch.Tensor, H: int, hd: int) -> torch.Tensor:
 def slstm_forward(p, x: torch.Tensor, cfg, return_state: bool = False):
     """x: (B, S, d) -> (B, S, d): the recurrence stepped over S in a Python
     loop (the reference's ``lax.scan``; it has no kernel), from the empty
-    state.  With ``return_state`` also the final state {"c", "n", "h",
-    "m"} (B, H, hd) float32."""
+    state, differentiable by autograd: the steps read their inputs from
+    one ``unbind`` and their outputs are stacked once (indexing a step's
+    input, or writing its output into a buffer, would make a zero or a
+    copy of the whole (S, ...) gradient at every step of the backward).
+    With ``return_state`` also the final state {"c", "n", "h", "m"} (B,
+    H, hd) float32."""
     B, S, d = x.shape
     H = cfg.num_heads
     hd = d // H
-    pre_x = _gate_inputs(p, x, H, hd)
     r = p["r"].float()
     state = init_slstm_state(cfg, B, device=x.device)
-    hs = torch.empty((B, S, H, hd), dtype=torch.float32, device=x.device)
-    for t in range(S):
-        state = _slstm_step(r, pre_x[t], state)
-        hs[:, t] = state["h"]
+    hs = []
+    for pre_t in _gate_inputs(p, x, H, hd).unbind(0):
+        state = _slstm_step(r, pre_t, state)
+        hs.append(state["h"])
+    hs = torch.stack(hs, dim=1)                     # (B, S, H, hd)
     h = layers.head_rms_norm(hs.to(x.dtype), p["out_norm"], cfg.norm_eps)
     out = h.reshape(B, S, d)
     return (out, state) if return_state else out

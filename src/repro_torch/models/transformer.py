@@ -6,12 +6,13 @@ scans.  The serving path holds one ``Block`` per layer in an
 ``nn.ModuleList`` (layer ``i`` is period ``i // len(block_specs(cfg))``,
 position ``i % len(block_specs(cfg))``; ``interop.params_from_numpy``
 unstacks); training keeps the reference's stacked leaves and reads each
-layer as a slice of them (``stack_forward``).  Both run ``block_forward``.
-Serving takes every mixer (``attn``, ``mamba``, ``mlstm``, ``slstm``) and
-every FFN (``mlp``, ``moe``, ``ffn43``, ``none``): the dense, jamba and
-xLSTM blocks; training the attention blocks, ``('attn', 'mlp')`` and
-``('attn', 'moe')``, whose router aux loss ``stack_forward`` sums over the
-layers as the reference does.
+layer as a slice of them (``stack_forward``).  Both run ``block_forward``:
+serving asks it for the decode cache, training does not (the reference's
+training forward builds none).  Both take every mixer (``attn``,
+``mamba``, ``mlstm``, ``slstm``) and every FFN (``mlp``, ``moe``,
+``ffn43``, ``none``): the dense, MoE, jamba and xLSTM blocks; in training
+``stack_forward`` sums the MoE router's aux loss over the layers as the
+reference does.
 """
 from __future__ import annotations
 
@@ -76,31 +77,6 @@ _FORWARD = {"mamba": mamba_forward, "mlstm": mlstm_forward,
             "slstm": slstm_forward}
 
 
-#: block parts served but not yet trained, with what training them needs
-_UNTRAINED = {"mamba": "src/repro/models/ssm.py (mamba; the scan kernel "
-                       "has no backward yet)",
-              "mlstm": "src/repro/models/ssm.py (mlstm; the mlstm_attention "
-                       "kernel has no backward yet)",
-              "slstm": "src/repro/models/ssm.py (slstm; no backward of "
-                       "the recurrence yet)",
-              "ffn43": "src/repro/models/transformer.py (ffn43, xLSTM's "
-                       "sLSTM block)"}
-
-
-def check_ported(spec: Tuple[str, str], training: bool = False) -> None:
-    """Raise ``NotImplementedError`` for a block spec the port cannot run:
-    every block part is served, so only for training (``training=True``),
-    for the parts only served so far."""
-    if not training:
-        return
-    for part in spec:
-        missing = _UNTRAINED.get(part)
-        if missing:
-            raise NotImplementedError(
-                f"block spec {spec}: {part!r} is not ported yet for "
-                f"training; its reference is {missing} (ROADMAP Queue 1)")
-
-
 def ffn_forward(p, x: torch.Tensor, cfg, ffn: str
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(``x + ffn(norm(x))``, the FFN's aux loss) with the SwiGLU MLP
@@ -121,22 +97,28 @@ def ffn_forward(p, x: torch.Tensor, cfg, ffn: str
 
 
 def block_forward(p, x: torch.Tensor, cfg, spec: Tuple[str, str],
-                  positions: torch.Tensor):
+                  positions: torch.Tensor, return_state: bool = True):
     """The pre-norm residual block, ``x + mixer(norm(x))`` then
     ``x + ffn(norm(x))``, over the whole sequence.  ``p`` is one layer's
     leaves under the reference's names ({"mixer_norm", "mixer": {...},
     "ffn_norm", "ffn": {...}}; no FFN leaves for ``none``); ``spec`` its
     (mixer, ffn).  Returns (x, the FFN's aux loss or None, the mixer's decode
     cache: {"k", "v"} for attention, {"h", "conv"} for Mamba, {"C", "n",
-    "m", "conv"} for mLSTM, {"c", "n", "h", "m"} for sLSTM), in the
-    reference's order.  Differentiable for the attention blocks."""
+    "m", "conv"} for mLSTM, {"c", "n", "h", "m"} for sLSTM; None without
+    ``return_state``, which training passes: the recurrent mixers then
+    build no state), in the reference's order.  Differentiable for every
+    block."""
     mixer, ffn = spec
     h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    cache = None
     if mixer == "attn":
         y, (k, v) = attention_forward(p["mixer"], h, cfg, positions)
-        cache = {"k": k, "v": v}
+        if return_state:
+            cache = {"k": k, "v": v}
     elif mixer in _FORWARD:
-        y, cache = _FORWARD[mixer](p["mixer"], h, cfg, return_state=True)
+        y = _FORWARD[mixer](p["mixer"], h, cfg, return_state=return_state)
+        if return_state:
+            y, cache = y
     else:
         raise ValueError(mixer)
     x, aux = ffn_forward(p, x + y, cfg, ffn)
@@ -144,8 +126,9 @@ def block_forward(p, x: torch.Tensor, cfg, spec: Tuple[str, str],
 
 
 def _block_output(p, x, cfg, spec, positions):
-    """(x, aux) of one block: what ``cfg.remat`` recomputes."""
-    return block_forward(p, x, cfg, spec, positions)[:2]
+    """(x, aux) of one block, no decode cache: what ``cfg.remat``
+    recomputes."""
+    return block_forward(p, x, cfg, spec, positions, return_state=False)[:2]
 
 
 def stack_forward(stack, x: torch.Tensor, cfg, positions: torch.Tensor
@@ -160,11 +143,9 @@ def stack_forward(stack, x: torch.Tensor, cfg, positions: torch.Tensor
     the reference's ``jax.checkpoint``).  Returns (x, aux): the MoE
     blocks' aux losses added to a float32 zero in layer order, as the
     reference's scan body adds every block's (the others' are zeros).
-    The attention blocks train (MLP or MoE FFN); Mamba, mLSTM and sLSTM
-    blocks raise."""
+    Every block kind trains: attention, Mamba, mLSTM and sLSTM mixers,
+    MLP, ``ffn43`` and MoE FFNs."""
     specs = block_specs(cfg)
-    for spec in specs:
-        check_ported(spec, training=True)
 
     def unbind(tree):
         return {k: unbind(v) if isinstance(v, dict) else v.unbind(0)

@@ -362,26 +362,19 @@ def test_serve_main_runs_on_cpu_and_launches_no_kernel(capsys):
     assert torch.equal(again.seqs, res.seqs)
 
 
-@pytest.mark.parametrize("part", ["mamba", "moe"])
-def test_training_refuses_mamba_and_moe(part):
-    """Serving takes jamba's blocks; training refuses its Mamba blocks (no
-    scan backward yet).  Its MoE blocks train since the router's aux loss
-    runs through the stack: under attention mixers the training forward
-    returns finite logits and a positive aux
-    (``tests/test_torch_moe_train.py`` holds it to the reference)."""
-    cfg = reduce_for_smoke(get_config(ARCH)).replace(dtype="float32")
-    if part == "moe":                   # MoE blocks under attention mixers
-        cfg = cfg.replace(block_pattern=("attn",))
+def test_moe_blocks_train_under_attention():
+    """jamba's MoE blocks train under attention mixers: the training
+    forward returns finite logits and a positive aux
+    (``tests/test_torch_moe_train.py`` holds it to the reference; the
+    whole jamba's training, Mamba blocks too, is held to ``jax.grad`` in
+    ``tests/test_torch_ssm_train.py``)."""
+    cfg = reduce_for_smoke(get_config(ARCH)).replace(
+        dtype="float32", block_pattern=("attn",))
     params = lm.init_params(cfg, device="cpu")
     toks = torch.as_tensor(tokens(cfg))
-    if part == "moe":
-        assert ("attn", "moe") in transformer.block_specs(cfg)
-        logits, aux = lm.forward(params, toks, cfg)
-        assert bool(torch.isfinite(logits).all()) and float(aux) > 0
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"'{part}' is not ported yet for training"):
-        lm.forward(params, toks, cfg)
+    assert ("attn", "moe") in transformer.block_specs(cfg)
+    logits, aux = lm.forward(params, toks, cfg)
+    assert bool(torch.isfinite(logits).all()) and float(aux) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,6 @@ import torch_cases  # noqa: E402,F401  (caps torch's CPU threads)
 
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.configs.smoke import reduce_for_smoke  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -263,31 +262,6 @@ def test_bf16_logits_follow_the_reference_norm_rounding(ref):
     err_fixed = np.abs(f32(fixed(torch.as_tensor(toks))) - want).max()
     err_former = np.abs(f32(former(torch.as_tensor(toks))) - want).max()
     assert err_fixed < err_former, (err_fixed, err_former)
-
-
-@pytest.mark.parametrize("spec", [dict(block_pattern=("mlstm",)),
-                                  dict(block_pattern=("slstm",))])
-def test_unported_block_spec_raises(spec):
-    """The mLSTM and sLSTM blocks are served (the model builds, its caches
-    too), but training refuses them, naming the backward that is
-    missing."""
-    cfg = ModelConfig(name="t", family="hybrid", num_layers=2, d_model=32,
-                      num_heads=2, num_kv_heads=1, d_ff=64, vocab_size=64,
-                      dtype="float32", **spec)
-    lm.LM(cfg, device="cpu")
-    transformer.init_caches(cfg, 1, 8, device="cpu")
-    mixer = spec["block_pattern"][0]
-    block = transformer.block_specs(cfg)[0]
-    assert block[0] == mixer
-    transformer.check_ported(block)
-    for refuse in (lambda: transformer.check_ported(block, training=True),
-                   lambda: lm.forward(lm.init_params(cfg, device="cpu"),
-                                      torch.zeros((1, 4), dtype=torch.int32),
-                                      cfg)):
-        with pytest.raises(NotImplementedError,
-                           match=f"'{mixer}' is not ported yet for training"
-                                 f".*no backward.*ROADMAP Queue 1"):
-            refuse()
 
 
 def test_serve_main_runs_on_cpu(capsys):

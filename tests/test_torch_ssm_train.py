@@ -1,0 +1,522 @@
+"""repro_torch's training path for the jamba and xLSTM blocks against the
+reference's ``jax.grad``.
+
+- The two backward ops: ``mamba_scan_backward_torch`` against ``jax.vjp``
+  of the reference's ``mamba_scan_ref`` (a nonzero ``dh_final`` and none)
+  and against torch autograd of the plain forward's loop;
+  ``mlstm_attention_backward_torch`` against ``jax.vjp`` of
+  ``mlstm_attention_ref`` and autograd of ``mlstm_attention_torch``, with
+  rows where den's ``exp(-m)`` branch wins and rows where ``|n|`` does.
+  float32, every gradient within 1e-5 of its largest magnitude (float32
+  sums in other orders; autograd and ``jax.vjp`` also differentiate the
+  mLSTM's stabilizer m, whose terms cancel to rounding).
+- The three mixers under autograd (``mamba_forward``, ``mlstm_forward``,
+  ``slstm_forward``) against ``jax.vjp`` of the reference's: the gradient
+  of x and of every leaf within 1e-5 of its largest magnitude (the
+  Mamba's associative scan against the port's sequential one differs by
+  float32 ulps).
+- The whole model: loss, aux and every leaf's gradient of the reduced
+  jamba-v0.1-52b (one 8-layer period: 7 Mamba blocks, one attention, MoE
+  on every other layer) and the reduced xlstm-125m (6 layers: mLSTM,
+  sLSTM with ``ffn43``) against ``jax.grad`` of the reference's
+  ``lm.loss_fn`` from the same weights, float32, with and without
+  ``remat``: loss and aux within 1e-5 relative, gradients within 1e-4 of
+  each leaf's largest magnitude (the dense and MoE models' tolerance,
+  ``test_torch_train.py``, ``test_torch_moe_train.py``).
+- Two ``make_train_step`` steps of the reduced xlstm-125m in mode 3 with
+  the top-k compressor, two pods, against the reference's jitted step
+  (jamba's jitted step alone takes half the file's time to compile; its
+  gradients are held above); the CLI trains both reduced archs on the CPU
+  and launches no kernel.
+- The ``cuda``-marked tests at the end hold both backward kernels against
+  their plain versions on the card (the training shapes of
+  ``chip_smoke.py``'s ``kernels`` phase and odd shapes) and the Mamba
+  backward's determinism; they need no JAX
+  (``python -m pytest -q -m cuda tests/test_torch_ssm_train.py``).
+"""
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+from torch_cases import close, perturbed_params  # noqa: E402
+
+from repro_torch import interop  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.smoke import reduce_for_smoke  # noqa: E402
+from repro_torch.core.modes import AsyncMode  # noqa: E402
+from repro_torch.data.synthetic import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.mlstm_attention import ops as mix_ops  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+from repro_torch.models import lm, ssm, transformer  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+from repro_torch.pytree import flatten, unflatten  # noqa: E402
+
+ARCHS = ["jamba-v0.1-52b", "xlstm-125m"]
+#: ops and mixers: a share of each gradient's largest magnitude
+OP_TOL = 1e-5
+LOSS_RTOL, GRAD_TOL, NORM_RTOL, MOVE_TOL = 1e-5, 1e-4, 1e-4, 0.05
+B, S = 2, 32
+ADAMW = dict(lr=1e-3, warmup_steps=2, total_steps=20)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference (JAX); the card machine has no JAX."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as ref_get_config
+    from repro.configs.smoke import reduce_for_smoke as ref_reduce
+    from repro.kernels.mamba_scan.ref import mamba_scan_ref
+    from repro.kernels.mlstm_attention.ref import mlstm_attention_ref
+    from repro.launch import train as ref_train
+    from repro.models import lm as ref_lm
+    from repro.models import ssm as ref_ssm
+    from repro.optim.adamw import AdamWConfig as RefAdamW
+    return types.SimpleNamespace(
+        jax=jax, jnp=jnp, get_config=ref_get_config, reduce=ref_reduce,
+        scan=mamba_scan_ref, mix=mlstm_attention_ref, train=ref_train,
+        lm=ref_lm, ssm=ref_ssm, AdamW=RefAdamW, cache={})
+
+
+def assert_grads_close(got, want, tol, label=""):
+    for name, g, w in zip(range(len(got)), got, want):
+        ok, err = close(np.asarray(g), np.asarray(w), tol)
+        assert ok, (label, name, err, np.abs(np.asarray(w)).max())
+
+
+# ---------------------------------------------------------------------------
+# The scan's backward
+# ---------------------------------------------------------------------------
+def scan_inputs(seed, Bb, S_, di, N):
+    """x, dt > 0, B, C, A < 0 (the distributions of the repo's kernel
+    test), the output gradients dy and dh_final, float32."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((Bb, S_, di)) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((Bb, S_, di)) - 1))
+    Bm = rng.standard_normal((Bb, S_, N)) * 0.5
+    Cm = rng.standard_normal((Bb, S_, N)) * 0.5
+    A = -np.exp(rng.standard_normal((di, N)) * 0.3)
+    dy = rng.standard_normal((Bb, S_, di))
+    dh = rng.standard_normal((Bb, di, N))
+    return [a.astype(np.float32) for a in (x, dt, Bm, Cm, A, dy, dh)]
+
+
+SCAN_CASES = [(2, 40, 24, 4), (1, 33, 20, 16), (3, 17, 9, 8)]
+
+
+@pytest.mark.parametrize("with_dh", [True, False], ids=["dh", "no_dh"])
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_scan_backward_matches_jax_vjp(ref, case, with_dh):
+    arrays = scan_inputs(1, *case)
+    ins, dy, dh = arrays[:5], arrays[5], arrays[6]
+    if not with_dh:
+        dh = np.zeros_like(dh)
+    want = ref.jax.jit(lambda a, ct: ref.jax.vjp(ref.scan, *a)[1](ct))(
+        ins, (dy, dh))
+    got = scan_ops.mamba_scan_backward_torch(
+        *(torch.as_tensor(a) for a in ins), torch.as_tensor(dy),
+        torch.as_tensor(dh) if with_dh else None)
+    assert all(g.dtype == torch.float32 for g in got)
+    assert_grads_close([g.numpy() for g in got], want, OP_TOL)
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_scan_function_is_autograd_of_the_plain_loop(case):
+    """``mamba_scan``'s backward on the CPU is the plain backward, bit for
+    bit, and agrees with torch autograd of the plain forward's loop; an
+    unused h_final reaches the backward as None."""
+    arrays = scan_inputs(2, *case)
+    ins = [torch.as_tensor(a) for a in arrays[:5]]
+    dy, dh = (torch.as_tensor(a) for a in arrays[5:])
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    y, h = scan_ops.mamba_scan_torch(*leaves)
+    torch.autograd.backward([y, h], [dy, dh])
+    want = [t.grad for t in leaves]
+    fn = [t.clone().requires_grad_(True) for t in ins]
+    y, h = scan_ops.mamba_scan(*fn)
+    torch.autograd.backward([y, h], [dy, dh])
+    plain = scan_ops.mamba_scan_backward_torch(*ins, dy, dh)
+    for t, p in zip(fn, plain):
+        assert torch.equal(t.grad, p)
+    assert_grads_close([t.grad.numpy() for t in fn],
+                       [w.numpy() for w in want], OP_TOL)
+    fn = [t.clone().requires_grad_(True) for t in ins]
+    (scan_ops.mamba_scan(*fn)[0] * dy).sum().backward()
+    for t, p in zip(fn, scan_ops.mamba_scan_backward_torch(*ins, dy)):
+        assert torch.equal(t.grad, p)
+
+
+# ---------------------------------------------------------------------------
+# The mLSTM mix's backward
+# ---------------------------------------------------------------------------
+def mix_inputs(seed, BH, S_, hd):
+    """q, k (scaled by hd**-0.5), v, F = cumsum(log_sigmoid(n + 3)), I =
+    0.5 n with every 5th entry -6 (a row whose keys all carry such a gate
+    has exp(-m) > |n|), dh; float32, the kernel's layout."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((BH, S_, hd))
+    k = rng.standard_normal((BH, S_, hd)) * hd ** -0.5
+    v = rng.standard_normal((BH, S_, hd))
+    f = rng.standard_normal((BH, S_)) + 3.0
+    Fc = np.cumsum(-np.logaddexp(0.0, -f), axis=1)
+    I = rng.standard_normal((BH, S_)) * 0.5
+    I[:, ::5] = -6.0
+    dh = rng.standard_normal((BH, S_, hd))
+    return [a.astype(np.float32) for a in (q, k, v, Fc, I, dh)]
+
+
+def floor_wins(q, k, v, Fc, I):
+    """Per row, whether den's exp(-m) branch wins, in float64."""
+    S_ = q.shape[1]
+    D = Fc[:, :, None] - Fc[:, None, :] + I[:, None, :]
+    D = np.where(np.tril(np.ones((S_, S_), bool)), D, -np.inf)
+    m = D.max(-1, keepdims=True)
+    n = (np.einsum("btd,bsd->bts", q, k) * np.exp(D - m)).sum(-1)
+    return np.abs(n) < np.exp(-m[..., 0])
+
+
+MIX_CASES = [(2, 40, 16), (3, 29, 8), (1, 64, 32)]
+
+
+@pytest.mark.parametrize("case", MIX_CASES)
+def test_mix_backward_matches_jax_vjp(ref, case):
+    arrays = mix_inputs(3, *case)
+    ins, dh = arrays[:5], arrays[5]
+    wins = floor_wins(*(a.astype(np.float64) for a in ins))
+    assert wins.any() and not wins.all()       # both branches of den
+    want = ref.jax.jit(lambda a, ct: ref.jax.vjp(ref.mix, *a)[1](ct))(
+        ins, dh)
+    got = mix_ops.mlstm_attention_backward_torch(
+        *(torch.as_tensor(a) for a in arrays))
+    assert all(g.dtype == torch.float32 for g in got)
+    assert_grads_close([g.numpy() for g in got], want, OP_TOL)
+
+
+@pytest.mark.parametrize("chunk", [1024, 16])
+@pytest.mark.parametrize("case", MIX_CASES)
+def test_mix_backward_matches_autograd(monkeypatch, case, chunk):
+    """Against torch autograd of the plain forward (which differentiates
+    through the stabilizer's max): float32 within OP_TOL, float64 within
+    1e-12, and the chunk of query rows changes nothing but rounding."""
+    monkeypatch.setattr(mix_ops, "BACKWARD_CHUNK", chunk)
+    arrays = mix_inputs(4, *case)
+    for dtype, tol in ((torch.float32, OP_TOL), (torch.float64, 1e-12)):
+        ins = [torch.as_tensor(a).to(dtype) for a in arrays]
+        leaves = [t.clone().requires_grad_(True) for t in ins[:5]]
+        mix_ops.mlstm_attention_torch(*leaves).backward(ins[5])
+        got = mix_ops.mlstm_attention_backward_torch(*ins)
+        assert_grads_close([g.numpy() for g in got],
+                           [t.grad.numpy() for t in leaves], tol, dtype)
+
+
+def test_mix_function_in_model_layout():
+    """``mlstm_attention`` (model layout) differentiates through the plain
+    backward on the CPU; bf16 q, k, v get bf16 gradients, F and I float32
+    ones."""
+    BH, S_, hd = 4, 24, 16
+    arrays = mix_inputs(5, BH, S_, hd)
+    heads = [torch.as_tensor(a) for a in arrays]
+    model = [mix_ops.from_heads(t, 2) for t in heads]
+    leaves = [t.clone().requires_grad_(True) for t in model[:5]]
+    mix_ops.mlstm_attention(*leaves).backward(model[5])
+    want = mix_ops.mlstm_attention_backward_torch(*heads)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, mix_ops.from_heads(w, 2))
+    bf = [t.to(torch.bfloat16) if i < 3 else t
+          for i, t in enumerate(model[:5])]
+    leaves = [t.clone().requires_grad_(True) for t in bf]
+    mix_ops.mlstm_attention(*leaves).backward(
+        model[5].to(torch.bfloat16))
+    assert [t.grad.dtype for t in leaves] == [torch.bfloat16] * 3 + [
+        torch.float32] * 2
+
+
+# ---------------------------------------------------------------------------
+# The mixers under autograd
+# ---------------------------------------------------------------------------
+def ref_smoke(ref, arch):
+    return ref.reduce(ref.get_config(arch)).replace(dtype="float32")
+
+
+def smoke(arch, **kw):
+    return reduce_for_smoke(get_config(arch)).replace(dtype="float32", **kw)
+
+
+MIXERS = {"mamba": "jamba-v0.1-52b", "mlstm": "xlstm-125m",
+          "slstm": "xlstm-125m"}
+
+
+@pytest.mark.parametrize("mixer", sorted(MIXERS))
+def test_mixer_gradients_match_jax_vjp(ref, mixer):
+    """The gradient of a random projection of the mixer's output with
+    respect to x and every leaf: the reference's initial leaves plus
+    seeded noise (so that zero and constant leaves show)."""
+    arch = MIXERS[mixer]
+    ref_cfg, cfg = ref_smoke(ref, arch), smoke(arch)
+    init = getattr(ref.ssm, f"init_{mixer}")
+    p = ref.jax.tree.map(np.asarray, init(ref.jax.random.PRNGKey(6),
+                                          ref_cfg, ref.jnp.float32))
+    rng = np.random.default_rng(6)
+    p = {k: (v + rng.standard_normal(v.shape) * 0.05).astype(np.float32)
+         for k, v in p.items()}
+    x = rng.standard_normal((B, 24, cfg.d_model)).astype(np.float32)
+    proj = rng.standard_normal((B, 24, cfg.d_model)).astype(np.float32)
+    fwd = getattr(ref.ssm, f"{mixer}_forward")
+    want_p, want_x = ref.jax.jit(lambda p_, x_, ct: ref.jax.vjp(
+        lambda a, b: fwd(a, b, ref_cfg), p_, x_)[1](ct))(p, x, proj)
+    tp = {k: torch.as_tensor(v).requires_grad_(True) for k, v in p.items()}
+    tx = torch.as_tensor(x).requires_grad_(True)
+    out = getattr(ssm, f"{mixer}_forward")(tp, tx, cfg)
+    (out * torch.as_tensor(proj)).sum().backward()
+    assert_grads_close([tx.grad.numpy()], [want_x], OP_TOL, "x")
+    for k, v in tp.items():
+        assert_grads_close([v.grad.numpy()], [want_p[k]], OP_TOL, k)
+
+
+def test_slstm_stacks_its_steps():
+    """The sLSTM's steps read their inputs from one ``unbind`` and their
+    outputs are stacked once: no per-step indexing (a ``SelectBackward0``
+    node, a zero of the whole input's gradient each) and no in-place write
+    into a buffer (a ``CopySlices`` node) is left in the graph."""
+    cfg = smoke("xlstm-125m")
+    params = lm.init_params(cfg, seed=1, device="cpu")
+    p = {k.split("/")[-1]: v[0].requires_grad_(True)
+         for k, v in params.items() if k.startswith("stack/2/mixer/")}
+    x = torch.randn((1, 6, cfg.d_model), requires_grad=True)
+    seen, todo = set(), [ssm.slstm_forward(p, x, cfg).grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        todo.extend(n for n, _ in node.next_functions)
+    names = {type(n).__name__ for n in seen}
+    assert {"StackBackward0", "UnbindBackward0"} <= names
+    assert not names & {"CopySlices", "SelectBackward0"}
+
+
+def test_training_builds_no_decode_state(monkeypatch):
+    """``stack_forward`` calls every recurrent mixer without
+    ``return_state``, as the reference's training forward; serving's
+    ``block_forward`` still returns each cache."""
+    calls = []
+    for name, fn in list(transformer._FORWARD.items()):
+        def spy(*a, _fn=fn, _name=name, **kw):
+            calls.append((_name, kw.get("return_state")))
+            return _fn(*a, **kw)
+        monkeypatch.setitem(transformer._FORWARD, name, spy)
+    cfg = smoke("xlstm-125m", remat=False)
+    params = lm.init_params(cfg, seed=2, device="cpu")
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    lm.forward(params, toks, cfg)
+    assert sorted(set(calls)) == [("mlstm", False), ("slstm", False)]
+    tree = unflatten({k: v[0] for k, v in params.items()
+                              if k.startswith("stack/0/")})["stack"][0]
+    x = torch.randn((1, 8, cfg.d_model))
+    pos = torch.arange(8)[None]
+    _, _, cache = transformer.block_forward(tree, x, cfg, ("mlstm", "none"),
+                                            pos)
+    assert set(cache) == {"C", "n", "m", "conv"}
+    assert transformer.block_forward(tree, x, cfg, ("mlstm", "none"), pos,
+                                     return_state=False)[2] is None
+
+
+# ---------------------------------------------------------------------------
+# The whole model against jax.grad
+# ---------------------------------------------------------------------------
+def batch_of(cfg, seed=1):
+    return SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=seed)
+                       ).batch_for_step(0)
+
+
+def ref_loss_and_grads(ref, arch):
+    """jax.grad of the reference's loss on the reduced arch, once a
+    module."""
+    if arch not in ref.cache:
+        ref_cfg = ref_smoke(ref, arch)
+        params = perturbed_params(ref, ref_cfg, seed=1)
+        batch = batch_of(smoke(arch))
+        (loss, m), g = ref.jax.jit(ref.jax.value_and_grad(
+            lambda p: ref.lm.loss_fn(p, batch, ref_cfg), has_aux=True))(
+                params)
+        ref.cache[arch] = (params, batch, float(loss), float(m["ce"]),
+                           float(m["aux"]),
+                           flatten(ref.jax.tree.map(np.asarray, g)))
+    return ref.cache[arch]
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_and_gradients_match_jax_grad(ref, arch, remat):
+    params, batch, want_loss, want_ce, want_aux, want_g = \
+        ref_loss_and_grads(ref, arch)
+    cfg = smoke(arch, remat=remat)
+    leaves = {k: torch.as_tensor(np.array(v)).requires_grad_(True)
+              for k, v in flatten(params).items()}
+    kbuild.reset_launches()
+    loss, m = lm.loss_fn(leaves, {k: torch.as_tensor(v)
+                                  for k, v in batch.items()}, cfg)
+    loss.backward()
+    loss, m = loss.detach(), {k: v.detach() for k, v in m.items()}
+    assert sum(kbuild.LAUNCHES.values()) == 0      # plain versions on CPU
+    assert abs(float(loss) / want_loss - 1) <= LOSS_RTOL
+    assert abs(float(m["ce"]) / want_ce - 1) <= LOSS_RTOL
+    if arch == "jamba-v0.1-52b":
+        assert float(m["aux"]) > 0
+        assert abs(float(m["aux"]) / want_aux - 1) <= LOSS_RTOL
+    else:
+        assert float(m["aux"]) == want_aux == 0.0
+    assert list(want_g) == list(leaves)             # the reference's order
+    for k, v in leaves.items():
+        ok, err = close(v.grad.numpy(), want_g[k], GRAD_TOL)
+        assert ok, (k, err, np.abs(want_g[k]).max())
+        assert np.abs(want_g[k]).max() > 0, k
+
+
+def test_bf16_a_log_gradient_reaches_the_float32_master():
+    """In bf16 compute ``A_log`` is cast to bf16 before ``-exp``
+    (``lm.cast_leaves``, as the reference's cast); its gradient comes back
+    through the cast to the float32 master."""
+    cfg = reduce_for_smoke(get_config("jamba-v0.1-52b"))
+    assert cfg.dtype == "bfloat16"
+    params = lm.init_params(cfg, seed=3, device="cpu")
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    lm.loss_fn(leaves, {k: torch.as_tensor(v)
+                        for k, v in batch_of(cfg, seed=3).items()},
+               cfg)[0].backward()
+    g = leaves["stack/0/mixer/A_log"].grad
+    assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+    assert float(g.abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# The train step against the reference's, and the CLI
+# ---------------------------------------------------------------------------
+#: AdamW's first step moves an entry by lr g / (|g| + eps): where |g| is
+#: float32 noise (the forward's sums in other orders), that is any value in
+#: [-lr, lr].  Parameters are held to MOVE_TOL x lr where the reference's
+#: first moment is at least NOISE of its leaf's largest magnitude, and to
+#: 2 lr (an AdamW step's reach) elsewhere
+NOISE = 1e-3
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m"])
+def test_train_steps_mode3_topk_match_reference(ref, arch):
+    """Two steps in mode 3 with the top-k compressor, two pods, against
+    the reference's jitted step: the loss and the gradient norm of each
+    (step 2's loss reads the parameters step 1 wrote), and after step 1
+    the parameters as NOISE says (the gradients themselves are held by
+    ``test_loss_and_gradients_match_jax_grad``).  Step 2's
+    state is not held entry by entry: it adds the other pod's top-k
+    payload, where a last-bit difference may pick another entry."""
+    n_pods = 2
+    ref_cfg, cfg = ref_smoke(ref, arch), smoke(arch)
+    kw = dict(mode=AsyncMode.BEST_EFFORT, compressor="topk")
+    ref_spec = ref.train.TrainSpec(adamw=ref.AdamW(**ADAMW), **kw)
+    spec = train.TrainSpec(adamw=AdamWConfig(**ADAMW), **kw)
+    state_ref = ref.train.init_train_state(ref.jax.random.PRNGKey(3),
+                                           ref_cfg, ref_spec, n_pods)
+    state = interop.train_state_from_numpy(
+        ref.jax.tree.map(np.asarray, state_ref), "cpu")
+    ref_step = ref.jax.jit(ref.train.make_train_step(ref_cfg, ref_spec,
+                                                     n_pods))
+    step = train.make_train_step(cfg, spec, n_pods)
+    src = SyntheticLM(DataConfig(cfg.vocab_size, 16, 4, seed=2))
+    for i in range(2):
+        b = {n: v.reshape(n_pods, 2, 16)
+             for n, v in src.batch_for_step(i).items()}
+        state_ref, want = ref_step(state_ref, b)
+        state, got = step(state, {k: torch.as_tensor(v)
+                                  for k, v in b.items()})
+        assert abs(float(got["loss"]) / float(want["loss"]) - 1) <= LOSS_RTOL
+        assert abs(float(got["grad_norm"]) / float(want["grad_norm"]) - 1
+                   ) <= NORM_RTOL
+        if i > 0:
+            continue
+        lr = float(want["lr"])
+        want_s = flatten(ref.jax.tree.map(np.asarray, state_ref))
+        got_s = {k: v.numpy() for k, v in flatten(state).items()}
+        for k, w in want_s.items():
+            if not k.startswith("params/"):
+                continue
+            m = want_s["opt/m/" + k[len("params/"):]]
+            err = np.abs(got_s[k].astype(np.float64) - w)
+            signal = np.abs(m) >= NOISE * np.abs(m).max()
+            assert err[signal].max(initial=0) <= MOVE_TOL * lr, (k, lr)
+            assert err.max() <= 2 * lr, (k, err.max(), lr)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_main_trains_on_cpu_and_launches_no_kernel(arch):
+    kbuild.reset_launches()
+    state, history = train.main(
+        ["--device", "cpu", "--arch", f"{arch}-smoke", "--steps", "6",
+         "--batch", "2", "--seq", "16", "--lr", "1e-2", "--log-every", "1"])
+    assert sum(kbuild.LAUNCHES.values()) == 0
+    assert len(history) == 6
+    assert all(np.isfinite(h["loss"]) for h in history)
+    assert history[-1]["loss"] < history[0]["loss"]
+
+
+# ---------------------------------------------------------------------------
+# On the card: both backward kernels against their plain versions
+# ---------------------------------------------------------------------------
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
+                    "mode)")
+    return torch.device("cuda")
+
+
+#: card against plain, a share of each gradient's largest magnitude:
+#: float32 sums in other orders over up to 2048 steps
+CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(4, 2048, 8192, 16), (2, 300, 8102, 16),
+                                  (3, 99, 256, 4), (1, 64, 66, 32),
+                                  (2, 130, 96, 8)])
+def test_card_scan_backward_matches_plain_and_repeats(case):
+    dev = card()
+    arrays = [torch.as_tensor(a, device=dev) for a in scan_inputs(7, *case)]
+    ins, dy, dh = arrays[:5], arrays[5], arrays[6]
+    kbuild.reset_launches()
+    got = scan_ops.mamba_scan_backward(*ins, dy, dh)
+    again = scan_ops.mamba_scan_backward(*ins, dy, dh)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["mamba_scan_backward"] == 2
+    want = scan_ops.mamba_scan_backward_torch(*ins, dy, dh)
+    assert_grads_close([g.cpu().numpy() for g in got],
+                       [w.cpu().numpy() for w in want],
+                       CARD_TOL[torch.float32])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [(4, 2048, 4, 384), (2, 130, 2, 64),
+                                  (1, 97, 2, 128), (1, 200, 1, 384)])
+def test_card_mix_backward_matches_plain(case, dtype):
+    dev = card()
+    Bq, S_, H, hd = case
+    arrays = mix_inputs(8, Bq * H, S_, hd)
+    model = [mix_ops.from_heads(torch.as_tensor(a, device=dev), Bq)
+             .contiguous() for a in arrays]
+    model = [t.to(dtype) if i in (0, 1, 2, 5) else t
+             for i, t in enumerate(model)]
+    kbuild.reset_launches()
+    got = mix_ops.mlstm_attention_backward(*model)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["mlstm_attention_backward"] == 1
+    want = mix_ops.mlstm_attention_backward_plain(*model)
+    assert [g.dtype for g in got] == [dtype] * 3 + [torch.float32] * 2
+    assert_grads_close([g.float().cpu().numpy() for g in got],
+                       [w.float().cpu().numpy() for w in want],
+                       CARD_TOL[dtype])
