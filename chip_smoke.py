@@ -273,6 +273,8 @@ from repro_torch.kernels.mlstm_attention import (  # noqa: E402
     mlstm_attention_plain,
 )
 from repro_torch.kernels.mlstm_attention.kernel import (  # noqa: E402
+    route as mlstm_route,
+    mlstm_attention_backward_cuda,
     mlstm_attention_cuda,
 )
 from repro_torch.kernels.mlstm_attention.ops import (  # noqa: E402
@@ -971,6 +973,23 @@ def scan_kernels(hbm):
                    lambda: mamba_scan_torch(*args), args, ops, hbm,
                    tol=SCAN_TOL, plain_runs=2)
     rec["simt_ms"] = simt["ms"]
+    # the training forward also saves the states every SAVED_EVERY steps
+    # for the backward; the serving path (no_grad) writes none.  Both timed
+    # the same way, per call between CUDA events, in turns
+    hb_bytes = nbytes(mamba_scan_cuda(*args, bounds=True)[2])
+    calls = {False: lambda: mamba_scan(*args),
+             True: lambda: mamba_scan_cuda(*args, bounds=True)}
+    turns = {False: [], True: []}
+    for bounds in (False, True, True, False):
+        turns[bounds].append(call_ms(calls[bounds]))
+    serving, saved = turns[False], turns[True]
+    print(f"mamba_scan (8,2048,8192,16) f32 (tma), per call with launch "
+          f"overhead, in turns: {serving[0]:.4f} / {serving[1]:.4f} ms "
+          f"without saved states (the serving path), {saved[0]:.4f} / "
+          f"{saved[1]:.4f} ms saving them ({hb_bytes / 1e6:.1f} MB more "
+          f"written)", flush=True)
+    rec["serving_call_ms"] = min(serving)
+    rec["saved_states_call_ms"] = min(saved)
     del args
     args = scan_inputs(gen, 3, 2047, 8100, 16, dev)
     want = mamba_scan_torch(*args)
@@ -1099,48 +1118,67 @@ def scan_bwd_inputs(gen, Bb, S, di, N, dev):
 
 def scan_backward_kernels(hbm):
     """mamba_scan_backward at jamba's training shape, (Bb, S, di, N) = (4,
-    2048, 8192, 16) float32, with dh_final = None as training has it:
-    held against the plain backward, timed, and run twice for bitwise
-    equal gradients; then at odd shapes: S = 2047 (not a multiple of the
-    16-step chunk) with di = 8102 (di % 4 != 0) and a nonzero dh_final, and
-    N = 4, 8, 32.  The bound: every input read and every gradient written
+    2048, 8192, 16) float32, with dh_final = None as training has it and
+    the forward's saved states (``mamba_scan_cuda(..., bounds=True)``, as
+    the training forward writes them): held against the plain backward,
+    timed, and run twice for bitwise equal gradients; timed again without
+    saved states (the wrapper runs the forward for them first); then at
+    odd shapes: S = 2047 (not a multiple of the 16-step chunk) with di =
+    8102 (di % 4 != 0) and a nonzero dh_final, and N = 4, 8, 32.  The
+    bound: every input of the function read and every gradient written
     once (x, dt, dy, dx and ddt are 268 MB each; B, C, A and theirs are
-    small), about 14 operations per (b, t, d, n).  No PyTorch call
-    computes this gradient."""
+    small; the saved states are the design's, not the function's), about
+    14 operations per (b, t, d, n).  No PyTorch call computes this
+    gradient."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2029)
     shape = (4, 2048, 8192, 16)
     args = scan_bwd_inputs(gen, *shape, dev)[:6]
+    hb = mamba_scan_cuda(*args[:5], bounds=True)[2]
     got = one_launch("mamba_scan_backward", "(4,2048,8192,16)",
-                     lambda: mamba_scan_backward(*args), None)
-    again = mamba_scan_backward(*args)
+                     lambda: mamba_scan_backward(*args, None, hb), None)
+    again = mamba_scan_backward(*args, None, hb)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           "mamba_scan_backward: two runs on the same inputs differ")
     print("mamba_scan_backward (4,2048,8192,16): two runs bitwise equal",
           flush=True)
     del got, again
-    rec = measure("mamba_scan_backward (4,2048,8192,16) f32",
-                  lambda: mamba_scan_backward(*args),
+    rec = measure("mamba_scan_backward (4,2048,8192,16) f32 (saved states)",
+                  lambda: mamba_scan_backward(*args, None, hb),
                   lambda: mamba_scan_backward_torch(*args), args,
                   14 * math.prod(shape), hbm, scaled=SCAN_BWD_TOL,
                   plain_runs=1)
-    del args
+    whole, whole_by = device_ms(lambda: mamba_scan_backward(*args))
+    print(f"mamba_scan_backward (4,2048,8192,16) without saved states (the "
+          f"forward for them, then the backward): {whole:.4f} ms "
+          f"({whole_by}); saved states {nbytes(hb) / 1e6:.1f} MB, the dB / "
+          f"dC partials "
+          f"{2 * 4 * (shape[0] * -(-shape[2] // 128) * shape[1] * shape[3]) / 1e6:.1f}"
+          f" MB", flush=True)
+    rec["without_saved_ms"] = whole
+    del args, hb
     torch.cuda.empty_cache()
     for shape in ((3, 2047, 8102, 16), (2, 300, 1000, 4), (2, 300, 999, 8),
                   (2, 300, 1001, 32)):
         args = scan_bwd_inputs(gen, *shape, dev)
+        hb = mamba_scan_cuda(*args[:5], bounds=True)[2]
         got = one_launch("mamba_scan_backward", str(shape),
-                         lambda: mamba_scan_backward(*args), None)
+                         lambda: mamba_scan_backward(*args, hb), None)
+        again = mamba_scan_backward(*args, hb)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"mamba_scan_backward {shape}: two runs differ")
         want = mamba_scan_backward_torch(*args)
         bad, err = compare_scaled(want, got, SCAN_BWD_TOL)
         check(bad == 0, f"mamba_scan_backward {shape}: {bad} elements "
                         f"outside {SCAN_BWD_TOL} (max |difference| {err:.3g})")
         print(f"mamba_scan_backward {shape} f32 with dh_final: max "
               f"|difference| {err:.3g} within {SCAN_BWD_TOL} of each "
-              f"gradient's largest magnitude", flush=True)
-        del args, got, want
+              f"gradient's largest magnitude; two runs bitwise equal",
+              flush=True)
+        del args, got, again, want, hb
     torch.cuda.empty_cache()
     return {"mamba_scan_backward": rec}
 
@@ -1156,43 +1194,92 @@ def mlstm_backward_inputs(gen, B, S, H, hd, dtype, dev):
 
 def mlstm_backward_kernels(hbm):
     """mlstm_attention_backward at xlstm-125m's training shape, (B, S, H,
-    hd) = (4, 2048, 4, 384) bf16 (BH = 16), held against the plain
-    backward and timed; then hd 64 and 128 as well as 384, in bf16 and
-    float32, at a ragged S (2047, not a multiple of the 32-row tiles).
-    The bound counts the five causal products the function needs (q k^T,
-    dh v^T, dq, dk, dv) at the bf16 tensor-core peak.  No PyTorch call
-    computes this gradient."""
+    hd) = (4, 2048, 4, 384) bf16 (BH = 16), on its tensor-core route
+    (``wgmma``, the path's) and, on the same inputs, its CUDA-core route
+    (``simt``, forced): both held against the plain backward and timed,
+    two runs of the path's route bitwise equal, the tensor-core route
+    required faster than the plain version; a float32 shape (``simt``, the
+    float32 phases' route), timed; then hd 64, 128, 256 and 384 in bf16
+    and float32 at a ragged S (2047, not a multiple of the 32- or 64-row
+    tiles), each call's route read from ``build.ROUTES`` and run twice for
+    bitwise equal gradients.  The bound counts the five causal products
+    the function needs (q k^T, dh v^T, dq, dk, dv) at the bf16
+    tensor-core peak (float32 FMA for float32).  No PyTorch call computes
+    this gradient."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2030)
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
+    records = {}
     shape = (4, 2048, 4, 384)
     args = mlstm_backward_inputs(gen, *shape, bf16, dev)
-    one_launch("mlstm_attention_backward", "(4,2048,4,384) bf16",
-               lambda: mlstm_attention_backward(*args), None)
-    rec = measure("mlstm_attention_backward (4,2048,4,384) bf16",
+    check(mlstm_route(bf16, 384) == "wgmma",
+          "xlstm-125m's mLSTM backward is not on wgmma")
+    got = one_launch("mlstm_attention_backward", "(4,2048,4,384) bf16",
+                     lambda: mlstm_attention_backward(*args), "wgmma")
+    again = mlstm_attention_backward(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "mlstm_attention_backward (wgmma): two runs on the same inputs "
+          "differ")
+    del got, again
+    one_launch("mlstm_attention_backward", "(4,2048,4,384) bf16 simt",
+               lambda: mlstm_attention_backward_cuda(*args, simt=True),
+               "simt")
+    flops = 5 * mlstm_flops(*shape) // 2
+    rec = measure("mlstm_attention_backward (4,2048,4,384) bf16 (wgmma)",
                   lambda: mlstm_attention_backward(*args),
                   lambda: mlstm_attention_backward_plain(*args), args,
-                  5 * mlstm_flops(*shape) // 2, hbm, peak=PEAK_BF16_FLOPS,
+                  flops, hbm, peak=PEAK_BF16_FLOPS,
                   scaled=MLSTM_BWD_TOL[bf16], plain_runs=2)
+    simt = measure("mlstm_attention_backward (4,2048,4,384) bf16 (simt, "
+                   "forced)",
+                   lambda: mlstm_attention_backward_cuda(*args, simt=True),
+                   lambda: mlstm_attention_backward_plain(*args), args,
+                   flops, hbm, peak=PEAK_BF16_FLOPS,
+                   scaled=MLSTM_BWD_TOL[bf16], plain_runs=2)
+    check(rec["ms"] < rec["plain_ms"],
+          f"mlstm_attention_backward bf16: the wgmma route "
+          f"({rec['ms']:.4f} ms) is not below its plain version "
+          f"({rec['plain_ms']:.4f} ms)")
+    rec["simt_ms"] = simt["ms"]
+    records["mlstm_attention_backward"] = rec
     del args
-    for hd in (64, 128, 384):
-        for dtype in (bf16, torch.float32):
+    shape = (1, 2048, 4, 384)
+    args = mlstm_backward_inputs(gen, *shape, f32, dev)
+    one_launch("mlstm_attention_backward", "(1,2048,4,384) f32",
+               lambda: mlstm_attention_backward(*args), "simt")
+    records["mlstm_attention_backward_f32"] = measure(
+        "mlstm_attention_backward (1,2048,4,384) f32 (simt)",
+        lambda: mlstm_attention_backward(*args),
+        lambda: mlstm_attention_backward_plain(*args), args,
+        5 * mlstm_flops(*shape) // 2, hbm, peak=PEAK_OPS_PER_S,
+        scaled=MLSTM_BWD_TOL[f32], plain_runs=2)
+    del args
+    for hd in (64, 128, 256, 384):
+        for dtype in (bf16, f32):
             args = mlstm_backward_inputs(gen, 1, 2047, 2, hd, dtype, dev)
+            route = mlstm_route(dtype, hd)
             got = one_launch("mlstm_attention_backward", f"hd {hd}",
-                             lambda: mlstm_attention_backward(*args), None)
+                             lambda: mlstm_attention_backward(*args), route)
+            again = mlstm_attention_backward(*args)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"mlstm_attention_backward (1,2047,2,{hd}) {dtype}: two "
+                  f"runs differ")
             want = mlstm_attention_backward_plain(*args)
             tol = MLSTM_BWD_TOL[dtype]
             bad, err = compare_scaled(want, got, tol)
             check(bad == 0, f"mlstm_attention_backward (1,2047,2,{hd}) "
                             f"{dtype}: {bad} elements outside {tol} (max "
                             f"|difference| {err:.3g})")
-            print(f"mlstm_attention_backward (1,2047,2,{hd}) {dtype}: max "
-                  f"|difference| {err:.3g} within {tol} of each gradient's "
-                  f"largest magnitude", flush=True)
-            del args, got, want
+            print(f"mlstm_attention_backward (1,2047,2,{hd}) {dtype} "
+                  f"({route}): max |difference| {err:.3g} within {tol} of "
+                  f"each gradient's largest magnitude; two runs bitwise "
+                  f"equal", flush=True)
+            del args, got, again, want
     torch.cuda.empty_cache()
-    return {"mlstm_attention_backward": rec}
+    return records
 
 
 @phase("kernels")
@@ -2313,7 +2400,8 @@ def train_run(label, cfg, spec):
     want = train_launches(cfg, steps)
     want_routes = {f"{n}/{r}": want[n] for n, r in (
         ("flash_attention", "wgmma"), ("mamba_scan", "tma"),
-        ("mlstm_attention", "wgmma")) if want[n]}
+        ("mlstm_attention", "wgmma"), ("mlstm_attention_backward", "wgmma"))
+        if want[n]}
     if spec.compressor == "topk":
         want["topk_compress"] = len(state["params"]) * steps
         want_routes.update(leaf_topk_routes(state["params"], steps))
@@ -2556,6 +2644,7 @@ def grads_card_vs_cpu(cfg):
           f"{float(wm['ce']):.6f}, aux {float(wm['aux']):.6g}; worst leaf "
           f"{worst:.3g} of its largest magnitude); launches "
           f"{dict((k, v) for k, v in launches.items() if v)}", flush=True)
+    return launches
 
 
 @phase("ssm_train_card_vs_cpu")
@@ -2568,10 +2657,13 @@ def ssm_train_card_vs_cpu():
     noise-level moves, and on the reduced jamba that check fails with no
     fault in a kernel (uncompressed, a rarely routed expert's moments
     drift past TRAIN_STATE; with top-k, one flipped choice moves a weight
-    by a step's learning rate)."""
+    by a step's learning rate).  Returns the float32 (``simt``) launches of
+    ``mlstm_attention_backward``."""
     for arch in ("jamba-v0.1-52b", "xlstm-125m"):
-        grads_card_vs_cpu(reduce_for_smoke(get_config(arch)).replace(
-            dtype="float32"))
+        launches = grads_card_vs_cpu(reduce_for_smoke(
+            get_config(arch)).replace(dtype="float32"))
+    return {"mlstm_attention_backward_f32":
+            launches["mlstm_attention_backward"]}
 
 
 @phase("jamba_train_full_size")
@@ -2671,6 +2763,9 @@ ENTRIES = (
     ("mlstm_attention_backward", "mlstm_attention_backward",
      "no Pallas backward: the gradient of "
      "src/repro/kernels/mlstm_attention/ref.py:8 mlstm_attention_ref"),
+    ("mlstm_attention_backward_f32", "mlstm_attention_backward",
+     "no Pallas backward: the gradient of "
+     "src/repro/kernels/mlstm_attention/ref.py:8 mlstm_attention_ref"),
 )
 
 
@@ -2693,7 +2788,7 @@ def main():
     launched.update(xlstm_full_size())
     moe_full_size()
     modality_full_size()
-    ssm_train_card_vs_cpu()
+    launched.update(ssm_train_card_vs_cpu())
     launched.update(jamba_train_full_size())
     launched.update(xlstm_train_full_size())
     kernels_line = []
@@ -2708,7 +2803,9 @@ def main():
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             ms_by=rec["ms_by"], plain_ms_by=rec["plain_ms_by"],
             library_ms_by=rec["library_ms_by"],
-            **({"simt_ms": rec["simt_ms"]} if "simt_ms" in rec else {})))
+            **{k: rec[k] for k in ("simt_ms", "serving_call_ms",
+                                   "saved_states_call_ms",
+                                   "without_saved_ms") if k in rec}))
     print("phases: " + ", ".join(f"{p} {t:.1f}s" for p, t in PHASES))
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -28,6 +28,15 @@ Two measurements, each printed as one line per variant:
   - ``exchange``: ``duct_exchange``'s drain, send and full entry points,
     beside an empty kernel on the same grids (the launch ramp) and
     ``clone()`` of both rings (a copy of the bytes the send moves);
+  - ``scan_bwd``: ``mamba_scan_backward`` given the forward's saved
+    states, as built and built with ``-DSCAN_BWD_CUT=1`` (1 + dt A in
+    place of expf: the special-function share) and ``=2`` (no dB / dC sums
+    over d: no reduce-scatter, warps' sums or partial writes; both outputs
+    wrong), and the forward with and without saving the states;
+  - ``mlstm_bwd``: ``mlstm_attention_backward``'s tensor-core route (each
+    of its four kernels) beside its CUDA-core route on the same bf16
+    inputs, each as built and built with ``-DMLSTM_BWD_CUT=1`` (the
+    products alone; outputs wrong);
 * ``before``: sources of the git history (``git show
   <commit>:src/repro_torch/kernels/...``), each timed with CUDA events:
   ``--topk``, the one-block-a-row top-k, built three times with early
@@ -38,7 +47,11 @@ Two measurements, each printed as one line per variant:
   payload copy; ``--scan``, the one-step-ahead scan (entry point
   ``mamba_scan_f32``); ``--exchange``, the fused exchange kernel in the
   three forms the ops launched it in (full; drain and send with the other
-  half fed zero vectors).
+  half fed zero vectors); ``--scan-backward``, the backward that ran the
+  forward recurrence again in a first pass (entry point
+  ``mamba_scan_backward_f32`` with the boundary scratch), as built,
+  without expf (``expf(x)`` defined as 1 + x) and without its dB / dC
+  partial writes.
 
 Run on the card from the repository root::
 
@@ -46,14 +59,17 @@ Run on the card from the repository root::
         [--only scan exchange]
     PYTHONPATH=src python -m repro_torch.kernels.ablation before \\
         --scan build/before/mamba_scan.cu \\
-        --exchange build/before/duct_exchange.cu
+        --exchange build/before/duct_exchange.cu \\
+        --scan-backward build/before/mamba_scan_backward.cu
 
 Shapes: top-k at qwen2-1.5b's stacked MLP rows, (28, 13,762,560), k =
 137,625; the window at evo's torus-1024 (1024, 4, 64, 60) float32; the
 mLSTM at xlstm-125m's prefill, (8, 2048, 4, 384) bf16; the commit at evo's
 (R 4096, C 64, L 60, W 8) float32 and graph coloring's (16384, 64, 1, 8)
 int32; the scan at jamba's prefill, (8, 2048, 8192, 16) float32; the
-exchange at graph coloring's torus-4096 edge layout (E 16384, C 64).
+exchange at graph coloring's torus-4096 edge layout (E 16384, C 64); the
+backward kernels at their training shapes, the scan's (4, 2048, 8192, 16)
+float32 and the mLSTM's (4, 2048, 4, 384) bf16.
 """
 from __future__ import annotations
 
@@ -76,6 +92,8 @@ MLSTM_SHAPE = (8, 2048, 4, 384)          # B, S, H, hd (bf16)
 COMMIT_SHAPES = ((4096, 64, 60, 8, torch.float32),
                  (16384, 64, 1, 8, torch.int32))
 SCAN_SHAPE = (8, 2048, 8192, 16)         # Bb, S, di, N (float32)
+SCAN_BWD_SHAPE = (4, 2048, 8192, 16)     # the backward's (training)
+MLSTM_BWD_SHAPE = (4, 2048, 4, 384)      # B, S, H, hd (bf16, training)
 EXCHANGE_SHAPE = (16384, 64, 16)         # E, C, max_pops
 #: grids an empty kernel is launched on beside the exchange kernels:
 #: (label, blocks, threads) at E = 16384 (the fused kernel: 8 rows a
@@ -106,9 +124,10 @@ _COMMIT_COPIES = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _build(src_text: str, tag: str, defines=()) -> ctypes.CDLL:
+def _build(src_text: str, tag: str, defines=(), include=None) -> ctypes.CDLL:
     """Compile ``src_text`` with ``-D`` ``defines`` into build/ablation/
-    and load it."""
+    and load it; ``include``: a directory its ``#include "..."`` headers
+    are in (a kernel's ``csrc/``)."""
     out_dir = K.BUILD_DIR / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
     digest = hashlib.sha256((src_text + repr(defines)).encode()).hexdigest()
@@ -117,6 +136,7 @@ def _build(src_text: str, tag: str, defines=()) -> ctypes.CDLL:
     if not lib.exists():
         src.write_text(src_text)
         cmd = [K._nvcc(), *K.NVCC_FLAGS, *[f"-D{d}" for d in defines],
+               *([] if include is None else ["-I", str(include)]),
                "-o", str(lib), str(src)]
         subprocess.run(cmd, check=True)
     return ctypes.CDLL(str(lib))
@@ -267,8 +287,10 @@ def _launcher(lib, entry, argtypes):
 _MLSTM_ARGTYPES = [_P] * 6 + [_I] * 4 + [_P]
 #: the commit launcher's: 9 inputs, 3 outputs; R, C, W, L; stream
 _COMMIT_ARGTYPES = [_P] * 12 + [ctypes.c_longlong] + [_I] * 3 + [_P]
-#: the scan launchers': x, dt, B, C, A, y, h; Bb, S, di, N; stream
-_SCAN_ARGTYPES = [_P] * 7 + [_I] * 4 + [_P]
+#: the scan launchers': x, dt, B, C, A, y, h, saved states; Bb, S, di, N;
+#: stream (an earlier source's one-step-ahead entry point: no saved states)
+_SCAN_ARGTYPES = [_P] * 8 + [_I] * 4 + [_P]
+_SCAN_BEFORE_ARGTYPES = [_P] * 7 + [_I] * 4 + [_P]
 #: the fused exchange launcher's: 10 inputs, 9 outputs; E, C, capacity,
 #: max_pops; stream
 _EXCHANGE_ARGTYPES = [_P] * 19 + [_I] * 4 + [_P]
@@ -313,7 +335,8 @@ def _swap_topk(lib):
     return had
 
 
-STAGES = ("topk", "window", "mlstm", "commit", "scan", "exchange")
+STAGES = ("topk", "window", "mlstm", "commit", "scan", "exchange",
+          "scan_bwd", "mlstm_bwd")
 
 
 def stages(only=STAGES) -> None:
@@ -329,6 +352,10 @@ def stages(only=STAGES) -> None:
         _scan_stages()
     if "exchange" in only:
         _exchange_stages()
+    if "scan_bwd" in only:
+        _scan_bwd_stages()
+    if "mlstm_bwd" in only:
+        _mlstm_bwd_stages()
 
 
 def _print_kernels(rows):
@@ -387,18 +414,19 @@ def _mlstm_stages() -> None:
         print(f"mlstm_attention {MLSTM_SHAPE} bf16 {label}: "
               f"{_events_ms(run, 10):.4f} ms a call (events)", flush=True)
         _print_kernels(_by_kernel(run, 5))
-    src = K.source_path("mlstm_attention").read_text()
+    path = K.source_path("mlstm_attention")
+    src, inc = path.read_text(), path.parent
     out = torch.empty_like(args[0])
     ptrs = [t.data_ptr() for t in (*args, out)]
     for label, define in (("Q K^T alone", "MLSTM_CUT=1"),
                           ("Q K^T, the weighting and the split of P, no "
                            "P V", "MLSTM_CUT=2")):
-        call = _launcher(_build(src, "mlstm_cut", (define,)),
+        call = _launcher(_build(src, "mlstm_cut", (define,), inc),
                          "mlstm_attention_wgmma_bf16", _MLSTM_ARGTYPES)
         ms = _events_ms(lambda: call(*ptrs, B, S, H, hd), 10)
         print(f"mlstm_attention {MLSTM_SHAPE} bf16 wgmma, {label}: "
               f"{ms:.4f} ms (output wrong)", flush=True)
-    lib = _build(src, "mlstm_waits", ("MLSTM_WAITS",))
+    lib = _build(src, "mlstm_waits", ("MLSTM_WAITS",), inc)
     call = _launcher(lib, "mlstm_attention_wgmma_bf16", _MLSTM_ARGTYPES)
     read = lib.mlstm_waits
     read.argtypes, read.restype = [_P], ctypes.c_int
@@ -449,7 +477,7 @@ def _scan_stages() -> None:
     args = scan_args(*SCAN_SHAPE)
     y = torch.empty((Bb, S, di), dtype=torch.float32, device="cuda")
     h = torch.empty((Bb, di, N), dtype=torch.float32, device="cuda")
-    ptrs = [t.data_ptr() for t in (*args, y, h)]
+    ptrs = [t.data_ptr() for t in (*args, y, h)] + [None]
     src = K.source_path("mamba_scan").read_text()
     lib = _build(src, "scan")
     occ = lib.mamba_scan_blocks_per_sm
@@ -475,6 +503,107 @@ def _scan_stages() -> None:
                   flush=True)
             if define is None:
                 _print_kernels(_by_kernel(run, 5))
+
+
+#: the backward launchers' C signatures: the scan's x, dt, B, C, A, dy,
+#: dh_final, saved states, dx, ddt, dB, dC, dA, three partials; Bb, S, di,
+#: N; stream (the earlier source: the boundary scratch after dA instead of
+#: the saved states after dh_final); the mLSTM's q, k, v, F, I, dh, dq, dk,
+#: dv, dF, dI, m, den, dn; B, S, H, hd; stream
+_SCAN_BWD_ARGTYPES = [_P] * 16 + [_I] * 4 + [_P]
+_MLSTM_BWD_ARGTYPES = [_P] * 14 + [_I] * 4 + [_P]
+
+
+def _scan_bwd_buffers(shape, blocks, before=False):
+    """(inputs, pointers) of one backward call at ``shape`` (dh_final
+    null), with partials for ``blocks`` channel blocks; the saved states
+    come from the forward, or (``before``) a boundary scratch of every
+    chunk."""
+    from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
+    Bb, S, di, N = shape
+    args = scan_args(*shape)
+    gen = torch.Generator(device="cuda").manual_seed(2029)
+    dy = torch.randn((Bb, S, di), generator=gen, device="cuda")
+
+    def empty(*s):
+        return torch.empty(s, dtype=torch.float32, device="cuda")
+    outs = [empty(Bb, S, di), empty(Bb, S, di), empty(Bb, S, N),
+            empty(Bb, S, N), empty(di, N)]
+    parts = [empty(Bb, blocks, S, N), empty(Bb, blocks, S, N),
+             empty(Bb, di, N)]
+    if before:
+        hb = empty(Bb, -(-S // 16), di, N)
+        keep = [*args, dy, *outs, hb, *parts]
+        ptrs = [t.data_ptr() for t in (*args, dy)] + [None] + \
+            [t.data_ptr() for t in (*outs, hb, *parts)]
+    else:
+        hb = mamba_scan_cuda(*args, bounds=True)[2]
+        keep = [*args, dy, hb, *outs, *parts]
+        ptrs = [t.data_ptr() for t in (*args, dy)] + [None, hb.data_ptr()] + \
+            [t.data_ptr() for t in (*outs, *parts)]
+    return keep, ptrs
+
+
+def _scan_bwd_stages() -> None:
+    """The backward given the forward's saved states, as built and with
+    -DSCAN_BWD_CUT=1 (no expf) and =2 (no dB / dC sums over d); and the
+    forward at this shape with and without saving the states."""
+    from repro_torch.kernels.mamba_scan import kernel as sk
+    Bb, S, di, N = SCAN_BWD_SHAPE
+    _, channels = sk.backward_geometry(N)
+    keep, ptrs = _scan_bwd_buffers(SCAN_BWD_SHAPE, -(-di // channels))
+    path = K.source_path("mamba_scan_backward")
+    src = path.read_text()
+    for label, define in (("as built", None),
+                          ("no expf (1 + dt A)", "SCAN_BWD_CUT=1"),
+                          ("no dB / dC sums over d", "SCAN_BWD_CUT=2")):
+        lib = _build(src, "scan_bwd", () if define is None else (define,))
+        call = _launcher(lib, "mamba_scan_backward_f32", _SCAN_BWD_ARGTYPES)
+        run = lambda: call(*ptrs, Bb, S, di, N)  # noqa: E731
+        note = "" if define is None else " (output wrong)"
+        print(f"mamba_scan_backward {SCAN_BWD_SHAPE} saved states, {label}: "
+              f"{_events_ms(run, 10):.4f} ms (events){note}", flush=True)
+        if define is None:
+            _print_kernels(_by_kernel(run, 5))
+    args = keep[:5]
+    for label, bounds in (("without saved states", False),
+                          ("saving the states", True)):
+        run = lambda: sk.mamba_scan_cuda(*args, bounds=bounds)  # noqa: E731
+        print(f"mamba_scan {SCAN_BWD_SHAPE} tma, {label}: "
+              f"{_events_ms(run, 10):.4f} ms (events)", flush=True)
+
+
+def _mlstm_bwd_stages() -> None:
+    """The backward's routes on the same bf16 inputs, each kernel's device
+    time, and the route built with -DMLSTM_BWD_CUT=1 (the products alone:
+    q k^T and dh v^T in every kernel, no weighting, operand or
+    accumulated product; outputs wrong)."""
+    from repro_torch.kernels.mlstm_attention import kernel as mk
+    B, S, H, hd = MLSTM_BWD_SHAPE
+    args = mlstm_args(*MLSTM_BWD_SHAPE)
+    gen = torch.Generator(device="cuda").manual_seed(2030)
+    dh = torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16()
+    ins = [*args, dh]
+    for label, simt in (("wgmma", False), ("simt (forced)", True)):
+        run = lambda: mk.mlstm_attention_backward_cuda(  # noqa: E731
+            *ins, simt=simt)
+        print(f"mlstm_attention_backward {MLSTM_BWD_SHAPE} bf16 {label}: "
+              f"{_events_ms(run, 5):.4f} ms a call (events)", flush=True)
+        _print_kernels(_by_kernel(run, 10))
+    path = K.source_path("mlstm_attention_backward")
+    outs = [torch.empty_like(dh) for _ in range(3)] + \
+        [torch.empty_like(args[3]) for _ in range(5)]
+    ptrs = [t.data_ptr() for t in (*ins, *outs)]
+    lib = _build(path.read_text(), "mlstm_bwd_cut", ("MLSTM_BWD_CUT=1",),
+                 path.parent)
+    for route in ("wgmma", "simt"):
+        call = _launcher(lib, f"mlstm_attention_backward_{route}_bf16",
+                         _MLSTM_BWD_ARGTYPES)
+        run = lambda: call(*ptrs, B, S, H, hd)  # noqa: E731
+        print(f"mlstm_attention_backward {MLSTM_BWD_SHAPE} bf16 {route}, the "
+              f"products alone: {_events_ms(run, 5):.4f} ms (events; output "
+              f"wrong)", flush=True)
+        _print_kernels(_by_kernel(run, 10))
 
 
 def _empty_launch():
@@ -519,7 +648,8 @@ def _exchange_stages() -> None:
 def before(topk_src: Path | None = None, window_src: Path | None = None,
            mlstm_src: Path | None = None, commit_src: Path | None = None,
            scan_src: Path | None = None,
-           exchange_src: Path | None = None) -> None:
+           exchange_src: Path | None = None,
+           scan_backward_src: Path | None = None) -> None:
     if topk_src is not None:
         _topk_before(topk_src)
     if window_src is not None:
@@ -543,12 +673,46 @@ def before(topk_src: Path | None = None, window_src: Path | None = None,
                 torch.empty((Bb, di, N), dtype=torch.float32, device="cuda")]
         ptrs = [t.data_ptr() for t in (*args, *outs)]
         call = _launcher(_build(scan_src.read_text(), "scan_before"),
-                         "mamba_scan_f32", _SCAN_ARGTYPES)
+                         "mamba_scan_f32", _SCAN_BEFORE_ARGTYPES)
         print(f"mamba_scan before {SCAN_SHAPE}: "
               f"{_events_ms(lambda: call(*ptrs, Bb, S, di, N), 10):.4f} ms",
               flush=True)
     if exchange_src is not None:
         _exchange_before(exchange_src)
+    if scan_backward_src is not None:
+        _scan_backward_before(scan_backward_src)
+
+
+#: the earlier scan backward's dB / dC partial writes, which its cut
+#: removes
+_SCAN_BWD_PARTIALS = ("      part_dB[off] = vb;\n"
+                      "      part_dC[off] = vc;\n")
+
+
+def _scan_backward_before(src: Path) -> None:
+    """The earlier backward (a first pass that ran the forward recurrence
+    for the boundary scratch, then the chunks with a_t computed again, a
+    thread per (b, d, n)) on ``_scan_bwd_stages``'s inputs, as built,
+    without expf and without its dB / dC partial writes (both outputs
+    wrong)."""
+    Bb, S, di, N = SCAN_BWD_SHAPE
+    text = src.read_text()
+    if _SCAN_BWD_PARTIALS not in text:
+        raise ValueError(f"{src}: no dB / dC partial writes to cut")
+    keep, ptrs = _scan_bwd_buffers(SCAN_BWD_SHAPE, -(-di // (256 // N)),
+                                   before=True)
+    for label, variant in (
+            ("as built", text),
+            ("no expf (1 + x)", "#define expf(x) (1.f + (x))\n" + text),
+            ("no dB / dC partial writes",
+             text.replace(_SCAN_BWD_PARTIALS, ""))):
+        call = _launcher(_build(variant, "scan_bwd_before"),
+                         "mamba_scan_backward_f32", _SCAN_BWD_ARGTYPES)
+        run = lambda: call(*ptrs, Bb, S, di, N)  # noqa: E731
+        note = "" if variant is text else " (output wrong)"
+        print(f"mamba_scan_backward before {SCAN_BWD_SHAPE}, {label}: "
+              f"{_events_ms(run, 10):.4f} ms (events){note}", flush=True)
+    del keep
 
 
 def _exchange_before(src: Path) -> None:
@@ -666,7 +830,8 @@ def main(argv=None) -> int:
     st.add_argument("--only", nargs="+", choices=STAGES, default=STAGES,
                     help="which kernels (default: all)")
     b = sub.add_parser("before")
-    for name in ("topk", "window", "mlstm", "commit", "scan", "exchange"):
+    for name in ("topk", "window", "mlstm", "commit", "scan", "exchange",
+                 "scan-backward"):
         b.add_argument(f"--{name}", type=Path, metavar="SRC",
                        help=f"an earlier {name} source (git show)")
     args = ap.parse_args(argv)
@@ -680,7 +845,7 @@ def main(argv=None) -> int:
         stages(args.only)
     else:
         before(args.topk, args.window, args.mlstm, args.commit, args.scan,
-               args.exchange)
+               args.exchange, args.scan_backward)
     return 0
 
 

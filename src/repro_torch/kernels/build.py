@@ -4,8 +4,9 @@ Every kernel package keeps its sources under its own ``csrc/``; each source
 is compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface, loaded with ctypes.  The libraries are built on first use into
 ``build/`` at the repository root, named by the source and a hash of it
-so an edited source is rebuilt; ``build()`` compiles every missing one
-with one ``nvcc`` per source, all started together.
+and of the headers beside it, so an edited source or header is rebuilt;
+``build()`` compiles every missing one with one ``nvcc`` per source, all
+started together.
 
 ``LAUNCHES`` counts the launches of each kernel since the last
 ``reset_launches()``; ``launch`` adds one exactly where it launches a
@@ -98,11 +99,13 @@ def source_path(name: str) -> Path:
 
 def library_path(name: str) -> Path:
     """The library built from kernel ``name``'s source, named by the
-    source's stem and a hash of its text (kernels of one source share
-    it)."""
+    source's stem and a hash of its text and of the headers (``*.cuh``)
+    beside it, which it may include (kernels of one source share it)."""
     src = source_path(name)
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:

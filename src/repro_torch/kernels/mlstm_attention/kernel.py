@@ -19,11 +19,20 @@ route.  The kernel is bound by operations (the source's header gives
 the numbers and the design).  Both read the model's (B, S, H, hd) layout
 in place, so no transposed or widened copy of q, k or v is made.
 
-``csrc/mlstm_attention_backward.cu`` holds the gradient
-(``mlstm_attention_backward_bf16`` / ``_f32``, float32 FMA on the CUDA
-cores, every head dim of ``HEAD_DIMS``): it replaces no Pallas kernel (the
-reference differentiates its jnp mLSTM), runs once per mLSTM layer per
-train step and counts as a launch of ``mlstm_attention_backward``.
+``csrc/mlstm_attention_backward.cu`` holds the gradient, in the same two
+routes, picked by the same ``route``:
+
+* ``"wgmma"``: bf16 at hd 128, 256 and 384
+  (``mlstm_attention_backward_wgmma_bf16``): four tensor-core kernels fed
+  by TMA (the row statistics, then dq, dk and dv);
+* ``"simt"``: float32 at every head dim and bf16 at hd 16, 32 and 64
+  (``mlstm_attention_backward_simt_bf16`` / ``_f32``), float32 FMA on the
+  CUDA cores.
+
+It replaces no Pallas kernel (the reference differentiates its jnp
+mLSTM), runs once per mLSTM layer per train step and counts as a launch
+of ``mlstm_attention_backward`` (``build.ROUTES`` by route).  ``wgmma.cuh``
+holds the TMA and wgmma pieces both sources' tensor-core routes use.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape,
 contiguity and alignment, allocate the outputs with ``torch.empty``,
@@ -120,18 +129,25 @@ def mlstm_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #: q, k, v, F, I, dh, dq, dk, dv, dF, dI, the scratch m / den / dn; B, S,
 #: H, hd; stream
 _BACKWARD_ARGTYPES = [_P] * 14 + [_I] * 4 + [_P]
+_BACKWARD_ENTRIES = ("mlstm_attention_backward_wgmma_bf16",
+                     "mlstm_attention_backward_simt_bf16",
+                     "mlstm_attention_backward_simt_f32")
 
 
 def mlstm_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, F: torch.Tensor,
-                                  I: torch.Tensor, dh: torch.Tensor):
+                                  I: torch.Tensor, dh: torch.Tensor, *,
+                                  simt: bool = False):
     """The gradient of the mix: q, k, v and the output gradient dh (B, S,
     H, hd) of one dtype (bf16 or float32); F, I (B, S, H) float32; all
     contiguous, on the card, at a head dim of ``HEAD_DIMS``.  Returns (dq,
-    dk, dv) in q's dtype and (dF, dI) float32.  One launch of
-    ``mlstm_attention_backward_{bf16,f32}`` (a pass over query tiles, then
-    one over key tiles); the scratch (each row's m, den and dn) is
-    allocated here and dropped on return."""
+    dk, dv) in q's dtype and (dF, dI) float32.  One launch of the route
+    ``route`` picks (``wgmma``: the statistics, dq, dk and dv kernels;
+    ``simt``: a pass over query tiles, then one over key tiles); the
+    scratch (each row's m, den and dn) is allocated here and dropped on
+    return.  ``simt=True`` takes the CUDA-core route where ``route`` would
+    take the tensor cores: the chip smoke test and the ablation time both
+    on the same inputs; the model's path never passes it."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"mlstm_attention_backward_cuda needs CUDA tensors, "
@@ -154,13 +170,16 @@ def mlstm_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
         check_tensor(t, name, (B, S, H, hd), q.dtype, dev)
     check_tensor(F, "F", (B, S, H), torch.float32, dev)
     check_tensor(I, "I", (B, S, H), torch.float32, dev)
-    entry = f"mlstm_attention_backward_{suffix}"
+    name = "simt" if simt else route(q.dtype, hd)
+    if name == "wgmma" and any(t.data_ptr() % ALIGN for t in (q, k, v, dh)):
+        raise ValueError(f"mlstm_attention_backward_cuda's {name} route "
+                         f"reads q, k, v and dh by TMA from {ALIGN}-byte "
+                         f"aligned addresses")
     lib = load("mlstm_attention_backward",
-               {f"mlstm_attention_backward_{s}": _BACKWARD_ARGTYPES
-                for s in _SUFFIX.values()})
+               {e: _BACKWARD_ARGTYPES for e in _BACKWARD_ENTRIES})
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dF, dI, m, den, dn = (torch.empty_like(F) for _ in range(5))
-    launch(getattr(lib, entry), (q, k, v, F, I, dh, dq, dk, dv, dF, dI, m,
-                                 den, dn), (B, S, H, hd), dev,
-           "mlstm_attention_backward")
+    launch(getattr(lib, f"mlstm_attention_backward_{name}_{suffix}"),
+           (q, k, v, F, I, dh, dq, dk, dv, dF, dI, m, den, dn),
+           (B, S, H, hd), dev, "mlstm_attention_backward", route=name)
     return dq, dk, dv, dF, dI

@@ -49,9 +49,9 @@ def held_backward(shares):
     each as a share of the plain gradient's largest magnitude."""
     kernel = scan_ops.mamba_scan_backward
 
-    def backward(x, dt, B, C, A, dy, dh_final=None):
+    def backward(x, dt, B, C, A, dy, dh_final=None, hbound=None):
         assert dh_final is None, "training uses no final state"
-        out = kernel(x, dt, B, C, A, dy)
+        out = kernel(x, dt, B, C, A, dy, None, hbound)
         row = [t[:1] for t in (x, dt, B, C)] + [A, dy[:1]]
         got = kernel(*row)
         want = scan_ops.mamba_scan_backward_torch(*row)

@@ -28,11 +28,20 @@ reference's ``jax.grad``.
   (jamba's jitted step alone takes half the file's time to compile; its
   gradients are held above); the CLI trains both reduced archs on the CPU
   and launches no kernel.
+- The scan's saved states: the plain forward's are the plain scan's h
+  bit for bit, and the plain backward from them equals the one that
+  recomputes every step, bit for bit (both held to ``jax.vjp``).  The
+  mLSTM backward's route choice, and a CPU emulation of its tensor-core
+  route's rounding (G and P as one bf16 term) against the float64 plain
+  backward.
 - The ``cuda``-marked tests at the end hold both backward kernels against
   their plain versions on the card (the training shapes of
-  ``chip_smoke.py``'s ``kernels`` phase and odd shapes) and the Mamba
-  backward's determinism; they need no JAX
-  (``python -m pytest -q -m cuda tests/test_torch_ssm_train.py``).
+  ``chip_smoke.py``'s ``kernels`` phase and odd shapes; the mLSTM's two
+  routes, read from ``build.ROUTES``, and the ``wgmma`` route's refusal of
+  unaligned inputs; the scan from the forward's saved states and through
+  ``mamba_scan(...).backward``) and both backwards' determinism; they
+  need no JAX (``python -m pytest -q -m cuda
+  tests/test_torch_ssm_train.py``).
 """
 import types
 
@@ -109,20 +118,87 @@ def scan_inputs(seed, Bb, S_, di, N):
 SCAN_CASES = [(2, 40, 24, 4), (1, 33, 20, 16), (3, 17, 9, 8)]
 
 
+@pytest.mark.parametrize("saved", [False, True], ids=["steps", "saved"])
 @pytest.mark.parametrize("with_dh", [True, False], ids=["dh", "no_dh"])
 @pytest.mark.parametrize("case", SCAN_CASES)
-def test_scan_backward_matches_jax_vjp(ref, case, with_dh):
+def test_scan_backward_matches_jax_vjp(ref, case, with_dh, saved):
+    """Recomputing the states step by step from 0 or chunk by chunk from
+    the forward's saved states (``saved``): both held to ``jax.vjp``."""
     arrays = scan_inputs(1, *case)
     ins, dy, dh = arrays[:5], arrays[5], arrays[6]
     if not with_dh:
         dh = np.zeros_like(dh)
     want = ref.jax.jit(lambda a, ct: ref.jax.vjp(ref.scan, *a)[1](ct))(
         ins, (dy, dh))
+    tins = [torch.as_tensor(a) for a in ins]
+    hb = scan_ops.mamba_scan_torch(*tins, bounds=True)[2] if saved else None
     got = scan_ops.mamba_scan_backward_torch(
-        *(torch.as_tensor(a) for a in ins), torch.as_tensor(dy),
-        torch.as_tensor(dh) if with_dh else None)
+        *tins, torch.as_tensor(dy), torch.as_tensor(dh) if with_dh else None,
+        hb)
     assert all(g.dtype == torch.float32 for g in got)
     assert_grads_close([g.numpy() for g in got], want, OP_TOL)
+
+
+#: (Bb, S, di, N): fewer steps than a chunk, whole chunks, a ragged chunk
+SAVED_CASES = [(2, 9, 8, 4), (1, 48, 12, 16), (3, 37, 5, 8)]
+
+
+@pytest.mark.parametrize("case", SAVED_CASES)
+def test_plain_forward_saves_the_states_of_the_plain_scan(case):
+    """``mamba_scan_torch(..., bounds=True)``: the state after every
+    SAVED_EVERY steps but the last chunk's, bit for bit the h_final of the
+    plain scan over those first steps; y and h_final unchanged."""
+    ins = [torch.as_tensor(a) for a in scan_inputs(5, *case)[:5]]
+    Bb, S, di, N = case
+    y, h, hb = scan_ops.mamba_scan_torch(*ins, bounds=True)
+    L = scan_ops.SAVED_EVERY
+    assert hb.shape == (Bb, -(-S // L) - 1, di, N)
+    y0, h0 = scan_ops.mamba_scan_torch(*ins)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    for k in range(hb.shape[1]):
+        steps = [t[:, :L * (k + 1)] for t in ins[:4]]
+        assert torch.equal(hb[:, k],
+                           scan_ops.mamba_scan_torch(*steps, ins[4])[1])
+
+
+@pytest.mark.parametrize("case", SAVED_CASES)
+def test_plain_backward_from_saved_states_is_bitwise_the_same(case):
+    """The plain backward given the forward's saved states (each chunk
+    recomputed from its own) equals the one that recomputes every step
+    from 0, bit for bit, with and without dh_final; and the CPU autograd
+    path (which saves them) is that backward too."""
+    arrays = scan_inputs(6, *case)
+    ins = [torch.as_tensor(a) for a in arrays[:5]]
+    dy, dh = (torch.as_tensor(a) for a in arrays[5:])
+    hb = scan_ops.mamba_scan_torch(*ins, bounds=True)[2]
+    for final in (dh, None):
+        want = scan_ops.mamba_scan_backward_torch(*ins, dy, final)
+        got = scan_ops.mamba_scan_backward_torch(*ins, dy, final, hb)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    y, h = scan_ops.mamba_scan(*leaves)
+    torch.autograd.backward([y, h], [dy, dh])
+    want = scan_ops.mamba_scan_backward_torch(*ins, dy, dh)
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
+
+
+def test_scan_saves_states_only_for_a_backward(monkeypatch):
+    """``mamba_scan`` asks the forward for the saved states only where
+    autograd records the call: not under no_grad (the serving prefill) and
+    not when no input requires grad."""
+    calls = []
+    plain = scan_ops.mamba_scan_torch
+
+    def spy(*a, bounds=False):
+        calls.append(bounds)
+        return plain(*a, bounds=bounds)
+    monkeypatch.setattr(scan_ops, "mamba_scan_torch", spy)
+    ins = [torch.as_tensor(a) for a in scan_inputs(7, 1, 20, 4, 4)[:5]]
+    scan_ops.mamba_scan(*ins)
+    with torch.no_grad():
+        scan_ops.mamba_scan(*[t.clone().requires_grad_(True) for t in ins])
+    scan_ops.mamba_scan(*[t.clone().requires_grad_(True) for t in ins])
+    assert calls == [False, False, True]
 
 
 @pytest.mark.parametrize("case", SCAN_CASES)
@@ -195,6 +271,91 @@ def test_mix_backward_matches_jax_vjp(ref, case):
         *(torch.as_tensor(a) for a in arrays))
     assert all(g.dtype == torch.float32 for g in got)
     assert_grads_close([g.numpy() for g in got], want, OP_TOL)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256, 384])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_has_an_entry_point_for_its_route(dtype, hd):
+    """The backward takes the forward's route (``kernel.route``): the
+    tensor cores for bf16 at hd 128, 256 and 384, float32 FMA otherwise.
+    Its source exports the entry point the wrapper calls for that route,
+    and the ``simt`` one that ``simt=True`` forces."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mlstm_attention import kernel as mkernel
+    dt = getattr(torch, dtype)
+    r = mkernel.route(dt, hd)
+    assert r == ("wgmma" if dtype == "bfloat16" and hd in (128, 256, 384)
+                 else "simt")
+    src = build.source_path("mlstm_attention_backward").read_text()
+    suffix = mkernel._SUFFIX[dt]
+    for name in (r, "simt"):
+        entry = f"mlstm_attention_backward_{name}_{suffix}"
+        assert entry in mkernel._BACKWARD_ENTRIES
+        assert f'extern "C" int {entry}(' in src
+
+
+def wgmma_backward_emulation(q, k, v, Fc, I, dh):
+    """The tensor-core backward's arithmetic on the CPU, the kernel's
+    layout ((BH, S, hd) bf16 q, k, v, dh; (BH, S) float32 F, I): scores S
+    = (q k^T) W and e = dh v^T as float32 sums of the bf16 products, the
+    exact stabilizer, n, r, den and dn in float32; the operands of the
+    accumulated products, G = (e / den + dn) W and P = S / den, each
+    rounded to one bf16 term; dq = G k, dk = G^T q and dv = P^T dh summed
+    in float32 and rounded once to bf16; dF and dI from the float32
+    dS S.  Returns (dq, dk, dv, dF, dI)."""
+    S_ = q.shape[1]
+    qf, kf, vf, hf = (t.float() for t in (q, k, v, dh))
+    D = (Fc[:, :, None] - Fc[:, None, :]) + I[:, None, :]
+    mask = torch.ones((S_, S_), dtype=torch.bool).tril()
+    D = D.masked_fill(~mask, float("-inf"))
+    m = D.amax(-1, keepdim=True).clamp(min=-1e30)
+    W = torch.exp(D - m)
+    Sc = torch.bmm(qf, kf.transpose(1, 2)) * W
+    e = torch.bmm(hf, vf.transpose(1, 2))
+    n = Sc.sum(-1)
+    floor = torch.exp(-m[..., 0])
+    den = torch.maximum(n.abs(), floor)
+    dhh = (Sc * e).sum(-1) / den
+    dn = torch.where(n.abs() > floor, -torch.sign(n) * dhh / den,
+                     torch.zeros_like(n))
+    dS = e / den[..., None] + dn[..., None]
+    G = (dS * W).bfloat16().float()
+    P = (Sc / den[..., None]).bfloat16().float()
+    dD = dS * Sc
+    col = dD.sum(-2)
+    return (torch.bmm(G, kf).bfloat16(),
+            torch.bmm(G.transpose(1, 2), qf).bfloat16(),
+            torch.bmm(P.transpose(1, 2), hf).bfloat16(),
+            dD.sum(-1) - col, col)
+
+
+@pytest.mark.parametrize("case", [(2, 200, 128), (1, 2047, 128),
+                                  (1, 640, 384)],
+                         ids=lambda c: f"BH{c[0]}-S{c[1]}-hd{c[2]}")
+def test_wgmma_backward_emulation_holds_the_card_tolerance(case):
+    """One bf16 term of G and of P is enough: the emulated tensor-core
+    backward stays within the card's bf16 tolerance (CARD_TOL, a share of
+    each gradient's largest magnitude) of the plain backward evaluated in
+    float64 on the same bf16 inputs, and dq, dk, dv within twice the error
+    of rounding that exact gradient itself to bf16 (one term adds at most
+    as much again: 1.0-1.6x on these inputs), at a ragged S 2047 and at
+    xlstm-125m's head dim, with rows in both branches of den."""
+    arrays = mix_inputs(9, *case)
+    args = [torch.as_tensor(a) for a in arrays]
+    bf = [t.bfloat16() if i in (0, 1, 2, 5) else t
+          for i, t in enumerate(args)]
+    wins = floor_wins(*(t.double().numpy() for t in bf[:5]))
+    assert wins.any() and not wins.all()
+    got = wgmma_backward_emulation(*bf)
+    want = mix_ops.mlstm_attention_backward_torch(
+        *(t.double() for t in bf))
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = float((g.double() - w).abs().max())
+        scale = float(w.abs().max())
+        assert err <= CARD_TOL[torch.bfloat16] * scale, (i, err, scale)
+        if i < 3:
+            rounding = float((w.bfloat16().double() - w).abs().max())
+            assert err <= 2 * rounding, (i, err, rounding)
 
 
 @pytest.mark.parametrize("chunk", [1024, 16])
@@ -478,11 +639,16 @@ def card():
 CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
+SCAN_CARD_CASES = [(4, 2048, 8192, 16), (2, 300, 8102, 16), (3, 99, 256, 4),
+                   (1, 64, 66, 32), (2, 130, 96, 8), (2, 9, 40, 16)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [(4, 2048, 8192, 16), (2, 300, 8102, 16),
-                                  (3, 99, 256, 4), (1, 64, 66, 32),
-                                  (2, 130, 96, 8)])
+@pytest.mark.parametrize("case", SCAN_CARD_CASES)
 def test_card_scan_backward_matches_plain_and_repeats(case):
+    """Without saved states (the wrapper runs the forward for them: one
+    ``mamba_scan`` launch a call) and with the forward's, against the
+    plain backward; every run bitwise the same."""
     dev = card()
     arrays = [torch.as_tensor(a, device=dev) for a in scan_inputs(7, *case)]
     ins, dy, dh = arrays[:5], arrays[5], arrays[6]
@@ -491,19 +657,64 @@ def test_card_scan_backward_matches_plain_and_repeats(case):
     again = scan_ops.mamba_scan_backward(*ins, dy, dh)
     torch.cuda.synchronize()
     assert kbuild.LAUNCHES["mamba_scan_backward"] == 2
+    assert kbuild.LAUNCHES["mamba_scan"] == 2
     want = scan_ops.mamba_scan_backward_torch(*ins, dy, dh)
     assert_grads_close([g.cpu().numpy() for g in got],
                        [w.cpu().numpy() for w in want],
                        CARD_TOL[torch.float32])
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    hb = scan_ops._forward(*ins, bounds=True)[2]
+    saved = scan_ops.mamba_scan_backward(*ins, dy, dh, hb)
+    assert all(torch.equal(a, b) for a, b in zip(got, saved))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 300, 8192, 16), (2, 47, 97, 8)],
+                         ids=["tma", "simt"])
+def test_card_scan_forward_then_backward_uses_the_saved_states(case):
+    """``mamba_scan(...)`` under autograd then ``.backward``: the forward
+    kernel saves the states (on both forward routes within the forward
+    tolerance of the plain version's), the backward kernel reads them (no
+    second forward launch), and the gradients are bitwise the backward's
+    given the path route's saved states, and match the plain backward's."""
+    from repro_torch.kernels.mamba_scan import kernel as skernel
+    dev = card()
+    arrays = [torch.as_tensor(a, device=dev) for a in scan_inputs(8, *case)]
+    ins, dy = arrays[:5], arrays[5]
+    want_hb = scan_ops.mamba_scan_torch(*ins, bounds=True)[2]
+    for simt in (False, True):
+        hb = skernel.mamba_scan_cuda(*ins, simt=simt, bounds=True)[2]
+        assert hb.shape == want_hb.shape
+        assert_grads_close([hb.cpu().numpy()], [want_hb.cpu().numpy()],
+                           CARD_TOL[torch.float32])
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    kbuild.reset_launches()
+    y, _ = scan_ops.mamba_scan(*leaves)
+    (y * dy).sum().backward()
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["mamba_scan"] == 1
+    assert kbuild.LAUNCHES["mamba_scan_backward"] == 1
+    want = scan_ops.mamba_scan_backward_torch(*ins, dy)
+    assert_grads_close([t.grad.cpu().numpy() for t in leaves],
+                       [w.cpu().numpy() for w in want],
+                       CARD_TOL[torch.float32])
+    hb = skernel.mamba_scan_cuda(*ins, bounds=True)[2]
+    got = scan_ops.mamba_scan_backward(*ins, dy, None, hb)
+    assert all(torch.equal(t.grad, g) for t, g in zip(leaves, got))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", [(4, 2048, 4, 384), (2, 130, 2, 64),
-                                  (1, 97, 2, 128), (1, 200, 1, 384)])
+                                  (1, 97, 2, 128), (1, 200, 1, 384),
+                                  (1, 2047, 2, 128), (1, 2047, 1, 256),
+                                  (1, 2047, 2, 384)])
 def test_card_mix_backward_matches_plain(case, dtype):
+    """Each route (bf16 at hd 128-384 on ``wgmma``, the rest on ``simt``,
+    read from ``build.ROUTES``) against the plain backward, at ragged S
+    too; two runs bitwise equal."""
+    from repro_torch.kernels.mlstm_attention import kernel as mkernel
     dev = card()
     Bq, S_, H, hd = case
     arrays = mix_inputs(8, Bq * H, S_, hd)
@@ -513,10 +724,42 @@ def test_card_mix_backward_matches_plain(case, dtype):
              for i, t in enumerate(model)]
     kbuild.reset_launches()
     got = mix_ops.mlstm_attention_backward(*model)
+    again = mix_ops.mlstm_attention_backward(*model)
     torch.cuda.synchronize()
-    assert kbuild.LAUNCHES["mlstm_attention_backward"] == 1
+    route = mkernel.route(dtype, hd)
+    assert kbuild.LAUNCHES["mlstm_attention_backward"] == 2
+    assert kbuild.ROUTES == {f"mlstm_attention_backward/{route}": 2}
     want = mix_ops.mlstm_attention_backward_plain(*model)
     assert [g.dtype for g in got] == [dtype] * 3 + [torch.float32] * 2
     assert_grads_close([g.float().cpu().numpy() for g in got],
                        [w.float().cpu().numpy() for w in want],
                        CARD_TOL[dtype])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_card_mix_backward_wgmma_refuses_unaligned_inputs():
+    """On the ``wgmma`` route q, k, v and dh are read by TMA: one of them
+    one element off 16-byte alignment is refused before any launch, as
+    the forward's route refuses it; the ``simt`` route takes it."""
+    from repro_torch.kernels.mlstm_attention import kernel as mkernel
+    dev = card()
+    arrays = mix_inputs(10, 2, 70, 128)
+    model = [mix_ops.from_heads(torch.as_tensor(a, device=dev), 1)
+             .contiguous() for a in arrays]
+    model = [t.bfloat16() if i in (0, 1, 2, 5) else t
+             for i, t in enumerate(model)]
+    dh = torch.empty(model[5].numel() + 1, dtype=torch.bfloat16,
+                     device=dev)[1:].view(model[5].shape)
+    dh.copy_(model[5])
+    kbuild.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mkernel.mlstm_attention_backward_cuda(*model[:5], dh)
+    assert kbuild.LAUNCHES["mlstm_attention_backward"] == 0
+    got = mkernel.mlstm_attention_backward_cuda(*model[:5], dh, simt=True)
+    torch.cuda.synchronize()
+    assert kbuild.ROUTES == {"mlstm_attention_backward/simt": 1}
+    assert_grads_close([g.float().cpu().numpy() for g in got],
+                       [w.float().cpu().numpy() for w in
+                        mix_ops.mlstm_attention_backward_plain(*model)],
+                       CARD_TOL[torch.bfloat16])
