@@ -6,7 +6,9 @@ Run from the repository root on a machine with one NVIDIA GPU::
 
 It drives the port's main paths (the vectorized best-effort engine on the
 dense layout with the hand-written CUDA ``duct_window`` / ``duct_commit``
-kernels, on the edge-major layout with the ``duct_exchange`` kernel, with
+kernels, on the edge-major layout with the ``duct_exchange`` kernel,
+sharded with the ``duct_exchange`` kernel's drain and send on both
+layouts, with
 the graph-coloring app's int32 halos and the evo app's float32 halos; the
 dense LM's serving path, prefill through the ``flash_attention`` kernel
 and greedy decode through the ``decode_attention`` kernel; and the dense
@@ -185,10 +187,25 @@ phase fails:
                mode 3 with top-k, 10 ``mlstm_attention_backward`` launches
                a step, falling loss; one sLSTM layer's training work
                profiled (its Python loop's launches and busy share)
+  18. sharded  the sharded engine, all shards on the card: phase 4's
+               scenarios at 8 shards (one row order) give the event
+               oracle's signature; 8 shards on the card equal the CPU's
+               (phase 5's torus-1024 under the window, W=8 superstep and
+               W=8 pipelined schedulers, evo on torus-64); phase 6's
+               torus-4096 at 8 shards equals its unsharded result, then
+               W=8 superstep, W=8 pipelined and 64 shards (all 0.02 s):
+               windows executed and needed, duct launches a window (the
+               edge-major ``drain`` and ``send`` only), hops a superstep,
+               bytes a hop; the paper's faulty
+               node (cliques-256, 8 shards, W=8, through the CLI's faults
+               family): the clique's and the global median QoS beside the
+               fault-free run
 
 It imports nothing of JAX or of the JAX package.  The line before the last
-is a JSON object with one record per kernel and float32 entry point; the
-last line is ``{"ok": true, "device": {...}}``.
+is a JSON object with one record per kernel and float32 entry point (the
+edge-major drain and send add ``sharded_launches``, their launches on
+phase 18's 8-shard torus-4096 run); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -282,6 +299,7 @@ from repro_torch.kernels.mlstm_attention.ops import (  # noqa: E402
     mlstm_attention_backward_plain,
 )
 from repro_torch.launch import (  # noqa: E402
+    mesh,
     profile_serve,
     profile_train,
     serve,
@@ -1375,18 +1393,24 @@ def dyadic_cfg(**kw):
     return SimConfig(**{**DYADIC, **kw})
 
 
-@phase("oracle")
-def oracle():
-    scenarios = [
-        ("torus-best-effort", "torus", AsyncMode.BEST_EFFORT, None, 0.0),
-        ("ring-barrier-victim-fault", "ring", AsyncMode.BARRIER_EVERY_STEP,
-         lambda t: FaultModel(compute_slowdown={1: 8.0}), 0.0),
-        ("cliques-best-effort-lossy", "cliques", AsyncMode.BEST_EFFORT,
-         lambda t: lossy_host(t, 0, 0.25), 0.0),
-        ("torus-fixed-crash-quarantine", "torus", AsyncMode.FIXED_BARRIER,
-         lambda t: crashed_host(t, 0), QUARANTINE_TAU),
-    ]
-    for name, topology, mode, fault, tau in scenarios:
+#: phase 4's dyadic 16-process scenarios: (name, topology, mode, fault
+#: model of the topology or None, quarantine timeout)
+ORACLE_SCENARIOS = (
+    ("torus-best-effort", "torus", AsyncMode.BEST_EFFORT, None, 0.0),
+    ("ring-barrier-victim-fault", "ring", AsyncMode.BARRIER_EVERY_STEP,
+     lambda t: FaultModel(compute_slowdown={1: 8.0}), 0.0),
+    ("cliques-best-effort-lossy", "cliques", AsyncMode.BEST_EFFORT,
+     lambda t: lossy_host(t, 0, 0.25), 0.0),
+    ("torus-fixed-crash-quarantine", "torus", AsyncMode.FIXED_BARRIER,
+     lambda t: crashed_host(t, 0), QUARANTINE_TAU),
+)
+
+
+def oracle_on_card(layouts=("dense", "edge"), **kw):
+    """Phase 4's scenarios on ``layouts`` on the card (``kw``: more
+    RunConfig fields): each ``qos_signature`` must be the event
+    simulator's, quality excluded."""
+    for name, topology, mode, fault, tau in ORACLE_SCENARIOS:
         seed = case_seed(topology)
         cfg = dyadic_cfg(mode=mode, seed=seed, barrier_timeout=tau)
 
@@ -1396,18 +1420,23 @@ def oracle():
         want = qos_signature(make_engine(
             "event", gc_app(16, topology, seed), cfg, faults()).run())
         want.pop("quality")
-        for layout in ("dense", "edge"):
+        for layout in layouts:
             got = qos_signature(make_engine(
-                RunConfig(engine="torch", layout=layout),
+                RunConfig(engine="torch", layout=layout, **kw),
                 gc_app(16, topology, seed), cfg, faults(),
                 max_pops=EXACT_MAX_POPS, chunk=64, device="cuda").run())
             got.pop("quality")
-            check(got == want,
-                  f"{name}: torch {layout} on the card != event oracle")
+            check(got == want, f"{name}: torch {layout} {json.dumps(kw)} "
+                  "on the card != event oracle")
             check(sum(got["updates"]) > 0, f"{name}: no updates")
-            print(f"{name} {layout}: qos_signature == event oracle "
-                  f"({sum(got['updates'])} updates, {got['sent']} sent)",
-                  flush=True)
+            print(f"{name} {layout} {json.dumps(kw)}: qos_signature == "
+                  f"event oracle ({sum(got['updates'])} updates, "
+                  f"{got['sent']} sent)", flush=True)
+
+
+@phase("oracle")
+def oracle():
+    oracle_on_card()
 
 
 # ---------------------------------------------------------------------------
@@ -1415,12 +1444,18 @@ def oracle():
 # ---------------------------------------------------------------------------
 @phase("card_vs_cpu")
 def card_vs_cpu():
-    cases = [("graphcolor", "torus", 1024, 64, {}),
-             ("graphcolor", "smallworld", 1024, 1, {}),
-             ("graphcolor", "torus", 1024, 1, {"layout": "edge"}),
-             ("evo", "torus", 64, 64, {}),
-             ("evo", "torus", 64, 64, {"superstep_windows": 4}),
-             ("evo", "torus", 64, 64, {"layout": "edge"})]
+    card_equals_cpu([("graphcolor", "torus", 1024, 64, {}),
+                     ("graphcolor", "smallworld", 1024, 1, {}),
+                     ("graphcolor", "torus", 1024, 1, {"layout": "edge"}),
+                     ("evo", "torus", 64, 64, {}),
+                     ("evo", "torus", 64, 64, {"superstep_windows": 4}),
+                     ("evo", "torus", 64, 64, {"layout": "edge"})])
+
+
+def card_equals_cpu(cases):
+    """Each (app, topology, n, simels, RunConfig fields) case, dyadic, on
+    the card (kernels) and on the CPU (plain versions): equal SimResults,
+    quality included."""
     for app_name, topology, n, simels, kw in cases:
         seed = case_seed(topology)
         cfg = dyadic_cfg(seed=seed)
@@ -1544,7 +1579,7 @@ def full_size():
                   f"{base}: {other} SimResult differs from per-window")
         print(f"{base}: per-window == superstep8 == edge (full SimResult "
               f"incl. quality)", flush=True)
-    return launched
+    return launched, sigs
 
 
 # ---------------------------------------------------------------------------
@@ -2725,6 +2760,148 @@ def xlstm_train_full_size():
             launches["mlstm_attention_backward"]}
 
 
+# ---------------------------------------------------------------------------
+# 18. the sharded engine: S shards on the card
+# ---------------------------------------------------------------------------
+class HopCounter:
+    """While installed, counts the sharded engine's hops (every one goes
+    through ``mesh.hop``) and the bytes they move."""
+
+    def __init__(self):
+        self.calls = 0
+        self.bytes = 0
+
+    def __enter__(self):
+        real = self._real = mesh.hop
+
+        def counting(x, off):
+            self.calls += 1
+            self.bytes += x.numel() * x.element_size()
+            return real(x, off)
+
+        mesh.hop = counting
+        return self
+
+    def __exit__(self, *exc):
+        mesh.hop = self._real
+
+
+def drive_sharded(label, kw):
+    """Phase 6's graph-coloring torus-4096 (duration 0.02, probed every 256
+    windows) through ``drive`` with the sharded engine's RunConfig fields
+    ``kw``: the edge-major drain and send launch once a window phase over
+    all shards, nothing else launches, and the hops move each superstep's
+    boundary traffic.  Prints updates/s, ms a window (``drive``), the
+    windows executed against the windows the horizon needs, duct launches
+    a window, hops a superstep and bytes a hop."""
+    with HopCounter() as hops:
+        res, windows, launches, routes = drive(label, "graphcolor", 4096, 1,
+                                               0.02, kw)
+    w = kw.get("superstep_windows", 1)
+    supersteps = windows // w
+    used = launches["duct_exchange"]
+    check(used > 0 and set(routes) == {"duct_exchange/drain",
+                                       "duct_exchange/send"},
+          f"{label}: routes {routes}")
+    check(sum(launches.values()) == used,
+          f"{label}: other kernels launched: {launches}")
+    # a superstep: W drains, W - 1 interior sends, W push passes; the
+    # pipelined scheduler's epilogue flush pushes W more
+    flush = w if kw.get("scheduler") == "pipelined" else 0
+    check(routes["duct_exchange/drain"] == windows and
+          routes["duct_exchange/send"] == supersteps * (2 * w - 1) + flush,
+          f"{label}: routes {routes} in {windows} windows")
+    # two hops an offset a superstep (payload, accept bits); the flush
+    # returns one more an offset
+    per_offset = 2 * supersteps + (1 if flush else 0)
+    check(hops.calls > 0 and hops.calls % per_offset == 0,
+          f"{label}: {hops.calls} hops in {supersteps} supersteps")
+    # best-effort: every process steps each window until it is done, so
+    # the horizon needs as many windows as the busiest process's updates
+    needed = max(res.updates)
+    check(needed <= windows, f"{label}: {windows} windows, {needed} needed")
+    print(f"full size {label}: {windows} windows executed, {needed} needed "
+          f"by the horizon, {used / windows:.3f} duct launches a window, "
+          f"{2 * hops.calls // per_offset} hops a superstep, "
+          f"{hops.bytes / hops.calls:.0f} bytes a hop", flush=True)
+    return res, routes
+
+
+@phase("sharded")
+def sharded(window_sig):
+    """The sharded engine on the card.  (a) phase 4's dyadic scenarios at
+    8 shards give the event oracle's signature (the sharded engine keeps
+    one row order, edge-major, whatever ``layout`` asks for); (b) 8
+    shards on the card equal 8 on the CPU; (c) the torus-4096 at full
+    width: 8 shards with the window scheduler equal phase 6's unsharded
+    result (``window_sig``), then W=8 under ``superstep`` and
+    ``pipelined``, and 64 shards, at the same duration 0.02; (d) the paper's
+    faulty node at 8 shards, W=8.  Returns the edge-major entry points'
+    launches on (c)'s 8-shard window run."""
+    oracle_on_card(layouts=("edge",), shards=8)
+    card_equals_cpu([
+        ("graphcolor", "torus", 1024, 64, {"shards": 8}),
+        ("graphcolor", "torus", 1024, 64, {"shards": 8,
+                                            "superstep_windows": 8}),
+        ("graphcolor", "torus", 1024, 64, {"shards": 8,
+                                            "superstep_windows": 8,
+                                            "scheduler": "pipelined"}),
+        ("evo", "torus", 64, 64, {"shards": 8})])
+    res, routes = drive_sharded("graphcolor torus-4096 8 shards window",
+                                {"shards": 8})
+    check(qos_signature(res) == window_sig,
+          "torus-4096: 8 shards differ from phase 6's unsharded run")
+    print("graphcolor torus-4096: 8 shards == unsharded per-window (full "
+          "SimResult incl. quality)", flush=True)
+    # the other schedulers and shard counts at the same horizon and chunk,
+    # so every run executes as many windows: timed and counted, not compared
+    for label, kw in (
+            ("8 shards superstep8", {"shards": 8, "superstep_windows": 8}),
+            ("8 shards pipelined8", {"shards": 8, "superstep_windows": 8,
+                                     "scheduler": "pipelined"}),
+            ("64 shards window", {"shards": 64})):
+        drive_sharded(f"graphcolor torus-4096 {label}", kw)
+    faulty_node()
+    return {"duct_exchange_drain": routes["duct_exchange/drain"],
+            "duct_exchange_send": routes["duct_exchange/send"]}
+
+
+def faulty_node():
+    """The paper's faulty node through the CLI's faults family: cliques-256
+    at 8 shards, W=8, duration 0.01, one host degraded (compute and links
+    30x): the faulty clique's and the global median QoS, without and with
+    it."""
+    argv = ["--family", "faults", "--engine", "torch", "--device", "cuda",
+            "--topology", "cliques", "--procs", "256", "--shards", "8",
+            "--superstep-windows", "8", "--duration", "0.01"]
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rows = experiments.main(argv)
+    wall = time.perf_counter() - t0
+    check(K.LAUNCHES["duct_exchange"] > 0, "faults: no duct launches")
+    med = {}
+    for row in rows:
+        med[row["label"]] = {g: {m: row["qos"][g][m]["median"]
+                                 for m in row["qos"][g]}
+                             for g in ("clique", "global")}
+        for g in ("clique", "global"):
+            vals = med[row["label"]][g].values()
+            check(all(v is not None and math.isfinite(v) for v in vals),
+                  f"faults {row['label']} {g}: medians {vals}")
+        print(f"faulty node {row['label']}: medians "
+              f"{json.dumps(med[row['label']])}", flush=True)
+    period = {label: med[label]["clique"]["simstep_period"] for label in med}
+    check(period["with_fault"] > period["without_fault"],
+          f"faults: the faulty clique's step period did not grow {period}")
+    print(f"faulty node cliques-256, 8 shards, W=8: clique median step "
+          f"period {period['without_fault'] * 1e6:.3f} -> "
+          f"{period['with_fault'] * 1e6:.3f} us, global "
+          f"{med['without_fault']['global']['simstep_period'] * 1e6:.3f} -> "
+          f"{med['with_fault']['global']['simstep_period'] * 1e6:.3f} us "
+          f"({wall:.1f}s wall, {K.LAUNCHES['duct_exchange']} duct launches)",
+          flush=True)
+
+
 #: each kernel entry point of the kernels JSON line: (name, kernel source
 #: key, TPU kernel it replaces)
 ENTRIES = (
@@ -2779,7 +2956,7 @@ def main():
     records = kernels(hbm)
     oracle()
     card_vs_cpu()
-    launched = full_size()
+    launched, full_sigs = full_size()
     launched.update(lm_card_vs_cpu())
     launched.update(lm_full_size())
     train_card_vs_cpu()
@@ -2791,6 +2968,7 @@ def main():
     launched.update(ssm_train_card_vs_cpu())
     launched.update(jamba_train_full_size())
     launched.update(xlstm_train_full_size())
+    sharded_launched = sharded(full_sigs["graphcolor torus-4096 window"])
     kernels_line = []
     for entry, kname, replaces in ENTRIES:
         rec = records[entry]
@@ -2805,7 +2983,9 @@ def main():
             library_ms_by=rec["library_ms_by"],
             **{k: rec[k] for k in ("simt_ms", "serving_call_ms",
                                    "saved_states_call_ms",
-                                   "without_saved_ms") if k in rec}))
+                                   "without_saved_ms") if k in rec},
+            **({"sharded_launches": sharded_launched[entry]}
+               if entry in sharded_launched else {})))
     print("phases: " + ", ".join(f"{p} {t:.1f}s" for p, t in PHASES))
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

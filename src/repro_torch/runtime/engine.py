@@ -18,8 +18,11 @@ Registered backends:
           ordering, the reference semantics and the bitwise oracle
   torch   ``runtime/engine_torch.py`` — vectorized windowed-time engine on
           torch tensors, dense or edge-major duct layout, per-window or
-          (dense) W-fused superstep scheduler; runs on CUDA (hand-written
-          duct kernels) unless the caller passes ``device="cpu"``
+          (dense) W-fused superstep scheduler; ``shards`` > 1 builds the
+          sharded engine (``runtime/engine_sharded.py``: S shards on one
+          device, boundary hops per shard offset, window / superstep /
+          pipelined schedulers); runs on CUDA (hand-written duct kernels)
+          unless the caller passes ``device="cpu"``
 
 Callers select strategies with one frozen
 :class:`~repro_torch.runtime.config.RunConfig` value
@@ -101,8 +104,13 @@ def _make_event(app, cfg: SimConfig, faults: Optional[FaultModel],
 
 def _make_torch(app, cfg: SimConfig, faults: Optional[FaultModel],
                 **kwargs) -> Engine:
-    # deferred import: the engine module pulls in the kernel wrappers
-    kwargs.pop("shards", None)
+    # deferred imports: the engine modules pull in the kernel wrappers
+    shards = kwargs.pop("shards", 1)
+    if shards and shards > 1:
+        from repro_torch.runtime.engine_sharded import ShardedTorchEngine
+        return ShardedTorchEngine(app, cfg, faults, shards=shards, **kwargs)
+    # the unsharded engine understands window + superstep (the W-fused
+    # dense scheduler); _validate already rejected pipelined here
     from repro_torch.runtime.engine_torch import TorchEngine
     return TorchEngine(app, cfg, faults, **kwargs)
 
@@ -139,10 +147,12 @@ register_engine(EngineSpec(
     name="torch",
     factory=_make_torch,
     description="vectorized windowed-time engine on torch tensors over the "
-                "dense or edge-major duct layout; hand-written CUDA duct "
-                "kernels on the card, plain torch on the CPU",
+                "dense or edge-major duct layout; shards > 1 partitions the "
+                "population into shards on one device; hand-written CUDA "
+                "duct kernels on the card, plain torch on the CPU",
     layouts=("edge", "dense"),
-    schedulers=("window", "superstep"),
+    schedulers=SCHEDULERS,
+    shardable=True,
     vectorized=True,
 ))
 
@@ -167,8 +177,8 @@ def _validate(spec: EngineSpec, kwargs: dict) -> dict:
 
     if shards > 1 and not spec.shardable:
         raise ValueError(
-            f"the {spec.name} engine is single-device; --shards needs the "
-            "sharded engine, which is not ported to repro_torch yet")
+            f"the {spec.name} engine is single-device; --shards requires a "
+            "shardable engine (--engine torch)")
     if layout != "auto" and layout not in spec.layouts:
         if not spec.layouts:
             raise ValueError(
@@ -194,9 +204,26 @@ def _validate(spec: EngineSpec, kwargs: dict) -> dict:
     if scheduler == "superstep":
         if superstep <= 1:
             raise ValueError(
-                "scheduler='superstep' fuses W windows per ring commit; "
-                "pass superstep_windows > 1 (--superstep-windows W) to "
-                "choose W")
+                "scheduler='superstep' fuses W windows per exchange "
+                "(sharded: one hop per offset a superstep; unsharded: one "
+                "ring commit a superstep); pass superstep_windows > 1 "
+                "(--superstep-windows W) to choose W")
+        if shards <= 1 and layout == "edge":
+            raise ValueError(
+                "the unsharded superstep scheduler is the W-fused dense "
+                "ring commit and needs the dense layout; drop --layout edge "
+                "or pass shards > 1 (--shards)")
+    elif scheduler == "pipelined":
+        if superstep <= 1:
+            raise ValueError(
+                "scheduler='pipelined' overlaps superstep k's boundary "
+                "exchange with superstep k+1's interior windows; pass "
+                "superstep_windows > 1 (--superstep-windows W) to choose W")
+        if shards <= 1:
+            raise ValueError(
+                "scheduler='pipelined' double-buffers the cross-shard "
+                "boundary exchange and needs the sharded engine; pass "
+                "shards > 1 (--shards)")
     elif superstep > 1:
         raise ValueError(
             "scheduler='window' exchanges every lockstep window, but "

@@ -25,9 +25,13 @@ commit (bitwise-identical trajectories), ``--layout edge`` runs the
 edge-major duct layout (one ring per edge), ``--replicates R`` sweeps R
 seeds (run one after another), and ``--qos-interval`` pins the snapshot
 spacing of the time-resolved ``qos_timeseries`` every row carries.
-``--app`` picks graph coloring or digital evolution (``evo``, float32
-halos).  The ``serve`` family and ``--shards`` > 1 are not ported yet and
-are refused with a pointer to the reference.
+``--shards S`` partitions the population into S shards on the one device
+(the sharded engine: boundary hops per shard offset); with it,
+``--superstep-windows W`` runs W shard-local windows per exchange and
+``--scheduler pipelined`` double-buffers that exchange.  ``--app`` picks
+graph coloring or digital evolution (``evo``, float32 halos).  The
+``serve`` family is not ported yet and is refused with a pointer to the
+reference.
 
 CLI::
 
@@ -306,24 +310,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seeds per weak-scaling point (run one after "
                         "another)")
     p.add_argument("--superstep-windows", type=int, default=1,
-                   help="windows fused per ring commit (the W-fused "
-                        "superstep scheduler; bitwise-identical "
-                        "trajectories).  1 = per-window exchange")
+                   help="windows per superstep: unsharded, fused per ring "
+                        "commit (bitwise-identical trajectories); with "
+                        "--shards, run shard-locally per boundary "
+                        "exchange.  1 = per-window exchange")
     p.add_argument("--scheduler", default="auto",
-                   choices=["auto", "window", "superstep"],
+                   choices=["auto", "window", "superstep", "pipelined"],
                    help="exchange cadence: window = every lockstep window, "
-                        "superstep = W-fused (needs --superstep-windows > "
-                        "1); auto follows --superstep-windows")
+                        "superstep = W windows per exchange (needs "
+                        "--superstep-windows > 1), pipelined = the sharded "
+                        "superstep exchange double-buffered (needs "
+                        "--shards > 1 and --superstep-windows > 1); auto "
+                        "follows --superstep-windows")
     p.add_argument("--layout", default="auto",
                    choices=["auto", "dense", "edge"],
                    help="duct ring layout for --engine torch: dense = the "
                         "degree-bucketed receiver-major layout (auto "
                         "resolves to it on every built-in topology), edge "
-                        "= one ring per canonical edge (per-window "
-                        "scheduler only)")
+                        "= one ring per canonical edge (unsharded: "
+                        "per-window scheduler only)")
     p.add_argument("--shards", type=int, default=1,
-                   help="device-mesh partitions; the sharded engine is not "
-                        "ported yet, so only 1 is accepted")
+                   help="contiguous process blocks the population is "
+                        "partitioned into, all on the one device (must "
+                        "divide --procs); 1 = the unsharded engine")
     p.add_argument("--qos-interval", type=float, default=None,
                    help="QoS snapshot spacing in virtual seconds for the "
                         "time-resolved stream (default: duration/12)")
@@ -385,6 +394,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         validate_run_config(args.run)
     except ValueError as e:
         parser.error(str(e))
+    undivided = [n for n in args.procs if n % args.shards]
+    if undivided:
+        parser.error(f"--shards {args.shards} must divide every --procs "
+                     f"value; it does not divide {undivided}")
     if args.engine == "torch":
         # fail before any work when the card is asked for and missing
         from repro_torch.device import resolve_device

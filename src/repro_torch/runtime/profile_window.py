@@ -3,7 +3,7 @@ engine's lockstep windows.
 
     python -m repro_torch.runtime.profile_window [--procs 4096] [--windows 64]
         [--superstep-windows 1] [--simels 1] [--layout auto|dense|edge]
-        [--app graphcolor|evo]
+        [--app graphcolor|evo] [--shards 1] [--scheduler auto|pipelined]
 
 Builds the experiments CLI's configuration (torus, buffer 64, duration
 0.02, best-effort) for the given app and duct layout (``--app evo
@@ -14,7 +14,11 @@ profiles
 prints, as one JSON line: wall seconds per window (profiler on), CUDA
 kernel launches per window, the device's busy time per window (the sum of
 kernel times), the busy share of the wall time, and the kernels that take
-the most device time.  Needs a CUDA device.
+the most device time.  With ``--shards S`` > 1 it profiles the sharded
+engine's supersteps (``--scheduler pipelined`` the double-buffered one)
+and adds what the hops cost: hops per window, and the host time and the
+device time of the kernels inside a ``record_function`` range around
+``mesh.hop``.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -23,8 +27,9 @@ import json
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
+from repro_torch.launch import mesh
 from repro_torch.runtime import experiments
 from repro_torch.runtime.config import RunConfig
 from repro_torch.runtime.engine import make_engine
@@ -42,6 +47,9 @@ def main(argv=None) -> dict:
                    choices=["auto", "dense", "edge"])
     p.add_argument("--app", default="graphcolor",
                    choices=["graphcolor", "evo"])
+    p.add_argument("--shards", type=int, default=1)
+    p.add_argument("--scheduler", default="auto",
+                   choices=["auto", "pipelined"])
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_window needs a CUDA device")
@@ -50,13 +58,17 @@ def main(argv=None) -> dict:
          str(a.simels), "--buffer", "64", "--duration", "0.02"])
     cfg = experiments._sim_config(args, a.procs)
     W = a.superstep_windows
+    sharded = a.shards > 1
     eng = make_engine(RunConfig(engine="torch", layout=a.layout,
-                                superstep_windows=W),
+                                superstep_windows=W, shards=a.shards,
+                                scheduler=a.scheduler),
                       experiments.make_app(a.app, a.procs, a.simels,
                                            make_topology("torus", a.procs),
                                            args.seed), cfg, device="cuda")
 
     def step(carry):
+        if sharded:
+            return eng._superstep(carry)
         if W > 1:
             return eng._superstep_body(carry)
         if eng.layout == "edge":
@@ -64,19 +76,33 @@ def main(argv=None) -> dict:
         return eng._window_body_dense(carry)
 
     carry = eng._init_carry(args.seed)
+    if sharded:
+        carry = eng._to_sharded_layout(carry)
     for _ in range(max(1, 16 // W)):
         carry = step(carry)
     torch.cuda.synchronize()
     calls = max(1, a.windows // W)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            carry = step(carry)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    real_hop, hops = mesh.hop, [0]
+
+    def hop(x, off):
+        hops[0] += 1
+        with record_function("mesh.hop"):
+            return real_hop(x, off)
+
+    mesh.hop = hop
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                carry = step(carry)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        mesh.hop = real_hop
     windows = calls * W
-    kern = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kern = [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
     launches = sum(e.count for e in kern)
@@ -91,6 +117,17 @@ def main(argv=None) -> dict:
         top_kernels=[dict(name=e.key[:80], launches=e.count,
                           ms_per_window=e.self_device_time_total / 1e3
                           / windows) for e in top])
+    if sharded:
+        # the hops' range: its host time, and the device time of the
+        # kernels launched inside it
+        hop_ev = [e for e in events if e.key == "mesh.hop"]
+        out.update(
+            shards=a.shards, scheduler=eng.scheduler,
+            hops_per_window=hops[0] / windows,
+            hop_host_ms_per_window=sum(e.cpu_time_total for e in hop_ev)
+            / 1e3 / windows,
+            hop_device_ms_per_window=sum(e.device_time_total
+                                         for e in hop_ev) / 1e3 / windows)
     print(json.dumps(out))
     return out
 

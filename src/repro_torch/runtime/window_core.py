@@ -25,6 +25,13 @@ With the W-fused superstep scheduler the drain walks frozen base rings
 plus a compact pushbuf (``window_dense_fused``) and ``commit_superstep``
 folds the pushbuf into the rings with one ``duct_commit`` per superstep.
 
+The sharded engine (``runtime/engine_sharded.py``) runs the edge-major
+``drain`` and ``send_edge`` over all shards at once and closes its
+windows with :data:`LOCAL_RELEASE` (every shard is on one device, so the
+reductions over all shards are the single-device ones), with
+:data:`PIPELINED_RELEASE` (decisions staged one superstep boundary), or
+with no release check inside a superstep.
+
 Every phase is a plain function of tensors on one device; dtypes follow
 the reference (bool stays bool, int32 stays int32), and every phase
 returns new tensors rather than updating its inputs.  All stochastic
@@ -139,11 +146,15 @@ def lognormal_factor(sigma: float, *keys) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Barrier-release reductions (one device holds the whole population)
+# Barrier-release strategies: where the close phase's global reductions run
 # ---------------------------------------------------------------------------
 class LocalRelease:
     """Single-device release reductions: plain torch reductions returning
     0-dim tensors, so the window loop never waits on the device."""
+
+    #: staged strategies consume reductions issued one superstep boundary
+    #: earlier (see :class:`PipelinedRelease`)
+    staged = False
 
     def all_stopped(self, x: torch.Tensor) -> torch.Tensor:
         return x.all()
@@ -159,11 +170,33 @@ class LocalRelease:
 LOCAL_RELEASE = LocalRelease()
 
 
+class PipelinedRelease(LocalRelease):
+    """Release strategy for the ``pipelined`` scheduler: the release
+    reductions issued at superstep boundary i are *consumed* at
+    boundary i+1.
+
+    Correctness rests on the frozen cohort: once ``all_stopped`` is
+    observed true, every live process is waiting, none is active, and so
+    nothing can join, leave or advance the cohort before the staged
+    decision is applied one boundary later.  The release *time* is what an
+    un-staged release would compute; only the lockstep window it lands on
+    moves one superstep later.  ``close_window`` reads the carried
+    decision from ``u["rel_ready"]`` / ``u["rel_t"]`` (and the quarantine
+    front from ``u["rel_ref"]``), 0-dim tensors every shard shares, and
+    stores fresh post-release reductions for the next boundary.
+    """
+
+    staged = True
+
+
+PIPELINED_RELEASE = PipelinedRelease()
+
+
 class SendPhase(NamedTuple):
     """Result of one edge-major send attempt over a block of rings."""
     rings: Dict[str, torch.Tensor]   # q_avail / q_touch / q_size / q_pay
     accepted: torch.Tensor           # (rows,) bool push accepted
-    sums: torch.Tensor               # (n, 3) attempted/ok/dropped per process
+    sums: Optional[torch.Tensor]     # (n, 3) attempted/ok/dropped per process
 
 
 class BucketSlab(NamedTuple):
@@ -379,8 +412,10 @@ class WindowCore:
         ``halo_key`` flattens (receiver, slot); several in-edges may share
         one halo slot, and delivery ties resolve to the highest row index
         (rows are in ascending canonical-edge order), so the merge is
-        deterministic on every device.  Popped slots read ``+inf`` after
-        the drain, where the reference leaves them (see
+        deterministic on every device.  Sentinel-padded tables (the sharded
+        engine's) work unchanged: invalid rows carry key ``n_halo`` /
+        segment ``n_dst``, which land in the spare segment.  Popped slots
+        read ``+inf`` after the drain, where the reference leaves them (see
         ``ops.duct_drain_torch``); nothing reads them."""
         rows_n = t_rows.shape[0]
         rows = torch.arange(rows_n, dtype=torch.int32, device=t_rows.device)
@@ -635,12 +670,13 @@ class WindowCore:
     # Phase 3: send (edge-major)
     # ------------------------------------------------------------------
     def send_edge(self, rings, now, act, lat, touch, payload, src,
-                  n_src) -> SendPhase:
+                  n_src, *, want_sums: bool = True) -> SendPhase:
         """Best-effort push attempt over the edge-major rings (drop iff the
         post-drain ring is full) plus the sender-side counter columns,
-        summed per source process.  The payload is written only into the
-        accepted rows' push slots; the other rows' writes go to a spare
-        row that is sliced off."""
+        summed per source process (sentinel ``src`` values ``n_src`` land
+        in the spare segment; ``want_sums=False`` skips the sums).  The
+        payload is written only into the accepted rows' push slots; the
+        other rows' writes go to a spare row that is sliced off."""
         rows_n = rings["q_avail"].shape[0]
         rows = torch.arange(rows_n, dtype=torch.int64, device=now.device)
         s = duct_send(rings["q_avail"], rings["q_touch"],
@@ -650,13 +686,16 @@ class WindowCore:
         q_pay = torch.cat([rings["q_pay"], rings["q_pay"][:1]])
         q_pay[torch.where(s.accepted, rows, rows_n), s.push_pos.long()] = \
             payload
-        send_cols = torch.stack([
-            act.to(torch.int32), (act & s.accepted).to(torch.int32),
-            (act & ~s.accepted).to(torch.int32)], dim=1)
+        sums = None
+        if want_sums:
+            send_cols = torch.stack([
+                act.to(torch.int32), (act & s.accepted).to(torch.int32),
+                (act & ~s.accepted).to(torch.int32)], dim=1)
+            sums = segment_sum(send_cols, src, n_src)
         return SendPhase(
             rings=dict(q_avail=s.q_avail, q_touch=s.q_touch,
                        q_size=s.size, q_pay=q_pay[:rows_n]),
-            accepted=s.accepted, sums=segment_sum(send_cols, src, n_src))
+            accepted=s.accepted, sums=sums)
 
     # ------------------------------------------------------------------
     # Phase 3': stage (dense layout)
@@ -719,8 +758,15 @@ class WindowCore:
     def close_window(self, u, active, drained_r, *, pids, deg, cfactor,
                      release):
         """Shared window tail: QoS snapshot scatter, termination, barrier
-        bookkeeping, and the virtual-time advance.  ``release`` runs the
-        barrier-release reductions (:data:`LOCAL_RELEASE`)."""
+        bookkeeping, and the virtual-time advance.
+
+        ``release`` picks where the barrier-release reductions run:
+        :data:`LOCAL_RELEASE`, :data:`PIPELINED_RELEASE` (decisions
+        staged one superstep boundary), or ``None`` to skip the release
+        check (the sharded engine's mid-superstep windows: waiting clocks
+        do not advance, so the release *time* computed at the superstep
+        boundary is the same; only the lockstep window it lands on
+        moves)."""
         cfg = self.cfg
         mode = cfg.mode
         barriered = mode in BARRIER_MODES
@@ -782,44 +828,52 @@ class WindowCore:
                             t + d_next + pending, t)
             quarantined = "quar" in u
             tau = _f32(cfg.barrier_timeout)
-            if quarantined:
-                # quarantine release: a non-waiting, non-done process's
-                # clock is its next barrier arrival, so "unreachable" ==
-                # next arrival lags the cohort front (ref) by more than the
-                # timeout; crashed clocks sit at +inf
-                quar0 = u["quar"]
-                ref = self._quarantine_ref(release, t, waiting, quar0)
-                stopped = waiting | done
-                unreachable = ~stopped & (t > ref + tau)
-                release_ready = (
-                    release.any_waiting(waiting) &
-                    release.all_stopped(stopped | quar0 | unreachable))
-                release_t = ref + _f32(self.barrier_cost)
-            else:
-                release_ready = (release.all_stopped(waiting | done) &
-                                 release.any_waiting(waiting))
-                release_t = (release.max_time(
-                    torch.where(waiting, t, -torch.inf)) +
-                    _f32(self.barrier_cost))
-            rel = release_ready & waiting
-            if quarantined:
-                # hysteresis, evaluated on the pre-release state
-                quar = u["quar"]
-                readmit = waiting & quar & (
-                    t >= ref - _f32(np.float32(tau) * np.float32(0.5)))
-                newq = ~done & ~waiting & (t > ref + tau)
-                quar = torch.where(release_ready,
-                                   (quar & ~readmit) | newq, quar)
-            # horizon snap: a cohort released at or past the horizon is
-            # done at the horizon clock
-            at_horizon = release_t >= duration
-            t = torch.where(
-                rel, torch.where(at_horizon, duration,
-                                 release_t + d_next + pending_saved), t)
-            done = done | (rel & at_horizon)
-            last_release = torch.where(rel, release_t, last_release)
-            barrier_seq = barrier_seq + rel
-            waiting = waiting & ~release_ready
+            if release is not None:
+                if release.staged:
+                    # pipelined: apply the decision issued one boundary
+                    # earlier (frozen cohort, see PipelinedRelease)
+                    release_ready = u["rel_ready"]
+                    release_t = u["rel_t"]
+                    if quarantined:
+                        ref = u["rel_ref"]
+                elif quarantined:
+                    # quarantine release: a non-waiting, non-done process's
+                    # clock is its next barrier arrival, so "unreachable"
+                    # == next arrival lags the cohort front (ref) by more
+                    # than the timeout; crashed clocks sit at +inf
+                    quar0 = u["quar"]
+                    ref = self._quarantine_ref(release, t, waiting, quar0)
+                    stopped = waiting | done
+                    unreachable = ~stopped & (t > ref + tau)
+                    release_ready = (
+                        release.any_waiting(waiting) &
+                        release.all_stopped(stopped | quar0 | unreachable))
+                    release_t = ref + _f32(self.barrier_cost)
+                else:
+                    release_ready = (release.all_stopped(waiting | done) &
+                                     release.any_waiting(waiting))
+                    release_t = (release.max_time(
+                        torch.where(waiting, t, -torch.inf)) +
+                        _f32(self.barrier_cost))
+                rel = release_ready & waiting
+                if quarantined:
+                    # hysteresis, evaluated on the pre-release state
+                    quar = u["quar"]
+                    readmit = waiting & quar & (
+                        t >= ref - _f32(np.float32(tau) * np.float32(0.5)))
+                    newq = ~done & ~waiting & (t > ref + tau)
+                    quar = torch.where(release_ready,
+                                       (quar & ~readmit) | newq, quar)
+                # horizon snap: a cohort released at or past the horizon
+                # is done at the horizon clock
+                at_horizon = release_t >= duration
+                t = torch.where(
+                    rel, torch.where(at_horizon, duration,
+                                     release_t + d_next + pending_saved), t)
+                done = done | (rel & at_horizon)
+                last_release = torch.where(rel, release_t, last_release)
+                barrier_seq = barrier_seq + rel
+                waiting = waiting & ~release_ready
         else:
             t = torch.where(active & ~newly_done, t + d_next + pending, t)
 
@@ -827,8 +881,26 @@ class WindowCore:
         out.update(k=u["k"] + 1, t=t, done=done, waiting=waiting,
                    barrier_seq=barrier_seq, last_release=last_release,
                    pending=pending_saved, snap=snap, snap_idx=snap_idx)
-        if barriered and quarantined:
+        if barriered and release is not None and quarantined:
             out["quar"] = quar
+        if barriered and release is not None and release.staged:
+            # store fresh post-release reductions for the next boundary
+            if quarantined:
+                fref = self._quarantine_ref(release, t, waiting, quar)
+                fstopped = waiting | done
+                funreach = ~fstopped & (t > fref + tau)
+                fresh_ready = (
+                    release.any_waiting(waiting) &
+                    release.all_stopped(fstopped | quar | funreach))
+                fresh_t = fref + _f32(self.barrier_cost)
+                out["rel_ref"] = fref
+            else:
+                fresh_ready = (release.all_stopped(waiting | done) &
+                               release.any_waiting(waiting))
+                fresh_t = (release.max_time(
+                    torch.where(waiting, t, -torch.inf)) +
+                    _f32(self.barrier_cost))
+            out.update(rel_ready=fresh_ready, rel_t=fresh_t)
         return out
 
     def _quarantine_ref(self, release, t, waiting, quar):

@@ -164,8 +164,12 @@ def test_engine_validation_errors():
     with pytest.raises(ValueError, match="must not exceed"):
         make_engine("torch", app, torch_cfg(jittered_cfg(
             0.01, buffer_capacity=2)), superstep_windows=4, device="cpu")
-    with pytest.raises(ValueError, match="single-device"):
-        make_engine("torch", app, cfg, shards=2, device="cpu")
+    # shards > 1 builds the sharded engine; a count that does not divide
+    # the population is refused
+    assert type(make_engine("torch", app, cfg, shards=2,
+                            device="cpu")).__name__ == "ShardedTorchEngine"
+    with pytest.raises(ValueError, match="must divide"):
+        make_engine("torch", app, cfg, shards=3, device="cpu")
     with pytest.raises(ValueError, match="not ported"):
         make_engine("torch", app, torch_cfg(jittered_cfg(
             0.01, arrival_rate=1e4)), device="cpu")
@@ -203,7 +207,7 @@ def test_cli_runs_on_cpu_and_prints_the_metrics():
 
 @pytest.mark.parametrize("argv,needle", [
     (["--family", "serve"], "--family serve needs the service slice"),
-    (["--shards", "2"], "sharded engine, which is not ported"),
+    (["--shards", "3"], "--shards 3 must divide every --procs value"),
 ])
 def test_cli_refuses_unported_paths(argv, needle, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -258,6 +262,8 @@ def test_port_imports_neither_jax_nor_repro():
              for f in files if f.endswith(".py")]
     paths.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(paths) > 15
+    for module in ("launch/mesh.py", "runtime/engine_sharded.py"):
+        assert os.path.join(root, module) in paths, module
     bad = []
     for path in paths:
         for mod in _imported_modules(path):
