@@ -9,7 +9,8 @@ dense layout with the hand-written CUDA ``duct_window`` / ``duct_commit``
 kernels, on the edge-major layout with the ``duct_exchange`` kernel,
 sharded with the ``duct_exchange`` kernel's drain and send on both
 layouts, with
-the graph-coloring app's int32 halos and the evo app's float32 halos; the
+the graph-coloring app's int32 halos and the evo app's float32 halos, in
+batch runs and as a live service with open-loop arrivals and churn; the
 dense LM's serving path, prefill through the ``flash_attention`` kernel
 and greedy decode through the ``decode_attention`` kernel; and the dense
 LM's training path in best-effort mode 3, attention through
@@ -136,10 +137,11 @@ phase fails:
                tokens equals its state after k decode steps (k = 1, 31);
                then ``profile_serve.profile_serving`` over one prefill and
                8 decode steps
-  12. xlstm full size  xlstm-125m at full width and depth (12 layers, d
-               768, 155.6 M parameters; uncut) in bf16 through
-               ``repro_torch.launch.serve``: batch 8, prompt 2048, 32 new
-               tokens; exact launches (10 ``mlstm_attention`` per
+  12. xlstm full size  xlstm-125m at full width, depth cut to one
+               period of its block pattern (12 -> 6 layers: five mLSTM,
+               one sLSTM; d 768, 97.1 M parameters) in bf16 through
+               ``serve.serve``: batch 8, prompt 2048, 32 new
+               tokens; exact launches (5 ``mlstm_attention`` per
                prefill, all on the tensor-core route; no other kernel),
                finite logits, the same tokens
                from a second serve; the kernel against its plain version
@@ -147,7 +149,7 @@ phase fails:
                generated tokens gives decode step k's logits (k = 1, 31)
                within XLSTM_CROSS_REL; ``profile_serve.profile_serving``
                over one prefill and 8 decode steps; then the same serve
-               in float32 (10 launches on the CUDA-core route), prefill
+               in float32 (5 launches on the CUDA-core route), prefill
                against decode at float32's precision
   13. moe full size  the reduced deepseek-moe-16b and dbrx-132b card =
                CPU (phase 7's serving check, float32 and bf16; phase 9's
@@ -183,8 +185,9 @@ phase fails:
                ``mamba_scan_backward`` launches a step, falling loss, the
                peak printed; then one step profiled
                (``profile_train.profile_step``)
-  17. xlstm train full size  xlstm-125m uncut through ``train_run``:
-               mode 3 with top-k, 10 ``mlstm_attention_backward`` launches
+  17. xlstm train full size  xlstm-125m at full width, phase 12's
+               6 layers, through ``train_run``:
+               mode 3 with top-k, 5 ``mlstm_attention_backward`` launches
                a step, falling loss; one sLSTM layer's training work
                profiled (its Python loop's launches and busy share)
   18. sharded  the sharded engine, all shards on the card: phase 4's
@@ -200,12 +203,31 @@ phase fails:
                node (cliques-256, 8 shards, W=8, through the CLI's faults
                family): the clique's and the global median QoS beside the
                fault-free run
+  19. service  the live-service path (open-loop arrivals, churn epochs,
+               SLO verdicts): the dyadic serve scenarios (poisson, diurnal,
+               bursty under the rolling barrier) on torus-16, dense and
+               edge on the card, give the event oracle's ``service`` and
+               ``qos_signature``; ``run_service`` with churn 2 and two
+               replicates on the card equals the CPU's whole output dict
+               (graph coloring on torus-1024, evo on torus-64 with 16
+               cells; dense, W=4 and edge); at full width through ``--family serve`` (graph
+               coloring on torus-4096, 1 simel, buffer 64, duration 0.02,
+               ``--arrival-rate 1e5``): bursty traffic with churn 2 (five
+               epochs: a host fault and heal, a process leave and
+               rejoin), dense equal to edge, and poisson with churn 1 at 8
+               shards equal to unsharded, each with its epochs, service
+               totals, SLO summary, wall s, updates/s, windows executed
+               and needed, duct launches a window and the time outside
+               the windows; then ``profile_window`` without and with
+               arrivals on the dense window: the serve hook's CUDA
+               launches and device time a window
 
 It imports nothing of JAX or of the JAX package.  The line before the last
 is a JSON object with one record per kernel and float32 entry point (the
 edge-major drain and send add ``sharded_launches``, their launches on
-phase 18's 8-shard torus-4096 run); the last line is ``{"ok": true,
-"device": {...}}``.
+phase 18's 8-shard torus-4096 run; the duct entries add
+``service_launches``, their launches in phase 19's runs on the card); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -311,13 +333,22 @@ from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.optim.compression import TopKCompressor  # noqa: E402
 from repro_torch.optim.outer import OuterConfig  # noqa: E402
 from repro_torch.pytree import flatten  # noqa: E402
-from repro_torch.runtime import experiments  # noqa: E402
+from repro_torch.runtime import (  # noqa: E402
+    engine_torch,
+    experiments,
+    profile_window,
+)
 from repro_torch.runtime.config import RunConfig  # noqa: E402
 from repro_torch.runtime.engine import make_engine  # noqa: E402
+from repro_torch.runtime.engine_sharded import ShardedTorchEngine  # noqa: E402
 from repro_torch.runtime.faults import (  # noqa: E402
     FaultModel,
     crashed_host,
     lossy_host,
+)
+from repro_torch.runtime.service import (  # noqa: E402
+    default_timeline,
+    run_service,
 )
 from repro_torch.runtime.simulator import SimConfig  # noqa: E402
 from repro_torch.runtime.topologies import make_topology  # noqa: E402
@@ -2237,13 +2268,16 @@ def jamba_full_size():
 
 
 # ---------------------------------------------------------------------------
-# 12. xLSTM at full width and depth: xlstm-125m serving 8 x (2048 + 32)
+# 12. xLSTM at full width: xlstm-125m serving 8 x (2048 + 32)
 # ---------------------------------------------------------------------------
-#: xlstm-125m's parameters, as the reference's ``lm.param_count`` counts
-#: them (12 layers, d 768, vocab 50304, tied embeddings)
-XLSTM_PARAMS = 155_640_272
-XLSTM_ARGV = ["--arch", "xlstm-125m", "--batch", "8", "--prompt-len", "2048",
-              "--tokens", "32", "--device", "cuda", "--seed", "0"]
+#: xlstm-125m's depth cut, 12 -> 6 layers: one period of its block pattern
+#: (mLSTM, mLSTM, sLSTM, mLSTM, mLSTM, mLSTM).  The sLSTM's per-position
+#: Python loop sets the time of phases 12 and 17, and the script must end
+#: within its limit with phase 19 added
+XLSTM_LAYERS = 6
+#: the cut model's parameters (6 layers, d 768, vocab 50304, tied
+#: embeddings; uncut, the reference's ``lm.param_count`` gives 155,640,272)
+XLSTM_PARAMS = 97_137_256
 #: prefill of prompt + k tokens against decode step k, as a share of the
 #: largest logit.  The two are one function (no MoE): in float32 they
 #: agree to the order of the float32 sums over 2048+ positions and 12
@@ -2258,14 +2292,23 @@ XLSTM_CROSS_REL = {"float32": 2e-4, "bfloat16": 1e-1}
 
 
 def serve_xlstm(dtype):
-    """xlstm-125m through ``serve.main`` in ``dtype``, the launch counters
-    zeroed just before it and read just after it: exactly one
-    ``mlstm_attention`` per mLSTM layer (10) and no other kernel, finite
-    logits, the reference's parameter count.  Returns (model, prompts,
-    result, launches)."""
+    """xlstm-125m cut to XLSTM_LAYERS, built from seed 0 and cast to
+    ``dtype`` as ``serve.main`` builds it, served through ``serve.serve``
+    (batch 8, prompt 2048, 32 new tokens), the launch counters zeroed just
+    before it and read just after it: exactly one ``mlstm_attention`` per
+    mLSTM layer (5) and no other kernel, finite logits, the cut model's
+    parameter count.  Returns (model, prompts, result, launches)."""
+    dev = torch.device("cuda")
+    cfg = get_config("xlstm-125m").replace(num_layers=XLSTM_LAYERS,
+                                           dtype=dtype)
+    model = lm.cast_params_for_compute(lm.LM(cfg, seed=0, device=dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (FULL_B, FULL_P),
+                            generator=gen, device=dev, dtype=torch.int32)
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    model, prompts, _, res = serve.main(XLSTM_ARGV + ["--dtype", dtype])
+    res = serve.serve(model, prompts, FULL_T)
     torch.cuda.synchronize()
     launches, routes = dict(K.LAUNCHES), dict(K.ROUTES)
     peak = torch.cuda.max_memory_allocated()
@@ -2273,15 +2316,16 @@ def serve_xlstm(dtype):
     n_params = sum(p.numel() for p in model.parameters())
     check(n_params == XLSTM_PARAMS, f"xlstm-125m: {n_params} parameters")
     want = expected_launches(model.cfg, T - 1)
-    check(launches == want and want["mlstm_attention"] == 10,
+    check(launches == want and want["mlstm_attention"] == 5,
           f"xlstm-125m {dtype}: launches {launches}, expected {want}")
     route = "wgmma" if dtype == "bfloat16" else "simt"
-    check(routes == {f"mlstm_attention/{route}": 10},
-          f"xlstm-125m {dtype}: routes {routes}, expected 10 {route}")
+    check(routes == {f"mlstm_attention/{route}": 5},
+          f"xlstm-125m {dtype}: routes {routes}, expected 5 {route}")
     check(all(bool(torch.isfinite(x).all()) for x in res.logits),
           f"xlstm-125m {dtype}: non-finite logits")
     check((B, T) == (8, 32), f"xlstm-125m: seqs {(B, T)}")
-    print(f"full size xlstm-125m ({n_params} parameters) {dtype} serve "
+    print(f"full size xlstm-125m ({XLSTM_LAYERS} layers, {n_params} "
+          f"parameters) {dtype} serve "
           f"8x(2048+32): prefill {res.prefill_ms:.1f} ms, decode "
           f"{res.decode_ms_per_token:.3f} ms/token, {res.tokens_per_s:.1f} "
           f"tokens/s, peak memory {peak / 2 ** 30:.2f} GiB, launches "
@@ -2291,8 +2335,8 @@ def serve_xlstm(dtype):
 
 @phase("xlstm_full_size")
 def xlstm_full_size():
-    """xlstm-125m at full width and depth (no cut) through the serving
-    entry point: in bf16 (the config's compute dtype; a second serve, the
+    """xlstm-125m at full width, XLSTM_LAYERS deep, through the serving
+    path: in bf16 (the config's compute dtype; a second serve, the
     kernel on layer 0's real inputs, prefill against decode, the profile)
     and in float32 (prefill against decode at float32's precision).
     Returns each mLSTM entry point's launches on its run."""
@@ -2729,9 +2773,10 @@ def jamba_train_full_size():
 
 @phase("xlstm_train_full_size")
 def xlstm_train_full_size():
-    """xlstm-125m uncut (12 layers, d 768, hd 384) through ``train_run``:
+    """xlstm-125m at full width (d 768, hd 384), XLSTM_LAYERS deep,
+    through ``train_run``:
     bf16 over float32 masters, remat, mode 3 with the top-k compressor
-    (phase 10's): 10 ``mlstm_attention_backward`` launches a step, 20
+    (phase 10's): 5 ``mlstm_attention_backward`` launches a step, 10
     ``mlstm_attention`` (forward and recompute, on ``wgmma``), one
     ``topk_compress`` a leaf; the loss falls.  Then one sLSTM layer's
     work in a step, profiled (``profile_train.profile_slstm``) at
@@ -2739,11 +2784,12 @@ def xlstm_train_full_size():
     busy share, and from them the launches of a step's sLSTM loops,
     extrapolated.  Returns the backward kernel's launches on the training
     run."""
-    cfg = get_config("xlstm-125m")
+    cfg = get_config("xlstm-125m").replace(num_layers=XLSTM_LAYERS)
     spec = train.TrainSpec(mode=AsyncMode.BEST_EFFORT, compressor="topk",
                            adamw=AdamWConfig(lr=3e-3, warmup_steps=20,
                                              total_steps=TRAIN_RUN_STEPS))
-    launches, _, steady = train_run("xlstm-125m uncut", cfg, spec)
+    launches, _, steady = train_run(f"xlstm-125m {XLSTM_LAYERS} layers",
+                                    cfg, spec)
     rec = profile_train.profile_slstm(cfg, TRAIN_RUN_B, SLSTM_PROFILE_S,
                                       torch.device("cuda"))
     n = rec["slstm_layers_per_step"]
@@ -2902,6 +2948,275 @@ def faulty_node():
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 19. the live-service path: open-loop arrivals, churn epochs, SLO verdicts
+# ---------------------------------------------------------------------------
+#: the serve fields of the dyadic serve configs (tests/test_service.py):
+#: bin edges and the item cost are powers of two, so the engines agree
+SERVE_DYADIC = dict(arrival_rate=2e5, arrival_bin=2 ** -11,
+                    arrival_period=2 ** -9, per_item_cost=2 ** -19,
+                    service_chunk=4)
+#: (arrival shape, mode): poisson keeps clocks lockstep under saturation,
+#: rolling barriers pin bursty too
+SERVE_CASES = (("poisson", AsyncMode.BEST_EFFORT),
+               ("diurnal", AsyncMode.BEST_EFFORT),
+               ("bursty", AsyncMode.ROLLING_BARRIER))
+
+
+class ServeMeter:
+    """While installed, times a serve run's windows (the torch engines'
+    ``run_carry``, less the arrival tables built inside it) and its
+    arrival tables (``cum_arrivals``), and sums the updates, the windows
+    executed and the windows the epochs needed (each replicate's busiest
+    process's updates)."""
+
+    def __enter__(self):
+        self.windows_s = self.tables_s = 0.0
+        self.updates = self.windows = self.needed = 0
+        self._saved = [(engine_torch, "cum_arrivals"),
+                       (engine_torch.TorchEngine, "run_carry"),
+                       (ShardedTorchEngine, "run_carry"),
+                       (engine_torch.TorchEngine, "run_replicates")]
+        self._saved = [(o, a, o.__dict__[a]) for o, a in self._saved]
+        real_table = engine_torch.cum_arrivals
+
+        def cum_arrivals(*a):
+            t0 = time.perf_counter()
+            out = real_table(*a)
+            self.tables_s += time.perf_counter() - t0
+            return out
+
+        def timed(real):
+            def run_carry(eng, seed):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                carry, windows = real(eng, seed)
+                torch.cuda.synchronize()
+                self.windows_s += time.perf_counter() - t0
+                self.windows += windows
+                return carry, windows
+            return run_carry
+
+        real_reps = engine_torch.TorchEngine.run_replicates
+
+        def run_replicates(eng, seeds):
+            out = real_reps(eng, seeds)
+            for res in out:
+                self.updates += sum(res.updates)
+                self.needed += max(res.updates)
+            return out
+
+        engine_torch.cum_arrivals = cum_arrivals
+        engine_torch.TorchEngine.run_carry = timed(
+            engine_torch.TorchEngine.run_carry)
+        ShardedTorchEngine.run_carry = timed(ShardedTorchEngine.run_carry)
+        engine_torch.TorchEngine.run_replicates = run_replicates
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, real in self._saved:
+            setattr(obj, attr, real)
+
+
+def serve_oracle_on_card():
+    """(a) The dyadic serve scenarios on torus-16 (duration 2**-8): the
+    torch engine on the card, dense and edge, gives the event oracle's
+    ``service`` and ``qos_signature`` (quality excluded)."""
+    seed = case_seed("torus")
+    for shape, mode in SERVE_CASES:
+        cfg = dyadic_cfg(mode=mode, seed=seed, arrival_shape=shape,
+                         **{**SERVE_DYADIC, "duration": 2 ** -8})
+        ev = make_engine("event", gc_app(16, "torus", seed), cfg).run()
+        want = qos_signature(ev)
+        want.pop("quality")
+        for kw in ({"layout": "dense"}, {"layout": "edge"}):
+            res = make_engine(RunConfig(engine="torch", **kw),
+                              gc_app(16, "torus", seed), cfg,
+                              max_pops=EXACT_MAX_POPS, chunk=64,
+                              device="cuda").run()
+            got = qos_signature(res)
+            got.pop("quality")
+            check(res.service == ev.service and got == want,
+                  f"serve {shape} {json.dumps(kw)}: torch on the card != "
+                  "event oracle")
+            check(sum(res.service["served"]) > 0, f"serve {shape}: idle")
+        print(f"serve {shape} (mode {int(mode)}): dense and edge on the "
+              f"card == event oracle (service: "
+              f"{sum(ev.service['arrivals'])} arrivals, "
+              f"{sum(ev.service['served'])} served)", flush=True)
+
+
+def count_service_launches(launched, app_name):
+    """Add this run's duct launches to ``launched``, keyed by kernel
+    entry (evo's halos are float32: its launches are the f32 entries)."""
+    f32 = "_f32" if app_name == "evo" else ""
+    for name in ("duct_window", "duct_commit"):
+        key = name + f32
+        launched[key] = launched.get(key, 0) + K.LAUNCHES[name]
+    for route in ("drain", "send", "full"):
+        key = "duct_exchange" + ("" if route == "full" else f"_{route}")
+        launched[key] = (launched.get(key, 0) +
+                         K.ROUTES.get(f"duct_exchange/{route}", 0))
+
+
+def serve_card_equals_cpu(launched):
+    """(b) ``run_service`` end to end (churn 2: a host fault and heal, a
+    process leave and rejoin; two replicates; app state carried;
+    duration 2**-9) on the card and on the CPU: the whole output dict
+    equal, on graph coloring's torus-1024 and evo's torus-64, dense per
+    window, W=4 and edge."""
+    seed = case_seed("torus")
+    for app_name, n, simels in (("graphcolor", 1024, 1), ("evo", 64, 16)):
+        topo = make_topology("torus", n)
+        # five epochs of about 30 updates: bins of 2**-13 s, so each epoch
+        # spans several; chunks of 32 windows, so few run past an epoch
+        cfg = dyadic_cfg(seed=seed, **{**SERVE_DYADIC, "duration": 2 ** -9,
+                                       "arrival_bin": 2 ** -13})
+        timeline = default_timeline(topo, 2, cfg.duration)
+
+        def builder(topology, s, init_state=None):
+            return experiments.make_app(app_name, topology.n, simels,
+                                        topology, s,
+                                        initial_state=init_state)
+
+        for kw in ({}, {"superstep_windows": 4}, {"layout": "edge"}):
+            label = f"serve {app_name} torus-{n} {json.dumps(kw)}"
+            outs = {}
+            for device in ("cuda", "cpu"):
+                K.reset_launches()
+                t0 = time.perf_counter()
+                outs[device] = run_service(
+                    RunConfig(engine="torch", replicates=2, **kw), builder,
+                    cfg, topo, timeline, chunk=32, device=device)
+                dt = time.perf_counter() - t0
+                used = sum(K.LAUNCHES.values())
+                check((used > 0) == (device == "cuda"),
+                      f"{label} on {device}: {used} kernel launches")
+                if device == "cuda":
+                    count_service_launches(launched, app_name)
+                svc = outs[device]["service"]
+                print(f"{label} {device}: {len(outs[device]['epochs'])} "
+                      f"epochs, {svc['arrivals']} arrivals, "
+                      f"{svc['served']} served, {dt:.1f}s wall, {used} "
+                      f"kernel launches", flush=True)
+            check(len(outs["cuda"]["epochs"]) == 5 and
+                  outs["cuda"]["service"]["served"] > 0,
+                  f"{label}: epochs {outs['cuda']['epochs']}")
+            check(outs["cuda"] == outs["cpu"],
+                  f"{label}: card and CPU run_service outputs differ")
+            print(f"{label}: card == CPU (the whole run_service dict)",
+                  flush=True)
+
+
+def serve_full_size(label, argv, launched):
+    """(c) One serve run at full width through the CLI
+    (``experiments.main``), launch counters zeroed just before it; prints
+    its epochs, service totals, SLO summary, wall s, updates/s, windows
+    executed and needed, duct launches a window, and the time in the
+    windows, in the arrival tables and outside the windows (epoch
+    rebuilds, result assembly, SLO scoring).  Returns its output row."""
+    argv = ["--family", "serve", "--engine", "torch", "--device", "cuda",
+            "--topology", "torus", "--procs", "4096", "--simels", "1",
+            "--buffer", "64", "--duration", "0.02", "--arrival-rate", "1e5",
+            *argv]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with ServeMeter() as m:
+        t0 = time.perf_counter()
+        rows = experiments.main(argv)
+        wall = time.perf_counter() - t0
+    count_service_launches(launched, "graphcolor")
+    duct = sum(K.LAUNCHES.values())
+    check(duct > 0, f"{label}: no duct launches")
+    row = rows[0]
+    svc, slo = row["service"], row["slo"]["summary"]
+    check(svc["served"] > 0 and
+          svc["arrivals"] == svc["served"] + svc["backlog"],
+          f"{label}: service {svc}")
+    med = {k: row["qos"][k]["median"] for k in row["qos"]}
+    check(all(v is not None and math.isfinite(v) for v in med.values()),
+          f"{label}: medians {med}")
+    check(m.needed <= m.windows, f"{label}: {m.windows} windows executed, "
+          f"{m.needed} needed")
+    in_windows = m.windows_s - m.tables_s
+    print(f"serve full size {label}: {len(row['epochs'])} epochs "
+          f"{[(e['n_procs'], e['absent_pids'], e['faulty_hosts']) for e in row['epochs']]}, "
+          f"{svc['arrivals']} arrivals, {svc['served']} served, "
+          f"{svc['backlog']} backlog; slo {slo['intervals']} intervals, "
+          f"{slo['breaches']} breaches, max burn {slo['max_burn_rate']:.2f}, "
+          f"{'OK' if slo['ok'] else 'BREACH'}; {wall:.2f}s wall, "
+          f"{m.updates} updates, {m.updates / wall:.0f} updates/s; "
+          f"{m.windows} windows executed, {m.needed} needed; "
+          f"{duct / m.windows:.3f} duct launches a window "
+          f"({ {k: v for k, v in {**K.LAUNCHES, **K.ROUTES}.items() if v} }); "
+          f"in the windows "
+          f"{in_windows:.2f}s ({in_windows * 1e3 / m.windows:.3f} ms a "
+          f"window), arrival tables {m.tables_s:.3f}s, outside the windows "
+          f"{wall - m.windows_s:.2f}s", flush=True)
+    print(f"serve full size {label} QoS medians: {json.dumps(med)}",
+          flush=True)
+    return {k: row[k] for k in ("epochs", "qos", "qos_timeseries", "slo",
+                                "service")}
+
+
+def serve_hook_cost():
+    """What the serve hook adds to a window: ``profile_window`` on the
+    torus-4096 dense window at 32 windows, without and with arrivals (1e5
+    a process a virtual second): CUDA launches and device busy ms a
+    window (``--layout edge`` and ``--shards 8`` add as many)."""
+    for label, argv in (("dense", []),):
+        prof = {}
+        for rate in ("0", "1e5"):
+            prof[rate] = profile_window.main(
+                ["--windows", "32", "--arrival-rate", rate, *argv])
+        off, on = prof["0"], prof["1e5"]
+        check(on["kernel_launches_per_window"] >
+              off["kernel_launches_per_window"],
+              f"serve hook {label}: no launches added")
+        print(f"serve hook {label}: CUDA launches a window "
+              f"{off['kernel_launches_per_window']:.1f} -> "
+              f"{on['kernel_launches_per_window']:.1f}, device busy ms a "
+              f"window {off['device_busy_ms_per_window']:.4f} -> "
+              f"{on['device_busy_ms_per_window']:.4f}, wall ms a window "
+              f"(profiler on) {off['wall_ms_per_window']:.3f} -> "
+              f"{on['wall_ms_per_window']:.3f}", flush=True)
+
+
+@phase("service")
+def service():
+    """The live-service path on the card: (a) the dyadic serve scenarios
+    against the event oracle; (b) ``run_service`` card = CPU; (c) the
+    torus-4096 at full width through ``--family serve``: bursty traffic
+    with churn 2 (five epochs: a host fault and heal, a process leave and
+    rejoin), dense = edge, and poisson with churn 1 at 8 shards =
+    unsharded; then the serve hook's launches and device time a window.
+    Returns each duct entry's launches over (b) and (c)."""
+    launched = {}
+    serve_oracle_on_card()
+    serve_card_equals_cpu(launched)
+    base = ["--traffic", "bursty", "--churn", "2"]
+    dense = serve_full_size("bursty churn 2 dense", base, launched)
+    edge = serve_full_size("bursty churn 2 edge", base + ["--layout", "edge"],
+                           launched)
+    check([e["n_procs"] for e in dense["epochs"]] ==
+          [4096, 4096, 4096, 4095, 4096] and
+          dense["epochs"][1]["faulty_hosts"] and
+          dense["epochs"][3]["absent_pids"],
+          f"bursty churn 2: epochs {dense['epochs']}")
+    check(dense == edge, "bursty churn 2: dense and edge outputs differ")
+    print("serve torus-4096 bursty churn 2: dense == edge (the whole "
+          "run_service dict)", flush=True)
+    base = ["--traffic", "poisson", "--churn", "1"]
+    one = serve_full_size("poisson churn 1 unsharded", base, launched)
+    eight = serve_full_size("poisson churn 1 8 shards",
+                            base + ["--shards", "8"], launched)
+    check(eight == one, "poisson churn 1: 8 shards differ from unsharded")
+    print("serve torus-4096 poisson churn 1: 8 shards == unsharded (the "
+          "whole run_service dict)", flush=True)
+    serve_hook_cost()
+    return launched
+
+
 #: each kernel entry point of the kernels JSON line: (name, kernel source
 #: key, TPU kernel it replaces)
 ENTRIES = (
@@ -2969,6 +3284,7 @@ def main():
     launched.update(jamba_train_full_size())
     launched.update(xlstm_train_full_size())
     sharded_launched = sharded(full_sigs["graphcolor torus-4096 window"])
+    service_launched = service()
     kernels_line = []
     for entry, kname, replaces in ENTRIES:
         rec = records[entry]
@@ -2985,7 +3301,9 @@ def main():
                                    "saved_states_call_ms",
                                    "without_saved_ms") if k in rec},
             **({"sharded_launches": sharded_launched[entry]}
-               if entry in sharded_launched else {})))
+               if entry in sharded_launched else {}),
+            **({"service_launches": service_launched[entry]}
+               if service_launched.get(entry) else {})))
     print("phases: " + ", ".join(f"{p} {t:.1f}s" for p, t in PHASES))
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

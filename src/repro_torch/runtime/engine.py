@@ -47,12 +47,6 @@ SCHEDULERS: Tuple[str, ...] = ("window", "superstep", "pipelined")
 #: against a concrete topology lives in ``topologies.plan_layout``
 LAYOUTS: Tuple[str, ...] = ("edge", "dense")
 
-_SERVICE_MISSING = (
-    "open-loop service arrivals (arrival_rate > 0) are not ported to "
-    "repro_torch yet; run them on the reference "
-    "(python -m repro.runtime.experiments --family serve)")
-
-
 @runtime_checkable
 class Engine(Protocol):
     """What every simulation backend must provide."""
@@ -97,8 +91,6 @@ def _make_event(app, cfg: SimConfig, faults: Optional[FaultModel],
                 **kwargs) -> Engine:
     if kwargs:
         raise TypeError(f"unknown engine options {sorted(kwargs)}")
-    if cfg.arrival_rate > 0:
-        raise ValueError(_SERVICE_MISSING)
     return Simulator(app, cfg, faults)
 
 

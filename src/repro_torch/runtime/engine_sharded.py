@@ -81,12 +81,12 @@ from repro_torch.runtime.window_core import (
 )
 
 #: carry keys indexed by the process axis (permuted into shard order); the
-#: fault-attribution counters and the quarantine flags are present only
-#: when the config enables them
+#: service keys ("arr_cum", "served"), the fault-attribution counters and
+#: the quarantine flags are present only when the config enables them
 _PROC_KEYS = ("t", "steps", "done", "waiting", "barrier_seq", "last_release",
               "pending", "c_touch", "c_att", "c_ok", "c_drop", "c_laden",
               "c_msgs", "c_loss", "c_dead", "quar", "snap", "snap_idx",
-              "halo")
+              "halo", "arr_cum", "served")
 #: the ring fields a push pass reads and writes
 _RING_KEYS = ("q_avail", "q_touch", "q_head", "q_size", "q_pay")
 

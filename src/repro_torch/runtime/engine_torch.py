@@ -39,6 +39,7 @@ from repro_torch.core.modes import AsyncMode
 from repro_torch.device import resolve_device
 from repro_torch.interop import carry_to_numpy
 from repro_torch.runtime.faults import FaultModel
+from repro_torch.runtime.service import cum_arrivals
 from repro_torch.runtime.simulator import SimConfig, SimResult
 from repro_torch.runtime.topologies import (
     OPP_IDX,
@@ -90,11 +91,6 @@ class TorchEngine:
         self.chunk = chunk
         self.scheduler = scheduler
         self.superstep_windows = int(superstep_windows)
-        if cfg.arrival_rate > 0:
-            raise ValueError(
-                "open-loop service arrivals (arrival_rate > 0) are not "
-                "ported to the torch engine yet; run them on the reference "
-                "(python -m repro.runtime.experiments --family serve)")
         topo = getattr(app, "injected", None)
         if not isinstance(topo, Topology):
             raise ValueError(
@@ -239,6 +235,15 @@ class TorchEngine:
             extra["c_dead"] = torch.zeros(n, dtype=torch.int32, device=dev)
         if self.cfg.barrier_timeout > 0 and self.cfg.mode in BARRIER_MODES:
             extra["quar"] = torch.zeros(n, dtype=torch.bool, device=dev)
+        if self.cfg.arrival_rate > 0:
+            # open-loop service arrivals: the cumulative per-(pid, bin)
+            # arrival table is built on the host once per replicate (a pure
+            # function of (cfg, seed)) and carried, rows keyed by pid, so
+            # close_window's serve hook reads the stream every engine
+            # injects
+            extra["arr_cum"] = torch.as_tensor(
+                cum_arrivals(self.cfg, seed, n), device=dev)
+            extra["served"] = torch.zeros(n, dtype=torch.int32, device=dev)
 
         def zeros(dtype, shape=(n,)):
             return torch.zeros(shape, dtype=dtype, device=dev)

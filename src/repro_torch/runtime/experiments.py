@@ -10,6 +10,9 @@
                  (paper §III-C/E)
   faults         an apparently-faulty host: extreme degradation inside its
                  clique, stable global medians (paper §III-G)
+  serve          a live service: open-loop arrivals feed every process's
+                 work queue, churn incidents split the run into epochs on
+                 patched topologies, SLO verdicts score the QoS stream
 
 Every family reports per-process QoS *distributions* — median + tail
 percentiles over (process, window) samples — because under best-effort
@@ -30,8 +33,8 @@ spacing of the time-resolved ``qos_timeseries`` every row carries.
 ``--superstep-windows W`` runs W shard-local windows per exchange and
 ``--scheduler pipelined`` double-buffers that exchange.  ``--app`` picks
 graph coloring or digital evolution (``evo``, float32 halos).  The
-``serve`` family is not ported yet and is refused with a pointer to the
-reference.
+``serve`` family takes ``--traffic``, ``--arrival-rate``, ``--churn`` and
+the ``--slo-*`` / ``--burn-*`` budgets (``runtime/service.py``).
 
 CLI::
 
@@ -39,22 +42,25 @@ CLI::
         --topology torus --procs 64 256 --engine torch
 
 runs weak scaling on a torus at 64 and 256 processes on the card;
-``--family all`` runs every ported family.
+``--family all`` runs every family.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Dict, List, Optional, Sequence
 
 from repro_torch.core.modes import AsyncMode
 from repro_torch.core.qos import METRICS, aggregate_reports, aggregate_timeseries
+from repro_torch.core.slo import SloPolicy
 from repro_torch.runtime.config import RunConfig
 from repro_torch.runtime.engine import (ENGINES, make_engine, run_replicates,
                                         validate_run_config)
 from repro_torch.runtime.faults import (crashed_host, faulty_host,
                                         flapping_host, lossy_host)
+from repro_torch.runtime.service import default_timeline, run_service
 from repro_torch.runtime.simulator import SimConfig
 from repro_torch.runtime.topologies import TOPOLOGIES, Topology, make_topology
 
@@ -63,14 +69,6 @@ PERCENTILES = (50, 95)
 _UNITS = {"simstep_period": ("us", 1e6), "simstep_latency": ("steps", 1.0),
           "walltime_latency": ("us", 1e6), "delivery_failure_rate": ("", 1.0),
           "delivery_clumpiness": ("", 1.0)}
-
-#: what the reference offers and the port does not yet, with the reason
-NOT_PORTED = {
-    "serve": "--family serve needs the service slice (open-loop arrivals, "
-             "churn epochs, SLO verdicts), which is not ported to repro_torch "
-             "yet; run it on the reference: python -m "
-             "repro.runtime.experiments --family serve",
-}
 
 
 def make_app(name: str, n: int, simels: int, topology: Optional[Topology],
@@ -282,11 +280,63 @@ def run_faults(args) -> List[dict]:
     return rows
 
 
+def run_serve(args) -> List[dict]:
+    """Live-service scenario: open-loop traffic + churn + SLO verdicts.
+
+    One long-running serve on the first ``--procs`` count: the
+    ``--traffic`` arrival shape feeds every process's work queue at
+    ``--arrival-rate``, ``--churn`` incidents (host fault/heal, process
+    leave/join) split the run into epochs with patched topologies, and
+    the per-interval QoS stream is scored against the ``--slo-*`` budgets
+    (``runtime/service.py`` / ``core/slo.py``).
+    """
+    n = args.procs[0]
+    topo = _topology_for(args, n)
+    timeline = default_timeline(topo, args.churn, args.duration,
+                                args.fault_compute, args.fault_link)
+    policy = SloPolicy(latency_p99_budget=args.slo_latency,
+                       failure_p99_budget=args.slo_failure,
+                       burn_window=args.burn_window,
+                       burn_threshold=args.burn_threshold)
+    cfg = _sim_config(args, n, arrival_rate=args.arrival_rate,
+                      arrival_shape=args.traffic)
+    print(f"[serve] app={args.app} topology={topo.name} n={n} "
+          f"traffic={args.traffic}@{args.arrival_rate:g}/s churn={args.churn} "
+          f"engine={args.engine} device={args.device} "
+          f"slo=(lat_p99<={policy.latency_p99_budget}, "
+          f"fail_p99<={policy.failure_p99_budget})")
+    out = run_service(
+        args.run,
+        lambda topology, s, init_state=None: make_app(
+            args.app, topology.n, args.simels, topology, s,
+            initial_state=init_state),
+        cfg, topo, timeline, policy, device=args.device)
+    for ep in out["epochs"]:
+        print(f"  epoch {ep['epoch']}: t=[{ep['t_start']:.4f}, "
+              f"{ep['t_end']:.4f}) procs={ep['n_procs']} "
+              f"absent={ep['absent_pids']} faulty={ep['faulty_hosts']} "
+              f"({ep['intervals']} intervals)")
+    s = out["slo"]["summary"]
+    svc = out["service"]
+    print(f"  slo: {s['intervals']} intervals, {s['breaches']} breaches, "
+          f"{s['no_data']} no-data, max_burn={s['max_burn_rate']:.2f} "
+          f"-> {'OK' if s['ok'] else 'BREACH'}")
+    print(f"  service: {svc['arrivals']} arrivals, {svc['served']} served, "
+          f"{svc['backlog']} backlogged")
+    _print_distributions(out["qos"])
+    row = dict(family="serve", n=n, topology=topo.name, engine=args.engine,
+               device=args.device, run=args.run.to_dict(),
+               traffic=args.traffic, arrival_rate=args.arrival_rate,
+               churn=args.churn, policy=dataclasses.asdict(policy), **out)
+    return [row]
+
+
 FAMILIES = {
     "modes": run_modes,
     "weak_scaling": run_weak_scaling,
     "intensivity": run_intensivity,
     "faults": run_faults,
+    "serve": run_serve,
 }
 
 
@@ -297,8 +347,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Run the paper's experiment families on the torch port "
                     "of the best-effort runtime.")
     p.add_argument("--family", default="weak_scaling",
-                   choices=[*FAMILIES, "serve", "all"],
-                   help="experiment family (serve is not ported yet)")
+                   choices=[*FAMILIES, "all"])
     p.add_argument("--engine", default="torch", choices=sorted(ENGINES),
                    help="simulation backend: torch (vectorized windowed-time "
                         "engine) or event (discrete-event reference)")
@@ -378,6 +427,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "barrier modes: a process whose next barrier "
                         "arrival lags the cohort front by more than tau is "
                         "excluded from the release.  0 = plain barriers")
+    # --- live-service family (--family serve) ---------------------------
+    p.add_argument("--traffic", default="poisson",
+                   choices=["poisson", "bursty", "diurnal"],
+                   help="open-loop arrival shape feeding each process's "
+                        "work queue (runtime/service.py)")
+    p.add_argument("--arrival-rate", type=float, default=1e5,
+                   help="mean arrivals per process per virtual second")
+    p.add_argument("--churn", type=int, default=0,
+                   help="churn incidents spread over the run: even "
+                        "incidents fault+heal a host, odd ones make a "
+                        "process leave+rejoin (duct rings spliced via "
+                        "patch_topology)")
+    p.add_argument("--slo-latency", type=float, default=50.0,
+                   help="per-interval p99 simstep-latency budget (updates "
+                        "per one-way delivery)")
+    p.add_argument("--slo-failure", type=float, default=0.35,
+                   help="per-interval p99 delivery-failure-rate budget")
+    p.add_argument("--burn-window", type=int, default=5,
+                   help="trailing data-bearing intervals in the burn-rate "
+                        "window")
+    p.add_argument("--burn-threshold", type=float, default=0.5,
+                   help="burn rate above which an interval is marked "
+                        "burning (sustained breach)")
     p.add_argument("--json", default=None, help="write rows to this path")
     return p
 
@@ -385,8 +457,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.family == "serve":
-        parser.error(NOT_PORTED["serve"])
     # one frozen strategy carrier for every family, checked once against
     # the engine registry before any app or tensor is built
     try:

@@ -4,6 +4,7 @@ engine's lockstep windows.
     python -m repro_torch.runtime.profile_window [--procs 4096] [--windows 64]
         [--superstep-windows 1] [--simels 1] [--layout auto|dense|edge]
         [--app graphcolor|evo] [--shards 1] [--scheduler auto|pipelined]
+        [--arrival-rate 0]
 
 Builds the experiments CLI's configuration (torus, buffer 64, duration
 0.02, best-effort) for the given app and duct layout (``--app evo
@@ -18,7 +19,10 @@ the most device time.  With ``--shards S`` > 1 it profiles the sharded
 engine's supersteps (``--scheduler pipelined`` the double-buffered one)
 and adds what the hops cost: hops per window, and the host time and the
 device time of the kernels inside a ``record_function`` range around
-``mesh.hop``.  Needs a CUDA device.
+``mesh.hop``.  ``--arrival-rate R`` > 0 feeds every process open-loop
+arrivals at R a virtual second (the serve family's poisson traffic), so
+the window carries the serve hook; 0 profiles the window without it.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -50,13 +54,17 @@ def main(argv=None) -> dict:
     p.add_argument("--shards", type=int, default=1)
     p.add_argument("--scheduler", default="auto",
                    choices=["auto", "pipelined"])
+    p.add_argument("--arrival-rate", type=float, default=0.0,
+                   help="open-loop arrivals per process per virtual second "
+                        "(0: no serve hook in the window)")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_window needs a CUDA device")
     args = experiments.build_parser().parse_args(
         ["--topology", "torus", "--procs", str(a.procs), "--simels",
          str(a.simels), "--buffer", "64", "--duration", "0.02"])
-    cfg = experiments._sim_config(args, a.procs)
+    cfg = experiments._sim_config(args, a.procs,
+                                  arrival_rate=a.arrival_rate)
     W = a.superstep_windows
     sharded = a.shards > 1
     eng = make_engine(RunConfig(engine="torch", layout=a.layout,
@@ -109,6 +117,7 @@ def main(argv=None) -> dict:
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
     out = dict(
         procs=a.procs, app=a.app, simels=a.simels, layout=eng.layout,
+        arrival_rate=a.arrival_rate,
         superstep_windows=W, windows=windows,
         wall_ms_per_window=wall * 1e3 / windows,
         kernel_launches_per_window=launches / windows,

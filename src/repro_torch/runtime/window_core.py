@@ -84,6 +84,18 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def arrival_bin_index(t: torch.Tensor, arrival_bin: float,
+                      nbins: int) -> torch.Tensor:
+    """``min(int(t / arrival_bin), nbins)`` as int32, as the reference's
+    serve hook computes it: XLA compiles its division by the constant bin
+    into a product with the float32 reciprocal (CUDA's division by a
+    scalar is the same product), so this multiplies too.  The clamp comes
+    before the cast: a crashed process's clock is ``+inf``, which a
+    float-to-int32 cast does not saturate on every device."""
+    inv = _f32(np.float32(1) / np.float32(arrival_bin))
+    return torch.clamp(t * inv, max=float(nbins)).to(torch.int32)
+
+
 def mul32(x, c: int):
     """``(x * c) mod 2**32`` for ``x`` in [0, 2**32) and a 32-bit ``c``.
     A constant at or above 2**31 is replaced by ``c - 2**32`` (the same
@@ -806,6 +818,24 @@ class WindowCore:
         newly_done = active & (t >= duration)
         done = done | newly_done
 
+        # --- open-loop service arrivals (runtime/service.py) --------------
+        # arrivals of time bin b queue up once b has fully elapsed on the
+        # process's own clock (the cumulative table travels in the carry,
+        # rows keyed by pid); each update serves up to service_chunk items
+        # whose cost rides on the work clock with the compute.  It reads
+        # only (t, served), so every scheduler, layout and shard count
+        # runs it unchanged, bitwise simulator.run's serve block.
+        served = u.get("served")
+        if served is not None:
+            arr_cum = u["arr_cum"]
+            b = arrival_bin_index(t, cfg.arrival_bin, arr_cum.shape[-1] - 1)
+            avail = arr_cum[ar, b.long()]
+            serve = torch.clamp(avail - served, 0, cfg.service_chunk)
+            serve = torch.where(active & ~newly_done, serve, 0)
+            pending = pending + serve.to(torch.float32) * _f32(
+                cfg.per_item_cost)
+            served = served + serve
+
         d_next = _f32(self.base_total) * self.step_factor(
             u["seed"], steps, pids, cfactor)
         barrier_seq = u["barrier_seq"]
@@ -881,6 +911,8 @@ class WindowCore:
         out.update(k=u["k"] + 1, t=t, done=done, waiting=waiting,
                    barrier_seq=barrier_seq, last_release=last_release,
                    pending=pending_saved, snap=snap, snap_idx=snap_idx)
+        if served is not None:
+            out["served"] = served
         if barriered and release is not None and quarantined:
             out["quar"] = quar
         if barriered and release is not None and release.staged:
@@ -959,6 +991,16 @@ class WindowCore:
             qos_by_proc[p] = reps
             all_qos.extend(reps)
 
+        service = None
+        if "served" in carry:
+            srv = np.asarray(carry["served"])
+            tot = np.asarray(carry["arr_cum"])[:, -1]
+            service = {
+                "arrivals": [int(x) for x in tot],
+                "served": [int(x) for x in srv],
+                "backlog": [int(a - s) for a, s in zip(tot, srv)],
+            }
+
         return SimResult(
             updates=[int(x) for x in steps],
             horizon=cfg.duration,
@@ -971,5 +1013,6 @@ class WindowCore:
             dropped_dead=(int(np.sum(carry["c_dead"]))
                           if "c_dead" in carry else 0),
             sent=int(np.sum(carry["c_att"])),
+            service=service,
             app_state=app_state,
         )
