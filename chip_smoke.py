@@ -24,7 +24,9 @@ archs' serving path with their frontend prefix, through the two attention
 kernels and, in training, ``topk_compress``; the jamba and xLSTM blocks'
 training path, through ``mamba_scan`` and ``mlstm_attention`` forward and
 their hand-written backward kernels ``mamba_scan_backward`` and
-``mlstm_attention_backward``) and fails with a non-zero exit code if any
+``mlstm_attention_backward``; the SPMD tools, the conduits, the
+best-effort collectives through the compression kernels and graph
+coloring's in-graph step) and fails with a non-zero exit code if any
 phase fails:
 
   1. card      the ``nvidia-smi`` name and power limit
@@ -116,7 +118,9 @@ phase fails:
                modes 0-4 at n_pods = 2 and mode 3 with int8 and with
                top-k: 3 steps on the card (kernels) and on the CPU (plain
                versions) from the same state agree, with exact launch
-               counts; a checkpoint saved on the card restores on the CPU
+               counts, mode 3's lossy sums counted through
+               ``collectives.cross_pod_sum`` (a leaf a step); a
+               checkpoint saved on the card restores on the CPU
   10. train full size  qwen2-1.5b at full width through
                ``repro_torch.launch.train``: bf16 compute, float32
                masters, batch 4 x seq 2048, mode 3, 6 steps with top-k
@@ -221,12 +225,30 @@ phase fails:
                the windows; then ``profile_window`` without and with
                arrivals on the dense window: the serve hook's CUDA
                launches and device time a window
+  20. spmd     the SPMD tools, every mesh axis a tensor dimension on the
+               card: the conduits on an 8-long ring, modes 0-4, with the
+               reference's staleness semantics, card == CPU;
+               ``exchange_gradients`` at 2 pods, modes 0-4, two steps,
+               with the reference's values; ``cross_pod_sum`` with int8
+               and with top-k on a (2, 8960, 1536) leaf (qwen2-1.5b's
+               width), card == CPU bitwise, its ``quantize`` /
+               ``dequantize`` / ``topk_compress`` launches counted; graph
+               coloring's ``spmd_step`` on the reference's (16, 16)
+               production mesh of 256 x 256 blocks (16.8 M nodes): 8
+               best-effort steps card == CPU bitwise, then 400 steps in
+               modes 0, 3, 4 and 1 (flush every 8 steps), each with ms a
+               step, node updates/s, CUDA launches a step and the busy
+               share (profiled), conflicts over the first and the last 10
+               steps (best effort must fall); at the reference's own size
+               (2 x 2 of 16 x 16, 400 steps) best effort meets its
+               criterion (last 10 < 0.3 x first 10)
 
 It imports nothing of JAX or of the JAX package.  The line before the last
 is a JSON object with one record per kernel and float32 entry point (the
 edge-major drain and send add ``sharded_launches``, their launches on
 phase 18's 8-shard torus-4096 run; the duct entries add
-``service_launches``, their launches in phase 19's runs on the card); the
+``service_launches``, their launches in phase 19's runs on the card; the
+compression kernels add ``spmd_launches``, theirs in phase 20's sums); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -249,10 +271,12 @@ from torch.profiler import ProfilerActivity, profile
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
+from repro_torch.apps import graphcolor  # noqa: E402
 from repro_torch.apps.graphcolor import (  # noqa: E402
     GraphColorApp,
     GraphColorConfig,
 )
+from repro_torch.core import collectives, conduit  # noqa: E402
 from repro_torch.core.modes import AsyncMode  # noqa: E402
 from repro_torch.core.qos import aggregate_reports, qos_signature  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -330,7 +354,10 @@ from repro_torch.launch import (  # noqa: E402
 from repro_torch.models import layers, lm, moe, ssm, transformer  # noqa: E402
 from repro_torch.models.modality import frontend_input_name  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
-from repro_torch.optim.compression import TopKCompressor  # noqa: E402
+from repro_torch.optim.compression import (  # noqa: E402
+    Int8Compressor,
+    TopKCompressor,
+)
 from repro_torch.optim.outer import OuterConfig  # noqa: E402
 from repro_torch.pytree import flatten  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
@@ -1979,20 +2006,31 @@ def train_case_card_vs_cpu(cfg, mode, comp, adamw):
     card = to_device(cpu, "cuda")
     step = train.make_train_step(cfg, spec, TRAIN_PODS)
     lr_sum = 0.0
+    real_sum, summed = collectives.cross_pod_sum, []
+
+    def counting_sum(tree, *a, **k):
+        # mode 3's lossy sums go through the ported collective
+        summed.append(tree.device.type)
+        return real_sum(tree, *a, **k)
+
+    collectives.cross_pod_sum = counting_sum
     K.reset_launches()
-    for b in smoke_batches(cfg, TRAIN_STEPS):
-        card, got = step(card, to_device(b, "cuda"))
-        cpu, want = step(cpu, b)
-        lr_sum += float(want["lr"])
-        gl, wl = float(got["loss"]), float(want["loss"])
-        check(abs(gl / wl - 1) <= TRAIN_LOSS_RTOL,
-              f"{label}: loss {gl} on the card, {wl} on the CPU")
-        ga, wa = float(got["aux"]), float(want["aux"])
-        check(abs(ga - wa) <= TRAIN_LOSS_RTOL * abs(wa),
-              f"{label}: aux loss {ga} on the card, {wa} on the CPU")
-        gn, wn = float(got["grad_norm"]), float(want["grad_norm"])
-        check(abs(gn / wn - 1) <= TRAIN_NORM_RTOL,
-              f"{label}: grad norm {gn} vs {wn}")
+    try:
+        for b in smoke_batches(cfg, TRAIN_STEPS):
+            card, got = step(card, to_device(b, "cuda"))
+            cpu, want = step(cpu, b)
+            lr_sum += float(want["lr"])
+            gl, wl = float(got["loss"]), float(want["loss"])
+            check(abs(gl / wl - 1) <= TRAIN_LOSS_RTOL,
+                  f"{label}: loss {gl} on the card, {wl} on the CPU")
+            ga, wa = float(got["aux"]), float(want["aux"])
+            check(abs(ga - wa) <= TRAIN_LOSS_RTOL * abs(wa),
+                  f"{label}: aux loss {ga} on the card, {wa} on the CPU")
+            gn, wn = float(got["grad_norm"]), float(want["grad_norm"])
+            check(abs(gn / wn - 1) <= TRAIN_NORM_RTOL,
+                  f"{label}: grad norm {gn} vs {wn}")
+    finally:
+        collectives.cross_pod_sum = real_sum
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     per = TRAIN_STEPS * TRAIN_PODS
@@ -2004,6 +2042,15 @@ def train_case_card_vs_cpu(cfg, mode, comp, adamw):
     check(launches == want_l,
           f"{label}: launches {launches}, expected {want_l}")
     worst = state_agrees(label, card, cpu, lr_sum, comp is not None)
+    want_sums = leaves * TRAIN_STEPS if comp is not None else 0
+    check(summed.count("cuda") == want_sums == summed.count("cpu"),
+          f"{label}: {summed.count('cuda')} collectives.cross_pod_sum calls "
+          f"on the card, expected {want_sums}")
+    if comp is not None:
+        print(f"{label}: the lossy cross-pod sums through "
+              f"collectives.cross_pod_sum, {want_sums} calls on the card "
+              f"({leaves} leaves x {TRAIN_STEPS} steps), launches as "
+              f"expected", flush=True)
     used = {k: v for k, v in launches.items() if v}
     print(f"{label}: {TRAIN_STEPS} steps card == CPU (loss {wl:.6f}, aux "
           f"{wa:.6g}, largest parameter difference {worst:.3g}); launches "
@@ -3217,6 +3264,250 @@ def service():
     return launched
 
 
+# ---------------------------------------------------------------------------
+# 20. spmd: the conduits, the collectives and graph coloring's spmd_step
+# ---------------------------------------------------------------------------
+#: the reference's single-pod production mesh, a 256 x 256 block a device
+SPMD_MESH, SPMD_BLOCK, SPMD_COLORS, SPMD_B = (16, 16), (256, 256), 3, 0.1
+SPMD_STEPS, SPMD_CHECK_STEPS, SPMD_PROFILE_STEPS = 400, 8, 8
+#: the modes of the full-size runs: (label, mode, flush period)
+SPMD_RUNS = (("mode 0", AsyncMode.BARRIER_EVERY_STEP, None),
+             ("mode 3", AsyncMode.BEST_EFFORT, None),
+             ("mode 4", AsyncMode.NO_COMM, None),
+             ("mode 1 flush/8", AsyncMode.ROLLING_BARRIER, 8))
+#: one of qwen2-1.5b's (8960, 1536) gradient leaves at 2 pods
+SPMD_LEAF = (2, 8960, 1536)
+
+
+def ring_exchanges(mode, dev):
+    """``test_conduit_staleness_semantics`` on an 8-long ring: two
+    exchanges of the ranks (then + 100); modes 1/2 flush on the second."""
+    cond = conduit.Conduit("x", {"fwd": 1}, mode)
+    val = torch.arange(8, dtype=torch.float32, device=dev)
+    bufs = cond.init_buffers(val)
+    flush = [torch.tensor(f, device=dev) for f in (False, True)]
+    kw = mode in (AsyncMode.ROLLING_BARRIER, AsyncMode.FIXED_BARRIER)
+    r1, bufs = cond.exchange(val, bufs, **({"flush": flush[0]} if kw else {}))
+    r2, bufs = cond.exchange(val + 100, bufs,
+                             **({"flush": flush[1]} if kw else {}))
+    return r1["fwd"], r2["fwd"], bufs["fwd"]
+
+
+def conduits_on_card():
+    """(a) the reference's staleness semantics on the card, and the card
+    equal to the CPU."""
+    ranks = torch.arange(8, dtype=torch.float32)
+    zeros = torch.zeros(8)
+    expect = {
+        AsyncMode.BARRIER_EVERY_STEP: (ranks.roll(1), (ranks + 100).roll(1)),
+        AsyncMode.BEST_EFFORT: (zeros, ranks.roll(1)),
+        AsyncMode.NO_COMM: (zeros, zeros),
+        AsyncMode.ROLLING_BARRIER: (zeros, (ranks + 100).roll(1)),
+        AsyncMode.FIXED_BARRIER: (zeros, (ranks + 100).roll(1)),
+    }
+    for mode, want in expect.items():
+        card = ring_exchanges(mode, "cuda")
+        cpu = ring_exchanges(mode, "cpu")
+        check(all(x.is_cuda for x in card), f"conduit {mode}: not on the card")
+        for i, (g, w) in enumerate(zip(card, want)):
+            check(torch.equal(g.cpu(), w),
+                  f"conduit {mode} exchange {i + 1}: {g.tolist()} != "
+                  f"{w.tolist()}")
+        for g, c in zip(card, cpu):
+            check(torch.equal(g.cpu(), c), f"conduit {mode}: card != CPU")
+    print("conduits on an 8-long ring, modes 0-4: the reference's staleness "
+          "semantics on the card, card == CPU", flush=True)
+
+
+def collectives_on_card():
+    """(b) ``exchange_gradients`` at 2 pods, modes 0-4, two steps each,
+    with ``test_gradient_exchange_modes``' values; ``cross_pod_sum`` with
+    int8 and with top-k on a real-width leaf, card == CPU bitwise.
+    Returns the compression kernels' launches in those sums."""
+    g = torch.tensor([1.0, 3.0], device="cuda")
+    expect = {AsyncMode.BARRIER_EVERY_STEP: ([2.0, 2.0], [20.0, 20.0]),
+              AsyncMode.BEST_EFFORT: ([0.5, 1.5], [6.5, 15.5])}
+    for mode in AsyncMode:
+        st = collectives.init_exchange_state(g, mode)
+        e1, st = collectives.exchange_gradients(g, st, mode)
+        e2, st = collectives.exchange_gradients(g * 10, st, mode)
+        want = expect.get(mode, ([1.0, 3.0], [10.0, 30.0]))
+        check(e1.is_cuda and (e1.tolist(), e2.tolist()) == want,
+              f"exchange_gradients {mode}: {e1.tolist()}, {e2.tolist()}, "
+              f"expected {want}")
+    print("exchange_gradients at 2 pods, modes 0-4, two steps: the "
+          "reference's values on the card", flush=True)
+    gen = torch.Generator().manual_seed(20)
+    leaf = torch.randn(SPMD_LEAF, generator=gen) * 10.0 ** (
+        -6 * torch.rand(SPMD_LEAF[:2] + (1,), generator=gen))
+    launched = {}
+    for comp in (Int8Compressor(), TopKCompressor()):
+        res_cpu = torch.zeros_like(leaf)
+        res_card = res_cpu.cuda()
+        want, _ = collectives.cross_pod_sum(leaf, 0, comp, res_cpu)
+        K.reset_launches()
+        got, _ = collectives.cross_pod_sum(leaf.cuda(), 0, comp, res_card)
+        torch.cuda.synchronize()
+        used = {k: v for k, v in K.LAUNCHES.items() if v}
+        launched.update(used)
+        name = type(comp).__name__
+        check(torch.equal(got.cpu(), want) and torch.equal(res_card.cpu(),
+                                                           res_cpu),
+              f"cross_pod_sum {name}: card != CPU")
+        check(tuple(got.shape) == SPMD_LEAF and got.stride(0) == 0,
+              f"cross_pod_sum {name}: total {tuple(got.shape)}")
+        print(f"cross_pod_sum {name} on {SPMD_LEAF}: card == CPU bitwise "
+              f"(total and residuals); launches {used}", flush=True)
+    check(launched == {"quantize": 2, "dequantize": 2, "topk_compress": 2},
+          f"cross_pod_sum launches {launched}")
+    return launched
+
+
+def spmd_run(mode, flush_every, steps, mesh_shape, block, dev, seed=0):
+    """``steps`` of ``spmd_step`` on ``dev``; returns (state, conflicts
+    (steps, R, C) int32, wall s)."""
+    rowc, colc = conduit.torus_conduits(("row", "col"), mode)
+    state = graphcolor.init_spmd_state(mesh_shape, block, SPMD_COLORS, rowc,
+                                       colc, seed=seed, device=dev)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    confs = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        flush = (None if flush_every is None else
+                 (state["step"] % flush_every) == flush_every - 1)
+        state, conf = graphcolor.spmd_step(state, rowc, colc, SPMD_B,
+                                           flush=flush)
+        confs.append(conf)
+    confs = torch.stack(confs)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return state, confs, time.perf_counter() - t0, (rowc, colc)
+
+
+def spmd_profile(state, conduits, flush_every, steps):
+    """torch.profiler over ``steps`` more steps (after one profiled step
+    that warms the profiler up): CUDA launches and device busy ms a step
+    and the busy share of the profiled wall time."""
+    rowc, colc = conduits
+    for n in (1, steps):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                flush = (None if flush_every is None else
+                         (state["step"] % flush_every) == flush_every - 1)
+                state, _ = graphcolor.spmd_step(state, rowc, colc, SPMD_B,
+                                                flush=flush)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    return profile_serve._summary(prof, wall, steps, "spmd_step")
+
+
+def spmd_breakdown(state, conduits):
+    """Where a best-effort step's device time goes at full size: the whole
+    step, its draws (``spmd_uniforms``) and its update (``update_block``
+    on given draws and halos), each timed alone (``device_ms``); the rest
+    is the exchange and the payloads."""
+    rowc, colc = conduits
+    shape = tuple(state["colors"].shape)
+    u = graphcolor.spmd_uniforms(state["key"], state["step"], shape, "cuda")
+    halo = {k: state["colors"][..., 0, :] for k in ("n", "s")}
+    halo.update({k: state["colors"][..., :, 0] for k in ("w", "e")})
+    parts = {
+        "step": lambda: graphcolor.spmd_step(state, rowc, colc, SPMD_B),
+        "draws": lambda: graphcolor.spmd_uniforms(
+            state["key"], state["step"], shape, "cuda"),
+        "update": lambda: graphcolor.update_block(
+            state["colors"], state["probs"], halo, SPMD_B, u),
+    }
+    ms = {k: device_ms(fn, runs=10)[0] for k, fn in parts.items()}
+    rest = ms["step"] - ms["draws"] - ms["update"]
+    print(f"spmd mode 3 device ms a step: whole {ms['step']:.4f}, draws "
+          f"{ms['draws']:.4f} ({ms['draws'] / ms['step']:.1%}), update "
+          f"{ms['update']:.4f} ({ms['update'] / ms['step']:.1%}), exchange "
+          f"and the rest {rest:.4f}", flush=True)
+
+
+def spmd_graphcolor():
+    """(c) graph coloring's SPMD step at full size: a (16, 16) mesh of
+    256 x 256 blocks (16.8 M nodes, 3 colors, b = 0.1).  The first
+    SPMD_CHECK_STEPS best-effort steps on the card equal the CPU's
+    bitwise; then SPMD_STEPS steps in modes 0, 3, 4 and 1 (flush every 8
+    steps), each timed and profiled; best effort must end with fewer
+    conflicts than it started with.  Then the reference's own size (2 x 2
+    of 16 x 16, 400 steps): best effort meets its criterion on the card."""
+    nodes = math.prod(SPMD_MESH) * math.prod(SPMD_BLOCK)
+    card = spmd_run(AsyncMode.BEST_EFFORT, None, SPMD_CHECK_STEPS,
+                    SPMD_MESH, SPMD_BLOCK, "cuda")
+    cpu = spmd_run(AsyncMode.BEST_EFFORT, None, SPMD_CHECK_STEPS,
+                   SPMD_MESH, SPMD_BLOCK, "cpu")
+    for k in ("colors", "probs", "step"):
+        check(torch.equal(card[0][k].cpu(), cpu[0][k]),
+              f"spmd_step: {k} differs between card and CPU")
+    check(torch.equal(card[1].cpu(), cpu[1]),
+          "spmd_step: conflicts differ between card and CPU")
+    print(f"spmd graph coloring {SPMD_MESH} x {SPMD_BLOCK} ({nodes:,} "
+          f"nodes): {SPMD_CHECK_STEPS} best-effort steps card == CPU "
+          f"bitwise (colors, probs, conflicts; CPU {cpu[2]:.1f} s)",
+          flush=True)
+    out = {}
+    for label, mode, flush_every in SPMD_RUNS:
+        state, confs, wall, conds = spmd_run(mode, flush_every, SPMD_STEPS,
+                                             SPMD_MESH, SPMD_BLOCK, "cuda")
+        per_dev = confs.double()
+        start = float(per_dev[:10].mean())
+        end = float(per_dev[-10:].mean())
+        prof = spmd_profile(state, conds, flush_every, SPMD_PROFILE_STEPS)
+        out[label] = rec = dict(
+            ms_per_step=wall * 1e3 / SPMD_STEPS,
+            node_updates_per_s=nodes * SPMD_STEPS / wall,
+            launches_per_step=prof["kernel_launches_per_call"],
+            device_busy_ms_per_step=prof["device_busy_ms_per_call"],
+            device_busy_share=prof["device_busy_share"],
+            conflicts_first10=start, conflicts_last10=end)
+        print(f"spmd {label}: {rec['ms_per_step']:.4f} ms a step, "
+              f"{rec['node_updates_per_s']:.4g} node updates/s, "
+              f"{rec['launches_per_step']:.1f} CUDA launches a step, device "
+              f"busy {rec['device_busy_ms_per_step']:.4f} ms a step "
+              f"({rec['device_busy_ms_per_step'] / rec['ms_per_step']:.1%} "
+              f"of the unprofiled step, {rec['device_busy_share']:.1%} of "
+              f"the profiled wall {prof['wall_ms_per_call']:.4f} ms), "
+              f"conflicts a device first 10 steps {start:.1f}, last 10 "
+              f"{end:.1f}", flush=True)
+        if label == "mode 3":
+            top = ", ".join(
+                f"{k['name'][:60]} x{k['launches'] / SPMD_PROFILE_STEPS:g} "
+                f"{k['ms_per_call']:.4f} ms" for k in prof["top_kernels"][:5])
+            print(f"spmd {label}: top kernels a step: {top}", flush=True)
+            spmd_breakdown(state, conds)
+    be = out["mode 3"]
+    check(be["conflicts_last10"] < be["conflicts_first10"],
+          f"spmd best effort did not reduce conflicts: {be}")
+    _, confs, wall, _ = spmd_run(AsyncMode.BEST_EFFORT, None, 400, (2, 2),
+                                 (16, 16), "cuda")
+    start, end = float(confs[:10].double().mean()), \
+        float(confs[-10:].double().mean())
+    check(end < 0.3 * start,
+          f"spmd at the reference's size: last 10 {end} >= 0.3 x first 10 "
+          f"{start}")
+    print(f"spmd at the reference's size (2 x 2 of 16 x 16, 400 steps, best "
+          f"effort): conflicts a device {start:.2f} -> {end:.2f} (< 0.3 x), "
+          f"{wall * 1e3 / 400:.4f} ms a step", flush=True)
+    return out
+
+
+@phase("spmd")
+def spmd():
+    """The SPMD tools on the card: (a) the conduits, (b) the collectives,
+    (c) graph coloring's spmd_step at full size.  Returns the compression
+    kernels' launches in (b)."""
+    conduits_on_card()
+    launched = collectives_on_card()
+    spmd_graphcolor()
+    return launched
+
+
 #: each kernel entry point of the kernels JSON line: (name, kernel source
 #: key, TPU kernel it replaces)
 ENTRIES = (
@@ -3285,6 +3576,7 @@ def main():
     launched.update(xlstm_train_full_size())
     sharded_launched = sharded(full_sigs["graphcolor torus-4096 window"])
     service_launched = service()
+    spmd_launched = spmd()
     kernels_line = []
     for entry, kname, replaces in ENTRIES:
         rec = records[entry]
@@ -3303,7 +3595,9 @@ def main():
             **({"sharded_launches": sharded_launched[entry]}
                if entry in sharded_launched else {}),
             **({"service_launches": service_launched[entry]}
-               if service_launched.get(entry) else {})))
+               if service_launched.get(entry) else {}),
+            **({"spmd_launches": spmd_launched[entry]}
+               if spmd_launched.get(entry) else {})))
     print("phases: " + ", ".join(f"{p} {t:.1f}s" for p, t in PHASES))
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -7,10 +7,13 @@ its current color (factor b), renormalizes, and resamples; conflict-free
 nodes keep their color.  Colors are exchanged with neighboring fragments via
 best-effort channels (halo rows/cols) — stale halos are simply used as-is.
 
-Two implementations share the same math:
+Three implementations share the same math:
   - numpy fragments for the discrete-event runtime (fast on CPU);
   - ``BatchedGraphColor``, the whole population's step on torch tensors,
-    which the vectorized torch engine runs every lockstep window.
+    which the vectorized torch engine runs every lockstep window;
+  - ``spmd_step``, the in-graph form: one block per device of a 2-D mesh,
+    halos over the conduits of ``core/conduit.py``, every device's block
+    on one card as the mesh's leading dimensions.
 """
 from __future__ import annotations
 
@@ -465,3 +468,131 @@ class BatchedGraphColor:
             full[r * H:(r + 1) * H, c * W:(c + 1) * W] = colors[p]
         return float((full == np.roll(full, 1, 0)).sum()
                      + (full == np.roll(full, 1, 1)).sum())
+
+
+# ---------------------------------------------------------------------------
+# SPMD in-graph version (Conduit) — the reference's shard_map form, every
+# device of the mesh a leading tensor dimension on one card
+# ---------------------------------------------------------------------------
+#: stream tag of the SPMD step's counter-hash draws
+STREAM_SPMD = 0x53504D44
+
+
+def update_block(colors, probs, halo, b, u):
+    """The reference's ``jnp_update_block`` (same math, vectorized
+    full-block), batched over any leading (mesh) dimensions.
+
+    colors (..., H, W) int32, probs (..., H, W, C) float32, halo {"n",
+    "s": (..., W), "w", "e": (..., H)}, ``u`` the resample draws (..., H,
+    W) float32 (the reference draws them inside from its key).  Returns
+    (colors, probs, conflict mask)."""
+    C = probs.shape[-1]
+    up = torch.cat([halo["n"].unsqueeze(-2), colors[..., :-1, :]], dim=-2)
+    down = torch.cat([colors[..., 1:, :], halo["s"].unsqueeze(-2)], dim=-2)
+    left = torch.cat([halo["w"].unsqueeze(-1), colors[..., :, :-1]], dim=-1)
+    right = torch.cat([colors[..., :, 1:], halo["e"].unsqueeze(-1)], dim=-1)
+    conflict = ((colors == up) | (colors == down)
+                | (colors == left) | (colors == right))
+
+    onehot = (colors.unsqueeze(-1) == torch.arange(
+        C, dtype=colors.dtype, device=colors.device)).to(torch.float32)
+    # failure: decay + redistribute a b-fraction over the other colors; the
+    # division by C - 1 is the product with its float32 reciprocal, as XLA
+    # compiles the reference's division by that constant (and as CUDA
+    # divides by a scalar)
+    inv = float(np.float32(1) / np.float32(C - 1))
+    fail_p = (1 - b) * probs + b * (1 - onehot) * inv
+    new_probs = torch.where(conflict.unsqueeze(-1), fail_p, onehot)
+
+    # the cumulative sum over the colour axis as sequential adds, so the
+    # summation order is pinned on every device
+    acc = new_probs[..., 0]
+    below = (u > acc).to(torch.int32)
+    for k in range(1, C):
+        acc = acc + new_probs[..., k]
+        below = below + (u > acc).to(torch.int32)
+    # clip: the float32 running sum can end a few ulps below 1
+    sampled = torch.clamp(below, max=C - 1).to(colors.dtype)
+    new_colors = torch.where(conflict, sampled, colors)
+    return new_colors, new_probs, conflict
+
+
+def spmd_uniforms(seed, step, shape, device) -> torch.Tensor:
+    """The SPMD step's resample draws for blocks of ``shape`` (..., H, W)
+    on ``device``: the counter hash keyed by seed, step (an int or a 0-dim
+    integer tensor), device index (row-major over the leading mesh
+    dimensions) and cell."""
+    from repro_torch.runtime.window_core import hash_uniform
+    *lead, H, W = shape
+    dev = torch.arange(math.prod(lead), dtype=torch.int32, device=device
+                       ).reshape(*lead, 1, 1)
+    cell = torch.arange(H * W, dtype=torch.int32, device=device).reshape(H, W)
+    return hash_uniform(seed, STREAM_SPMD, step, dev, cell)
+
+
+def init_spmd_state(mesh_shape, block, n_colors, row_conduit, col_conduit,
+                    *, seed: int = 0, device="cuda") -> dict:
+    """The state ``spmd_step`` takes for a (R, C) mesh of (H, W) blocks:
+    colors drawn uniformly from the counter hash (step -1 of the draws),
+    probabilities uniform, zeroed conduit buffers, ``key`` the seed and
+    ``step`` 0 on ``device`` (the card unless the caller asks for the
+    CPU)."""
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    H, W = block
+    shape = (*mesh_shape, H, W)
+    u = spmd_uniforms(seed, -1, shape, dev)
+    colors = torch.clamp((u * n_colors).to(torch.int32), max=n_colors - 1)
+    z = dict(dtype=torch.int32, device=dev)
+    return {
+        "colors": colors,
+        "probs": torch.full(shape + (n_colors,), 1.0 / n_colors,
+                            dtype=torch.float32, device=dev),
+        "bufs_row": row_conduit.init_buffers(
+            torch.zeros((*mesh_shape, 2, W), **z)),
+        "bufs_col": col_conduit.init_buffers(
+            torch.zeros((*mesh_shape, 2, H), **z)),
+        "key": seed, "step": torch.zeros((), **z),
+    }
+
+
+def spmd_step(state, row_conduit, col_conduit, b, flush=None, u=None):
+    """One best-effort SPMD update of every device's block: the
+    reference's ``spmd_step`` over all devices of a 2-D mesh at once.
+
+    state: {"colors" (R, C, H, W) int32, "probs" (R, C, H, W, n) float32,
+    "bufs_row", "bufs_col", "key", "step"} — device (r, c)'s block is
+    ``colors[r, c]``; halos travel over the conduits (``torus_conduits``:
+    rows dimension 0, columns dimension 1) with their mode's semantics.
+    The draws differ from the reference's: it splits a threefry key per
+    device every step, the port draws ``spmd_uniforms(key, step, ...)``
+    (``key`` is the seed and stays as it is), so the card and the CPU give
+    the same bits.  ``u`` (R, C, H, W), where given, replaces the draws
+    (the tests feed the reference's).  Returns (state, conflicts per
+    device (R, C) int32).
+    """
+    colors, probs = state["colors"], state["probs"]
+    # publish edges; conduits deliver per their mode (fresh/stale/never)
+    row_payload = torch.stack([colors[..., 0, :], colors[..., -1, :]],
+                              dim=-2)                      # my n/s edges
+    col_payload = torch.stack([colors[..., :, 0], colors[..., :, -1]],
+                              dim=-2)                      # my w/e edges
+    rec_row, bufs_row = row_conduit.exchange(row_payload, state["bufs_row"],
+                                             flush=flush)
+    rec_col, bufs_col = col_conduit.exchange(col_payload, state["bufs_col"],
+                                             flush=flush)
+    halo = {
+        "n": rec_row["north"][..., 1, :],  # north neighbor's south edge
+        "s": rec_row["south"][..., 0, :],
+        "w": rec_col["west"][..., 1, :],
+        "e": rec_col["east"][..., 0, :],
+    }
+    if u is None:
+        u = spmd_uniforms(state["key"], state["step"], colors.shape,
+                          colors.device)
+    new_colors, new_probs, conflict = update_block(colors, probs, halo, b, u)
+    return {
+        "colors": new_colors, "probs": new_probs,
+        "bufs_row": bufs_row, "bufs_col": bufs_col,
+        "key": state["key"], "step": state["step"] + 1,
+    }, conflict.sum(dim=(-2, -1), dtype=torch.int32)

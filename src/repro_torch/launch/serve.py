@@ -1,8 +1,9 @@
 """Serving entry point: batched prefill, then greedy decode.
 
-The counterpart of src/repro/launch/serve.py (its step factories) and
-examples/serve_lm.py (its driver); the reference's cache sharding rules
-wait for the mesh slice.  A server builds the LM from a seed, casts it to
+The counterpart of src/repro/launch/serve.py (its step factories, its
+cache spec rules over the port's per-layer caches, its serve input specs
+as meta tensors) and examples/serve_lm.py (its driver).  A server builds
+the LM from a seed, casts it to
 the compute dtype once, prefills a batch of random prompts, allocates each
 attention layer's KV cache to ``prompt + tokens`` positions with the
 prefill's k/v in front (a Mamba layer's cache is its state, as the prompt
@@ -74,6 +75,71 @@ def make_decode_step(model: lm.LM, write_idx: int):
     def decode_step(tokens, caches):
         return lm.decode_step(model, tokens, caches, write_idx)
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Cache spec rules
+# ---------------------------------------------------------------------------
+def _cache_rule(name: str, shape) -> tuple:
+    """The reference's rule for a cache leaf of ``shape`` in ITS layout,
+    stacked over periods (P, ...)."""
+    nd = len(shape)
+    if name in ("k", "v") and nd == 5:          # attn KV (P,B,S,KH,hd)
+        return (None, "dp", "sp", None, None)
+    if name == "C" and nd == 5:                  # mlstm matrix memory
+        return (None, "dp", None, None, "tp")
+    if name == "conv" and nd == 4:               # mamba/mlstm conv window
+        return (None, "dp", None, "tp")
+    if name == "h" and nd == 4:
+        # mamba h (P,B,di,N): tiny state dim last; slstm h (P,B,H,hd)
+        if shape[-1] <= 64:
+            return (None, "dp", "tp", None)
+        return (None, "dp", None, "tp")
+    if name in ("c", "n", "h", "m") and nd == 4:  # slstm / mlstm vectors
+        return (None, "dp", None, "tp")
+    if name == "m" and nd == 3:                   # mlstm stabilizer (P,B,H)
+        return (None, "dp", None)
+    return (None,) * nd
+
+
+def cache_specs(cfg, caches_like, rules) -> List[dict]:
+    """Specs for the port's caches, one dict a layer (``init_caches``;
+    meta tensors do): layer i's leaf gets the reference's spec of its
+    period-stacked leaf without the period entry, which is None."""
+    from repro_torch.launch.sharding import resolve_spec
+    return [{name: resolve_spec(
+        leaf.shape, _cache_rule(name, (1,) + tuple(leaf.shape))[1:], rules)
+        for name, leaf in layer.items()} for layer in caches_like]
+
+
+def abstract_caches(cfg, batch: int, seq: int, dtype=torch.bfloat16):
+    """``init_caches`` on the meta device: shapes and dtypes, no memory."""
+    from repro_torch.models.transformer import init_caches
+    return init_caches(cfg, batch, seq, dtype, device="meta")
+
+
+def serve_input_specs(cfg, shape_cfg, rules):
+    """(meta tensors, specs) for the serve path's inputs."""
+    from repro_torch.models.modality import frontend_input_name
+    from repro_torch.models.partitioning import P
+    B, S = shape_cfg.global_batch, shape_cfg.seq_len
+    meta = dict(device="meta")
+    dp = rules.roles["dp"] or None
+    if shape_cfg.kind == "prefill":
+        inputs = {"tokens": torch.empty((B, S), dtype=torch.int32, **meta)}
+        specs = {"tokens": P(dp, None)}
+        if cfg.frontend:
+            name = frontend_input_name(cfg)
+            inputs[name] = torch.empty((B, cfg.frontend_len, cfg.d_model),
+                                       dtype=torch.bfloat16, **meta)
+            specs[name] = P(dp, None, None)
+        return inputs, specs
+    assert shape_cfg.kind == "decode"
+    caches = abstract_caches(cfg, B, S)
+    inputs = {"tokens": torch.empty((B, 1), dtype=torch.int32, **meta),
+              "caches": caches}
+    specs = {"tokens": P(dp, None), "caches": cache_specs(cfg, caches, rules)}
+    return inputs, specs
 
 
 def resolve_config(arch: str, dtype: Optional[str] = None) -> ModelConfig:

@@ -65,6 +65,7 @@ from repro_torch import checkpoint as ckpt_mod
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.smoke import reduce_for_smoke
+from repro_torch.core import collectives
 from repro_torch.core.modes import AsyncMode
 from repro_torch.data.pipeline import Pipeline
 from repro_torch.data.synthetic import DataConfig
@@ -132,20 +133,13 @@ def make_compressor(spec: TrainSpec):
 
 def _compressed_total(g: torch.Tensor, res: torch.Tensor, comp
                       ) -> torch.Tensor:
-    """One leaf's cross-pod sum with a lossy payload: each pod encodes
-    its gradient plus its residual (its new residual is written into
-    ``res`` in place), and the pods' payloads are decoded and summed, pod
-    by pod.  Returns the total, (1, ...)."""
-    carry = g + res
-    payloads = []
-    for p in range(g.shape[0]):
-        payload, new_res = comp.encode(carry[p])
-        res[p].copy_(new_res)
-        payloads.append(payload)
-    del carry
-    gathered = {name: torch.stack([pl[name] for pl in payloads])
-                for name in payloads[0]}
-    return comp.decode_sum(gathered, g.shape[1:], g.dtype)[None]
+    """One leaf's cross-pod sum with a lossy payload, through
+    ``collectives.cross_pod_sum``: each pod encodes its gradient plus its
+    residual (its new residual is written into ``res`` in place), and the
+    pods' payloads are decoded and summed, pod by pod.  Returns the total,
+    (1, ...)."""
+    total, _ = collectives.cross_pod_sum(g, 0, comp, res)
+    return total[:1]
 
 
 # ---------------------------------------------------------------------------

@@ -148,6 +148,18 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> Dict[str, torch.Tensor]
     return flatten(unflatten(flat))
 
 
+def abstract_params(cfg) -> Dict[str, torch.Tensor]:
+    """``init_params``' leaves as meta tensors: their shapes and dtypes,
+    built under ``FakeTensorMode``, so nothing is allocated (the
+    reference's ``abstract_params``, ``jax.eval_shape``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fake = init_params(cfg, device="cpu")
+        shapes = {k: (tuple(v.shape), v.dtype) for k, v in fake.items()}
+    return {k: torch.empty(s, dtype=d, device="meta")
+            for k, (s, d) in shapes.items()}
+
+
 def cast_leaves(params: Dict[str, torch.Tensor], cfg
                 ) -> Dict[str, torch.Tensor]:
     """One cast of the float32 leaves to ``cfg.dtype`` under the

@@ -92,10 +92,10 @@ def main(argv=None) -> dict:
     calls = max(1, a.windows // W)
     real_hop, hops = mesh.hop, [0]
 
-    def hop(x, off):
+    def hop(x, off, dim=0):
         hops[0] += 1
         with record_function("mesh.hop"):
-            return real_hop(x, off)
+            return real_hop(x, off, dim)
 
     mesh.hop = hop
     try:

@@ -338,10 +338,14 @@ class WindowCore:
                     flap_period, dead):
         """Per-edge typed-fault send masks: ``(loss_kill, dead_kill)``,
         disjoint bool masks (dead wins), keyed by canonical edge id and
-        sender step count (loss) / sender-time bucket (flap)."""
+        sender step count (loss) / sender-time bucket (flap).  The bucket
+        multiplies by the float32 reciprocal of the period, as XLA
+        compiles the reference's division by that constant (see
+        :func:`arrival_bin_index`)."""
         lost = (loss > 0) & (
             hash_uniform(seed, STREAM_LOSS, eids, steps_src) < loss)
-        bucket = torch.floor(t_src / _f32(flap_period)).to(torch.int32)
+        inv = _f32(np.float32(1) / np.float32(flap_period))
+        bucket = torch.floor(t_src * inv).to(torch.int32)
         flap_down = (flap > 0) & (
             hash_uniform(seed, STREAM_FLAP, eids, bucket) < flap)
         return (lost | flap_down) & ~dead, dead
