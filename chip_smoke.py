@@ -80,18 +80,18 @@ phase fails:
                ``mlstm_attention_backward`` at xlstm-125m's training shape
                (4, 2048, 4, 384) bf16 and at hd 64, 128 and 384 in bf16
                and float32 at S = 2047
-  4. oracle    dyadic 16-process scenarios on both duct layouts: the torch
-               engine on the card gives the event simulator's
-               ``qos_signature``
+  4. oracle    dyadic 16-process scenarios (2**-8 s) on both duct
+               layouts: the torch engine on the card gives the event
+               simulator's ``qos_signature``
   5. card=cpu  torus-1024 (64 simels, L=8), smallworld-1024, torus-1024 on
                the edge layout, and evo on a 64-process torus (dense, W=4,
                edge) on the card (kernels) and on the CPU (plain
-               versions): equal SimResults
+               versions), dyadic at 2**-9 s: equal SimResults
   6. full size graph coloring on the torus 64x64 = 4096 processes, 1
                simel, buffer 64, duration 0.02, best-effort: per-window
                dense, --superstep-windows 8 and --layout edge (all three
                equal); evo at the paper's 3600 cells per process on the
-               torus-1024, duration 0.005: per-window dense,
+               torus-1024, duration 0.0025: per-window dense,
                --superstep-windows 8 and --layout edge (all three equal).
                Launch counters are zeroed just before each path and read
                just after it; an edge window is one ``drain`` and one
@@ -190,7 +190,7 @@ phase fails:
                peak printed; then one step profiled
                (``profile_train.profile_step``)
   17. xlstm train full size  xlstm-125m at full width, phase 12's
-               6 layers, through ``train_run``:
+               6 layers, through ``train_run`` (2 steps):
                mode 3 with top-k, 5 ``mlstm_attention_backward`` launches
                a step, falling loss; one sLSTM layer's training work
                profiled (its Python loop's launches and busy share)
@@ -200,13 +200,13 @@ phase fails:
                (phase 5's torus-1024 under the window, W=8 superstep and
                W=8 pipelined schedulers, evo on torus-64); phase 6's
                torus-4096 at 8 shards equals its unsharded result, then
-               W=8 superstep, W=8 pipelined and 64 shards (all 0.02 s):
+               W=8 superstep, W=8 pipelined and 64 shards (0.005 s):
                windows executed and needed, duct launches a window (the
                edge-major ``drain`` and ``send`` only), hops a superstep,
                bytes a hop; the paper's faulty
-               node (cliques-256, 8 shards, W=8, through the CLI's faults
-               family): the clique's and the global median QoS beside the
-               fault-free run
+               node (cliques-256, 8 shards, W=8, 0.005 s, through the CLI's
+               faults family): the clique's and the global median QoS
+               beside the fault-free run
   19. service  the live-service path (open-loop arrivals, churn epochs,
                SLO verdicts): the dyadic serve scenarios (poisson, diurnal,
                bursty under the rolling barrier) on torus-16, dense and
@@ -214,8 +214,9 @@ phase fails:
                ``qos_signature``; ``run_service`` with churn 2 and two
                replicates on the card equals the CPU's whole output dict
                (graph coloring on torus-1024, evo on torus-64 with 16
-               cells; dense, W=4 and edge); at full width through ``--family serve`` (graph
-               coloring on torus-4096, 1 simel, buffer 64, duration 0.02,
+               cells; dense, W=4 and edge, all three equal on the
+               card); at full width through ``--family serve`` (graph
+               coloring on torus-4096, 1 simel, buffer 64, duration 0.01,
                ``--arrival-rate 1e5``): bursty traffic with churn 2 (five
                epochs: a host fault and heal, a process leave and
                rejoin), dense equal to edge, and poisson with churn 1 at 8
@@ -242,22 +243,42 @@ phase fails:
                steps (best effort must fall); at the reference's own size
                (2 x 2 of 16 x 16, 400 steps) best effort meets its
                criterion (last 10 < 0.3 x first 10)
+  21. replicates  batched replicates, a sweep of seeds in one carry: (a)
+               the weak-scaling sweep through the CLI, ``--procs 256
+               --replicates 32`` (8192 processes in one carry; duration
+               cut to 0.0005), then the same seeds through the sequential
+               loop, every SimResult field equal; wall s, duct launches a
+               window and busy share of both; seeds of phase 4's lossy
+               torus-16 that stop in different windows, one window a
+               chunk: each replicate equals its own run; (b) phase 6's graph
+               coloring torus-4096 (0.02 s) at R = 8, dense window and W =
+               8: duct launches a window equal phase 6's R = 1, ms a
+               window and updates/s summed over the replicates beside
+               phase 6's (W = 8 at 0.005 s); card == CPU at R = 3 on
+               graph coloring torus-256 (int32) and evo torus-64
+               (float32); (c) torus-4096 at R = 4 (0.0025 s): 8 shards ==
+               unsharded, every SimResult field; then the duct kernels at
+               the shapes one launch covers there, against their plain
+               versions, with their bounds
 
 It imports nothing of JAX or of the JAX package.  The line before the last
 is a JSON object with one record per kernel and float32 entry point (the
 edge-major drain and send add ``sharded_launches``, their launches on
 phase 18's 8-shard torus-4096 run; the duct entries add
 ``service_launches``, their launches in phase 19's runs on the card; the
-compression kernels add ``spmd_launches``, theirs in phase 20's sums); the
-last line is ``{"ok": true, "device": {...}}``.
+compression kernels add ``spmd_launches``, theirs in phase 20's sums; the
+dense duct entries add ``replicates_launches``, theirs in phase 21 (b));
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -565,7 +586,7 @@ def one_launch(kernel, label, run, route):
     return out
 
 
-def device_ms(fn, runs=20, warmup=3):
+def device_ms(fn, runs=10, warmup=3):
     """(device time per call, how it was taken).  The CUDA kernel time
     torch.profiler records over ``runs`` calls, divided by ``runs``:
     host-side launch overhead is excluded, so a small kernel is not timed
@@ -601,7 +622,7 @@ def device_ms(fn, runs=20, warmup=3):
     return ms, "events"
 
 
-def call_ms(fn, runs=30, warmup=3):
+def call_ms(fn, runs=15, warmup=3):
     """Median time per call between CUDA events around it, host launch
     overhead included (what the engine pays per call)."""
     for _ in range(warmup):
@@ -714,9 +735,9 @@ def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
                         f"{tol} (max |difference| {err:.3g})")
         agree = f"max |difference| {err:.3g} within rtol, atol = {tol}"
     ms, ms_by = device_ms(run_kernel)
-    plain, plain_by = device_ms(run_plain, runs=plain_runs or 20)
+    plain, plain_by = device_ms(run_plain, runs=plain_runs or 10)
     call = call_ms(run_kernel)
-    plain_call = call_ms(run_plain, runs=plain_runs or 30)
+    plain_call = call_ms(run_plain, runs=plain_runs or 15)
     lib, lib_by = device_ms(library) if library is not None else (None, None)
     moved = (nbytes(*inputs) if read is None else read) + \
         (nbytes(*got) if written is None else written)
@@ -1464,13 +1485,19 @@ ORACLE_SCENARIOS = (
 )
 
 
+#: the oracle runs' horizon: half the dyadic configs' 2**-7 (cut for the
+#: script's time limit)
+ORACLE_DURATION = 2.0 ** -8
+
+
 def oracle_on_card(layouts=("dense", "edge"), **kw):
     """Phase 4's scenarios on ``layouts`` on the card (``kw``: more
     RunConfig fields): each ``qos_signature`` must be the event
     simulator's, quality excluded."""
     for name, topology, mode, fault, tau in ORACLE_SCENARIOS:
         seed = case_seed(topology)
-        cfg = dyadic_cfg(mode=mode, seed=seed, barrier_timeout=tau)
+        cfg = dyadic_cfg(mode=mode, seed=seed, barrier_timeout=tau,
+                         duration=ORACLE_DURATION)
 
         def faults():
             return fault(make_topology(topology, 16)) if fault else None
@@ -1500,6 +1527,11 @@ def oracle():
 # ---------------------------------------------------------------------------
 # 5. end to end, card vs CPU
 # ---------------------------------------------------------------------------
+#: the card = CPU runs' horizon: a quarter of the dyadic configs' 2**-7
+#: (cut for the script's time limit; ~130 windows a run)
+CARD_CPU_DURATION = 2.0 ** -9
+
+
 @phase("card_vs_cpu")
 def card_vs_cpu():
     card_equals_cpu([("graphcolor", "torus", 1024, 64, {}),
@@ -1516,7 +1548,7 @@ def card_equals_cpu(cases):
     quality included."""
     for app_name, topology, n, simels, kw in cases:
         seed = case_seed(topology)
-        cfg = dyadic_cfg(seed=seed)
+        cfg = dyadic_cfg(seed=seed, duration=CARD_CPU_DURATION)
         label = (f"{app_name} {topology}-{n} simels={simels} "
                  f"{json.dumps(kw)}")
         sig = {}
@@ -1544,19 +1576,29 @@ def card_equals_cpu(cases):
 # ---------------------------------------------------------------------------
 # 6. full size: the paper's experiments at full width
 # ---------------------------------------------------------------------------
-def drive(label, app_name, n, simels, duration, kw, chunk=256):
-    """One main-path run through the CLI's configuration, with the launch
-    counters set to 0 just before it and read just after it."""
+#: each ``drive`` run's windows, wall s, updates and duct launches, by label
+DRIVEN = {}
+
+
+def drive_engine(app_name, n, simels, duration, kw, chunk=256):
+    """The engine of one main-path run through the CLI's configuration
+    (torus, buffer 64, best effort)."""
     argv = ["--engine", "torch", "--device", "cuda", "--topology", "torus",
             "--procs", str(n), "--simels", str(simels), "--buffer", "64",
             "--duration", str(duration)]
     args = experiments.build_parser().parse_args(argv)
     cfg = experiments._sim_config(args, n)
-    eng = make_engine(RunConfig(engine="torch", **kw),
-                      experiments.make_app(app_name, n, simels,
-                                           make_topology("torus", n),
-                                           args.seed), cfg,
-                      chunk=chunk, device="cuda")
+    return make_engine(RunConfig(engine="torch", **kw),
+                       experiments.make_app(app_name, n, simels,
+                                            make_topology("torus", n),
+                                            args.seed), cfg,
+                       chunk=chunk, device="cuda"), args.seed
+
+
+def drive(label, app_name, n, simels, duration, kw, chunk=256):
+    """One main-path run through the CLI's configuration, with the launch
+    counters set to 0 just before it and read just after it."""
+    eng, _ = drive_engine(app_name, n, simels, duration, kw, chunk)
     torch.cuda.synchronize()
     K.reset_launches()
     t0 = time.perf_counter()
@@ -1574,6 +1616,8 @@ def drive(label, app_name, n, simels, duration, kw, chunk=256):
           f"{res.delivery_failure_rate:.4f}, quality {res.quality}, "
           f"launches {launches}, routes {routes}", flush=True)
     print(f"full size {label} QoS medians: {json.dumps(med)}", flush=True)
+    DRIVEN[label] = dict(windows=windows, wall=wall, updates=updates,
+                         launches=launches)
     return res, windows, launches, routes
 
 
@@ -1591,13 +1635,13 @@ def full_size():
          {"superstep_windows": 8}, 256, "duct_commit"),
         ("graphcolor torus-4096 edge", "graphcolor", 4096, 1, 0.02,
          {"layout": "edge"}, 256, "duct_exchange"),
-        # evo cut to 0.005 virtual s (about 300 updates per process) and
+        # evo cut to 0.0025 virtual s (about 150 updates per process) and
         # probed every 64 windows: a window costs tens of ms here
-        ("evo torus-1024 3600 cells window", "evo", 1024, 3600, 0.005, {},
+        ("evo torus-1024 3600 cells window", "evo", 1024, 3600, 0.0025, {},
          64, "duct_window"),
-        ("evo torus-1024 3600 cells superstep8", "evo", 1024, 3600, 0.005,
+        ("evo torus-1024 3600 cells superstep8", "evo", 1024, 3600, 0.0025,
          {"superstep_windows": 8}, 64, "duct_commit"),
-        ("evo torus-1024 3600 cells edge", "evo", 1024, 3600, 0.005,
+        ("evo torus-1024 3600 cells edge", "evo", 1024, 3600, 0.0025,
          {"layout": "edge"}, 64, "duct_exchange"),
     ]
     sigs, launched = {}, {}
@@ -2500,9 +2544,12 @@ def profiled(label, model, prompts, frontend_embeds=None):
 
 #: every full-width training run: steps, batch, sequence length
 TRAIN_RUN_STEPS, TRAIN_RUN_B, TRAIN_RUN_S = 6, 4, 2048
+#: xlstm-125m's training steps (fewer than TRAIN_RUN_STEPS for the
+#: script's time limit: a step takes ~6 s, host-bound in the sLSTM loops)
+XLSTM_TRAIN_STEPS = 2
 
 
-def train_run(label, cfg, spec):
+def train_run(label, cfg, spec, steps=None):
     """``train.run_training`` of ``cfg`` at batch TRAIN_RUN_B x TRAIN_RUN_S
     for TRAIN_RUN_STEPS steps, one pod, on the card, the launch counters
     zeroed just before and read just after: exact launches
@@ -2511,7 +2558,7 @@ def train_run(label, cfg, spec):
     ``tma`` routes, each leaf's top-k on its own), finite and falling loss,
     finite aux losses.  Prints the ``[train]`` line; returns (launches,
     history, steady ms a step after step 1)."""
-    steps = TRAIN_RUN_STEPS
+    steps = steps or TRAIN_RUN_STEPS
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
@@ -2836,7 +2883,7 @@ def xlstm_train_full_size():
                            adamw=AdamWConfig(lr=3e-3, warmup_steps=20,
                                              total_steps=TRAIN_RUN_STEPS))
     launches, _, steady = train_run(f"xlstm-125m {XLSTM_LAYERS} layers",
-                                    cfg, spec)
+                                    cfg, spec, steps=XLSTM_TRAIN_STEPS)
     rec = profile_train.profile_slstm(cfg, TRAIN_RUN_B, SLSTM_PROFILE_S,
                                       torch.device("cuda"))
     n = rec["slstm_layers_per_step"]
@@ -2867,10 +2914,10 @@ class HopCounter:
     def __enter__(self):
         real = self._real = mesh.hop
 
-        def counting(x, off):
+        def counting(x, off, dim=0):
             self.calls += 1
             self.bytes += x.numel() * x.element_size()
-            return real(x, off)
+            return real(x, off, dim)
 
         mesh.hop = counting
         return self
@@ -2879,7 +2926,13 @@ class HopCounter:
         mesh.hop = self._real
 
 
-def drive_sharded(label, kw):
+#: phase 18's horizon after its unsharded comparison (cut from 0.02 for
+#: the script's time limit): the other schedulers, 64 shards and the
+#: faulty node
+SHARDED_DEPTH = 0.005
+
+
+def drive_sharded(label, kw, duration=0.02):
     """Phase 6's graph-coloring torus-4096 (duration 0.02, probed every 256
     windows) through ``drive`` with the sharded engine's RunConfig fields
     ``kw``: the edge-major drain and send launch once a window phase over
@@ -2889,7 +2942,7 @@ def drive_sharded(label, kw):
     a window, hops a superstep and bytes a hop."""
     with HopCounter() as hops:
         res, windows, launches, routes = drive(label, "graphcolor", 4096, 1,
-                                               0.02, kw)
+                                               duration, kw)
     w = kw.get("superstep_windows", 1)
     supersteps = windows // w
     used = launches["duct_exchange"]
@@ -2946,14 +2999,16 @@ def sharded(window_sig):
           "torus-4096: 8 shards differ from phase 6's unsharded run")
     print("graphcolor torus-4096: 8 shards == unsharded per-window (full "
           "SimResult incl. quality)", flush=True)
-    # the other schedulers and shard counts at the same horizon and chunk,
-    # so every run executes as many windows: timed and counted, not compared
+    # the other schedulers and shard counts at one shorter horizon
+    # (SHARDED_DEPTH, cut for the script's time limit) and one chunk, so
+    # every run executes as many windows: timed and counted, not compared
     for label, kw in (
             ("8 shards superstep8", {"shards": 8, "superstep_windows": 8}),
             ("8 shards pipelined8", {"shards": 8, "superstep_windows": 8,
                                      "scheduler": "pipelined"}),
             ("64 shards window", {"shards": 64})):
-        drive_sharded(f"graphcolor torus-4096 {label}", kw)
+        drive_sharded(f"graphcolor torus-4096 {label}", kw,
+                      duration=SHARDED_DEPTH)
     faulty_node()
     return {"duct_exchange_drain": routes["duct_exchange/drain"],
             "duct_exchange_send": routes["duct_exchange/send"]}
@@ -2961,12 +3016,12 @@ def sharded(window_sig):
 
 def faulty_node():
     """The paper's faulty node through the CLI's faults family: cliques-256
-    at 8 shards, W=8, duration 0.01, one host degraded (compute and links
-    30x): the faulty clique's and the global median QoS, without and with
-    it."""
+    at 8 shards, W=8, duration SHARDED_DEPTH, one host degraded (compute
+    and links 30x): the faulty clique's and the global median QoS, without
+    and with it."""
     argv = ["--family", "faults", "--engine", "torch", "--device", "cuda",
             "--topology", "cliques", "--procs", "256", "--shards", "8",
-            "--superstep-windows", "8", "--duration", "0.01"]
+            "--superstep-windows", "8", "--duration", str(SHARDED_DEPTH)]
     K.reset_launches()
     t0 = time.perf_counter()
     rows = experiments.main(argv)
@@ -3012,17 +3067,18 @@ SERVE_CASES = (("poisson", AsyncMode.BEST_EFFORT),
 
 class ServeMeter:
     """While installed, times a serve run's windows (the torch engines'
-    ``run_carry``, less the arrival tables built inside it) and its
+    ``run_batch``, less the arrival tables built inside it) and its
     arrival tables (``cum_arrivals``), and sums the updates, the windows
-    executed and the windows the epochs needed (each replicate's busiest
-    process's updates)."""
+    executed (a batch's windows once for each of its replicates) and the
+    windows the epochs needed (each replicate's busiest process's
+    updates)."""
 
     def __enter__(self):
         self.windows_s = self.tables_s = 0.0
         self.updates = self.windows = self.needed = 0
         self._saved = [(engine_torch, "cum_arrivals"),
-                       (engine_torch.TorchEngine, "run_carry"),
-                       (ShardedTorchEngine, "run_carry"),
+                       (engine_torch.TorchEngine, "run_batch"),
+                       (ShardedTorchEngine, "run_batch"),
                        (engine_torch.TorchEngine, "run_replicates")]
         self._saved = [(o, a, o.__dict__[a]) for o, a in self._saved]
         real_table = engine_torch.cum_arrivals
@@ -3034,15 +3090,15 @@ class ServeMeter:
             return out
 
         def timed(real):
-            def run_carry(eng, seed):
+            def run_batch(eng, seeds):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                carry, windows = real(eng, seed)
+                carry, windows = real(eng, seeds)
                 torch.cuda.synchronize()
                 self.windows_s += time.perf_counter() - t0
-                self.windows += windows
+                self.windows += windows * len(seeds)
                 return carry, windows
-            return run_carry
+            return run_batch
 
         real_reps = engine_torch.TorchEngine.run_replicates
 
@@ -3054,9 +3110,9 @@ class ServeMeter:
             return out
 
         engine_torch.cum_arrivals = cum_arrivals
-        engine_torch.TorchEngine.run_carry = timed(
-            engine_torch.TorchEngine.run_carry)
-        ShardedTorchEngine.run_carry = timed(ShardedTorchEngine.run_carry)
+        engine_torch.TorchEngine.run_batch = timed(
+            engine_torch.TorchEngine.run_batch)
+        ShardedTorchEngine.run_batch = timed(ShardedTorchEngine.run_batch)
         engine_torch.TorchEngine.run_replicates = run_replicates
         return self
 
@@ -3111,7 +3167,7 @@ def serve_card_equals_cpu(launched):
     process leave and rejoin; two replicates; app state carried;
     duration 2**-9) on the card and on the CPU: the whole output dict
     equal, on graph coloring's torus-1024 and evo's torus-64, dense per
-    window, W=4 and edge."""
+    window, W=4 and edge; and dense == W=4 == edge on the card."""
     seed = case_seed("torus")
     for app_name, n, simels in (("graphcolor", 1024, 1), ("evo", 64, 16)):
         topo = make_topology("torus", n)
@@ -3126,6 +3182,7 @@ def serve_card_equals_cpu(launched):
                                         topology, s,
                                         initial_state=init_state)
 
+        on_card = []
         for kw in ({}, {"superstep_windows": 4}, {"layout": "edge"}):
             label = f"serve {app_name} torus-{n} {json.dumps(kw)}"
             outs = {}
@@ -3153,6 +3210,11 @@ def serve_card_equals_cpu(launched):
                   f"{label}: card and CPU run_service outputs differ")
             print(f"{label}: card == CPU (the whole run_service dict)",
                   flush=True)
+            on_card.append(outs["cuda"])
+        check(on_card[0] == on_card[1] == on_card[2],
+              f"serve {app_name} torus-{n}: dense, W=4 and edge differ")
+        print(f"serve {app_name} torus-{n}: dense == W=4 == edge on the card "
+              "(the whole run_service dict)", flush=True)
 
 
 def serve_full_size(label, argv, launched):
@@ -3232,16 +3294,19 @@ def serve_hook_cost():
 @phase("service")
 def service():
     """The live-service path on the card: (a) the dyadic serve scenarios
-    against the event oracle; (b) ``run_service`` card = CPU; (c) the
-    torus-4096 at full width through ``--family serve``: bursty traffic
-    with churn 2 (five epochs: a host fault and heal, a process leave and
-    rejoin), dense = edge, and poisson with churn 1 at 8 shards =
-    unsharded; then the serve hook's launches and device time a window.
+    against the event oracle; (b) ``run_service`` card = CPU, and dense =
+    W=4 = edge; (c) the torus-4096 at full width through ``--family
+    serve``: bursty traffic with churn 2 (five epochs: a host fault and
+    heal, a process leave and rejoin), dense = edge, and poisson with
+    churn 1 at 8 shards = unsharded; then the serve hook's launches and
+    device time a window.
     Returns each duct entry's launches over (b) and (c)."""
     launched = {}
     serve_oracle_on_card()
     serve_card_equals_cpu(launched)
-    base = ["--traffic", "bursty", "--churn", "2"]
+    # both runs at 0.01 virtual s (cut from 0.02 for the script's time
+    # limit)
+    base = ["--traffic", "bursty", "--churn", "2", "--duration", "0.01"]
     dense = serve_full_size("bursty churn 2 dense", base, launched)
     edge = serve_full_size("bursty churn 2 edge", base + ["--layout", "edge"],
                            launched)
@@ -3253,7 +3318,7 @@ def service():
     check(dense == edge, "bursty churn 2: dense and edge outputs differ")
     print("serve torus-4096 bursty churn 2: dense == edge (the whole "
           "run_service dict)", flush=True)
-    base = ["--traffic", "poisson", "--churn", "1"]
+    base = ["--traffic", "poisson", "--churn", "1", "--duration", "0.01"]
     one = serve_full_size("poisson churn 1 unsharded", base, launched)
     eight = serve_full_size("poisson churn 1 8 shards",
                             base + ["--shards", "8"], launched)
@@ -3552,6 +3617,294 @@ ENTRIES = (
 )
 
 
+# ---------------------------------------------------------------------------
+# 21. batched replicates
+# ---------------------------------------------------------------------------
+#: (a): the documented weak-scaling sweep (``--procs 256 --replicates 32``,
+#: EXPERIMENTS.md), cut from 0.05 virtual s to 0.0005 so that its
+#: sequential loop (32 runs, each launch-bound) fits the phase; that loop
+#: probes every 16 windows (a probe's place does not change a result)
+SWEEP = dict(procs=256, replicates=32, duration=0.0005, sequential_chunk=16)
+#: (a): seeds of phase 4's lossy 16-process torus that stop in different
+#: windows at 2**-8 virtual s (237 and 236), run one window a chunk so
+#: that the done probe reads each stop
+STAGGERED = dict(seeds=(0, 6), duration=2.0 ** -8)
+#: (b): phase 6's graph coloring at R replicates
+BATCH_R = 8
+#: (c): the sharded batch: R, duration (cut from 0.02), chunk
+SHARDED_BATCH = dict(replicates=4, duration=0.0025, chunk=64)
+
+
+def result_bits(x):
+    """A SimResult (any nest of dataclasses, dicts, lists, arrays and
+    numbers) as a comparable value, floats as their IEEE bits."""
+    if dataclasses.is_dataclass(x):
+        return tuple((f.name, result_bits(getattr(x, f.name)))
+                     for f in dataclasses.fields(x))
+    if isinstance(x, dict):
+        return tuple((k, result_bits(v)) for k, v in x.items())
+    if isinstance(x, (list, tuple)):
+        return tuple(result_bits(v) for v in x)
+    if isinstance(x, np.ndarray):
+        return (x.dtype.str, x.shape, x.tobytes())
+    if isinstance(x, float):
+        return struct.pack("<d", x)
+    return x
+
+
+def same_results(label, want, got):
+    check(len(want) == len(got), f"{label}: {len(got)} results")
+    for r, (a, b) in enumerate(zip(want, got)):
+        check(result_bits(a) == result_bits(b),
+              f"{label}: replicate {r} differs")
+
+
+def batch_run(label, eng, seeds, sequential=False):
+    """``eng.run_replicates(seeds)`` (or the sequential loop), launch
+    counters zeroed just before and read just after: (results, wall s,
+    windows executed in all, duct launches)."""
+    torch.cuda.synchronize()
+    K.reset_launches()
+    done = len(eng.windows)
+    t0 = time.perf_counter()
+    res = (eng.run_replicates_sequential(seeds) if sequential
+           else eng.run_replicates(seeds))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # a batch executes its windows once for all; the loop once a seed
+    windows = (sum(eng.windows[done:]) if sequential else eng.windows[-1])
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    duct = sum(launches.values())
+    check(duct > 0, f"{label}: no duct launches")
+    updates = sum(sum(r.updates) for r in res)
+    print(f"replicates {label}: {len(seeds)} seeds, {wall:.2f}s wall, "
+          f"{windows} windows, {wall * 1e3 / windows:.3f} ms a window, "
+          f"{updates} updates, {updates / wall:.0f} updates/s, "
+          f"{duct / windows:.3f} duct launches a window {launches}",
+          flush=True)
+    return res, wall, windows, launches
+
+
+def window_profile(argv):
+    """``profile_window`` over 8 windows: CUDA launches, duct launches,
+    device busy ms and busy share a window."""
+    out = profile_window.main(["--windows", "8", *argv])
+    return (f"{out['kernel_launches_per_window']:.1f} CUDA launches and "
+            f"{out['duct_launches_per_window']:.3f} duct launches a window, "
+            f"device busy {out['device_busy_ms_per_window']:.4f} ms a "
+            f"window, {100 * out['device_busy_share']:.1f}% busy "
+            f"(profiler on: {out['wall_ms_per_window']:.3f} ms a window)"), out
+
+
+def replicate_sweep():
+    """(a) The sweep through the CLI (``experiments.main``), its batched
+    results captured; the same seeds through the sequential loop; every
+    SimResult field equal; wall, duct launches a window and busy share of
+    both."""
+    argv = ["--engine", "torch", "--device", "cuda", "--topology", "torus",
+            "--procs", str(SWEEP["procs"]), "--replicates",
+            str(SWEEP["replicates"]), "--duration", str(SWEEP["duration"])]
+    captured = []
+    real = engine_torch.TorchEngine.run_replicates
+
+    def capture(eng, seeds):
+        out = real(eng, seeds)
+        captured.append((eng, list(seeds), out))
+        return out
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    engine_torch.TorchEngine.run_replicates = capture
+    try:
+        t0 = time.perf_counter()
+        rows = experiments.main(argv)
+        cli_wall = time.perf_counter() - t0
+    finally:
+        engine_torch.TorchEngine.run_replicates = real
+    check(len(captured) == 1 and rows[0]["replicates"] ==
+          SWEEP["replicates"], f"sweep: {len(captured)} batches")
+    eng, seeds, batched = captured[0]
+    windows = eng.windows[-1]
+    duct = sum(K.LAUNCHES.values())
+    check(duct == windows, f"sweep: {duct} duct launches in {windows} "
+          "windows of one batch")
+    print(f"replicates sweep batched (CLI): {len(seeds)} seeds x "
+          f"{SWEEP['procs']} processes in one carry, {cli_wall:.2f}s wall, "
+          f"{windows} windows, {duct / windows:.3f} duct launches a window, "
+          f"{rows[0]['updates']} updates", flush=True)
+    args = experiments.build_parser().parse_args(argv)
+    seq_eng = make_engine(RunConfig.from_args(args), experiments.make_app(
+        "graphcolor", SWEEP["procs"], 1, make_topology("torus",
+                                                       SWEEP["procs"]),
+        args.seed), experiments._sim_config(args, SWEEP["procs"]),
+        chunk=SWEEP["sequential_chunk"], device="cuda")
+    seq, seq_wall, seq_windows, seq_launches = batch_run(
+        "sweep sequential", seq_eng, seeds, sequential=True)
+    same_results("sweep: batched vs sequential", seq, batched)
+    print(f"replicates sweep: batched == sequential, every SimResult field "
+          f"of {len(seeds)} seeds (quality included); wall {cli_wall:.2f}s "
+          f"batched, {seq_wall:.2f}s sequential", flush=True)
+    procs = ["--procs", str(SWEEP["procs"])]
+    for r in (SWEEP["replicates"], 1):
+        line, _ = window_profile([*procs, "--replicates", str(r)])
+        print(f"replicates sweep R={r}: {line}", flush=True)
+
+
+def replicate_staggered():
+    """(a) Replicates that stop in different chunks, on the card: the
+    batch's ``windows_needed`` differ, the batch runs as many windows as
+    its last replicate needs, and each replicate equals its own run, every
+    SimResult field and its windows needed."""
+    topology = "torus"
+    seed = case_seed(topology)
+    cfg = dyadic_cfg(seed=seed, duration=STAGGERED["duration"],
+                     carry_app_state=True)
+
+    def engine():
+        return make_engine(RunConfig(engine="torch"),
+                           gc_app(16, topology, seed), cfg,
+                           lossy_host(make_topology(topology, 16), 0, 0.25),
+                           max_pops=EXACT_MAX_POPS, chunk=1, device="cuda")
+
+    seeds = list(STAGGERED["seeds"])
+    eng = engine()
+    batched = eng.run_replicates(seeds)
+    needed = eng.windows_needed[-len(seeds):]
+    check(len(set(needed)) == len(seeds) and max(needed) == eng.windows[-1],
+          f"staggered: windows needed {needed}, {eng.windows[-1]} run")
+    single = engine()
+    for r, s in enumerate(seeds):
+        same_results(f"staggered seed {s}", single.run_replicates([s]),
+                     [batched[r]])
+        check(single.windows_needed[-1] == needed[r],
+              f"staggered seed {s}: {single.windows_needed[-1]} windows "
+              f"needed alone, {needed[r]} in the batch")
+    print(f"replicates staggered lossy torus-16 seeds {seeds}: windows "
+          f"needed {needed} in one batch of {eng.windows[-1]} windows (one "
+          "a chunk); each replicate == its own run, every SimResult field",
+          flush=True)
+
+
+def batched_shapes(hbm):
+    """The duct kernels at the shapes one launch covers in (b) and (c):
+    each through its replicate fold, against its plain version (bitwise),
+    with its time and its bound at that shape."""
+    dev, rng = torch.device("cuda"), np.random.default_rng(27)
+    R, n, d, C, L, W, pops = BATCH_R, 4096, 4, 64, 1, 8, 16
+    args = [x.reshape((R, n) + tuple(x.shape[1:]))
+            for x in window_state(rng, R * n, d, C, L, 64, dev)]
+    measure(f"replicates duct_window R={R} x (4096, 4, 64, 1)",
+            lambda: duct_window(*args, max_pops=pops),
+            lambda: duct_window_torch(*args, max_pops=pops), args,
+            R * n * d * C * (8 + 2 * L), hbm)
+    rows = n * d
+    flat = commit_state(rng, R * rows, C, L, W, dev)
+    args = [x.reshape((R, rows) + tuple(x.shape[1:])) for x in flat]
+    measure(f"replicates duct_commit R={R} x (16384 rows, W=8)",
+            lambda: duct_commit(*args), lambda: duct_commit_torch(*args),
+            args, R * rows * C * (6 + L), hbm, read=commit_read(flat))
+    R = SHARDED_BATCH["replicates"]
+    flat = exchange_state(rng, R * rows, C, dev)
+    args = [x.reshape((R, rows) + tuple(x.shape[1:])) for x in flat]
+    measure(f"replicates duct_exchange drain R={R} x (16384, 64)",
+            lambda: duct_drain(*args[:6], max_pops=pops),
+            lambda: duct_drain_torch(*args[:6], max_pops=pops), args[:6],
+            R * rows * C * 10, hbm, **drain_bytes(flat, pops))
+    measure(f"replicates duct_exchange send R={R} x (16384, 64)",
+            lambda: duct_send(*args[:4], *args[6:], capacity=C),
+            lambda: duct_send_torch(*args[:4], *args[6:], capacity=C),
+            args[:4] + args[6:], R * rows * C * 10, hbm)
+
+
+def replicate_full_width():
+    """(b) Phase 6's graph coloring at BATCH_R replicates, dense window and
+    W = 8 (0.005 s): duct launches a window equal phase 6's (R = 1), ms a
+    window and updates/s summed over replicates beside phase 6's; card ==
+    CPU at R = 3 on a reduced size, graph coloring (int32) and evo
+    (float32).  Returns the duct entries' launches."""
+    launched = {}
+    seeds = list(range(BATCH_R))
+    # the W = 8 batch at SHARDED_DEPTH (cut from 0.02 for the script's
+    # time): its launches a window are compared, not its results
+    for label, kw, used, depth in (
+            ("window", {}, "duct_window", 0.02),
+            ("superstep8", {"superstep_windows": 8}, "duct_commit",
+             SHARDED_DEPTH)):
+        base = f"graphcolor torus-4096 {label}"
+        if base not in DRIVEN:
+            drive(base, "graphcolor", 4096, 1, 0.02, kw)
+        one = DRIVEN[base]
+        eng, _ = drive_engine("graphcolor", 4096, 1, depth, kw)
+        res, wall, windows, launches = batch_run(f"{base} R={BATCH_R}", eng,
+                                                 seeds)
+        for name in set(launches) | set(one["launches"]):
+            per = launches.get(name, 0) / windows
+            per1 = one["launches"].get(name, 0) / one["windows"]
+            check(per == per1, f"{base} R={BATCH_R}: {name} {per} launches "
+                  f"a window, R=1 {per1}")
+        launched[used] = launches[used]
+        updates = sum(sum(r.updates) for r in res)
+        print(f"replicates {base}: R={BATCH_R} {wall * 1e3 / windows:.3f} "
+              f"ms a window, {updates / wall:.0f} updates/s summed over "
+              f"replicates; R=1 (phase 6) "
+              f"{one['wall'] * 1e3 / one['windows']:.3f} ms a window, "
+              f"{one['updates'] / one['wall']:.0f} updates/s", flush=True)
+    for app_name, n, simels in (("graphcolor", 256, 1), ("evo", 64, 64)):
+        seed = case_seed("torus")
+        cfg = dyadic_cfg(seed=seed, duration=CARD_CPU_DURATION)
+        out = {}
+        for device in ("cuda", "cpu"):
+            K.reset_launches()
+            out[device] = make_engine(
+                RunConfig(engine="torch"),
+                experiments.make_app(app_name, n, simels,
+                                              make_topology("torus", n),
+                                              seed), cfg, chunk=64,
+                device=device).run_replicates([seed, seed + 1, seed + 2])
+            launched_here = sum(K.LAUNCHES.values())
+            check((launched_here > 0) == (device == "cuda"),
+                  f"{app_name} R=3 on {device}: {launched_here} launches")
+            if device == "cuda":
+                count_service_launches(launched, app_name)
+        same_results(f"{app_name} torus-{n} R=3 card vs CPU", out["cpu"],
+                     out["cuda"])
+        print(f"replicates {app_name} torus-{n} simels={simels} R=3: card "
+              f"== CPU, every SimResult field", flush=True)
+    return launched
+
+
+def replicate_sharded():
+    """(c) torus-4096 at SHARDED_BATCH's R and duration: 8 shards batched
+    == unsharded batched, every SimResult field."""
+    seeds = list(range(SHARDED_BATCH["replicates"]))
+    out = {}
+    for label, kw in (("unsharded", {}), ("8 shards", {"shards": 8})):
+        eng, _ = drive_engine("graphcolor", 4096, 1,
+                              SHARDED_BATCH["duration"], kw,
+                              chunk=SHARDED_BATCH["chunk"])
+        out[label] = batch_run(f"graphcolor torus-4096 {label} "
+                               f"R={len(seeds)}", eng, seeds)[0]
+    same_results("torus-4096 8 shards vs unsharded", out["unsharded"],
+                 out["8 shards"])
+    print(f"replicates torus-4096 R={len(seeds)}: 8 shards == unsharded, "
+          f"every SimResult field", flush=True)
+
+
+@phase("replicates")
+def replicates(hbm):
+    """Batched replicates on the card: (a) the weak-scaling sweep and
+    replicates that stop in different chunks, (b) the
+    full-width batch, (c) the sharded batch, then the duct kernels at the
+    shapes one launch covers there.  Returns the duct entries' launches in
+    (b)."""
+    replicate_sweep()
+    replicate_staggered()
+    launched = replicate_full_width()
+    replicate_sharded()
+    batched_shapes(hbm)
+    return launched
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3577,6 +3930,7 @@ def main():
     sharded_launched = sharded(full_sigs["graphcolor torus-4096 window"])
     service_launched = service()
     spmd_launched = spmd()
+    replicates_launched = replicates(hbm)
     kernels_line = []
     for entry, kname, replaces in ENTRIES:
         rec = records[entry]
@@ -3597,7 +3951,9 @@ def main():
             **({"service_launches": service_launched[entry]}
                if service_launched.get(entry) else {}),
             **({"spmd_launches": spmd_launched[entry]}
-               if spmd_launched.get(entry) else {})))
+               if spmd_launched.get(entry) else {}),
+            **({"replicates_launches": replicates_launched[entry]}
+               if replicates_launched.get(entry) else {})))
     print("phases: " + ", ".join(f"{p} {t:.1f}s" for p, t in PHASES))
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -230,18 +230,22 @@ class BatchedEvo:
                                   device=dev)
 
     def _own_edges(self, r):
-        """(n, H, W) resource -> (n, 4, L) n/s/w/e edge rows (0-padded)."""
+        """(..., n, H, W) resource -> (..., n, 4, L) n/s/w/e edge rows
+        (0-padded)."""
         L, H, W = self.L, self.H, self.W
         pad = torch.nn.functional.pad
         return torch.stack([
-            pad(r[:, 0, :], (0, L - W)), pad(r[:, -1, :], (0, L - W)),
-            pad(r[:, :, 0], (0, L - H)), pad(r[:, :, -1], (0, L - H))],
-            dim=1)
+            pad(r[..., 0, :], (0, L - W)), pad(r[..., -1, :], (0, L - W)),
+            pad(r[..., 0], (0, L - H)), pad(r[..., -1], (0, L - H))],
+            dim=-2)
 
     def step(self, state, halo, steps, seed, pids=None):
-        """One population step; ``pids`` are the original process ids of the
-        rows in ``state`` (``None``: rows 0..n-1); the mutation draws are
-        keyed by them."""
+        """One population step over ``(..., n, H, W)`` blocks: any leading
+        dims (the engine's replicate axis) are batch, ``steps`` and
+        ``seed`` are shaped like the leading dims and the process axis
+        (``seed`` may be 0-dim, or ``(R, 1)``).  ``pids`` are the original
+        process ids of the rows in ``state`` (``None``: rows 0..n-1); the
+        mutation draws are keyed by them."""
         from repro_torch.runtime.window_core import (M32, STREAM_MUT,
                                                      hash_uniform, mul32)
         cfg, H, W = self.cfg, self.H, self.W
@@ -251,9 +255,9 @@ class BatchedEvo:
 
         # reflective unfed slots: mirror our own edge, never drain resource
         fed = self.fed if pids is None else self.fed[pids.long()]
-        halo_eff = torch.where(fed[:, :, None], halo, self._own_edges(r))
-        hn, hs = halo_eff[:, 0, :W], halo_eff[:, 1, :W]
-        hw, he = halo_eff[:, 2, :H], halo_eff[:, 3, :H]
+        halo_eff = torch.where(fed[..., None], halo, self._own_edges(r))
+        hn, hs = halo_eff[..., 0, :W], halo_eff[..., 1, :W]
+        hw, he = halo_eff[..., 2, :H], halo_eff[..., 3, :H]
 
         # genome "interpretation": uint32 mixing rounds (compute-heavy),
         # each value an int64 in [0, 2**32)
@@ -270,36 +274,37 @@ class BatchedEvo:
         r = r + cfg.resource_inflow * fit
 
         # resource diffusion over internal cells + halo rows (no wrap)
-        up = torch.cat([hn[:, None, :], r[:, :-1]], dim=1)
-        down = torch.cat([r[:, 1:], hs[:, None, :]], dim=1)
-        left = torch.cat([hw[:, :, None], r[:, :, :-1]], dim=2)
-        right = torch.cat([r[:, :, 1:], he[:, :, None]], dim=2)
+        up = torch.cat([hn[..., None, :], r[..., :-1, :]], dim=-2)
+        down = torch.cat([r[..., 1:, :], hs[..., None, :]], dim=-2)
+        left = torch.cat([hw[..., None], r[..., :-1]], dim=-1)
+        right = torch.cat([r[..., 1:], he[..., None]], dim=-1)
         mean_nb = (up + down + left + right) / 4.0
         r = (1 - cfg.share_frac) * r + cfg.share_frac * mean_nb
 
         # reproduction: spawners overwrite their weakest rolled neighbor
         spawn = r > cfg.spawn_threshold
-        fit_rolled = torch.stack([torch.roll(fit, s, dims=a + 1)
+        fit_rolled = torch.stack([torch.roll(fit, s, dims=a - 2)
                                   for s, a in self._SHIFTS])
         weakest = fit_rolled.argmin(dim=0)     # the first minimum, as jnp
         # cells keyed by original pid
         if pids is None:
-            pids = torch.arange(g.shape[0], dtype=torch.int32, device=dev)
+            pids = torch.arange(g.shape[-4], dtype=torch.int32, device=dev)
         cell = (pids.to(torch.int64)[:, None, None, None] * (H * W * G)
                 + torch.arange(H * W * G, dtype=torch.int64,
                                device=dev).reshape(H, W, G))
-        step_k = steps[:, None, None, None]
-        mut = hash_uniform(seed, STREAM_MUT, step_k, cell) < float(
+        step_k = steps[..., None, None, None]
+        seed_k = seed[..., None, None, None]
+        mut = hash_uniform(seed_k, STREAM_MUT, step_k, cell) < float(
             np.float32(cfg.mutation_rate))
         delta = torch.floor(
-            hash_uniform(seed, STREAM_MUT, step_k, cell, 7) * 33
+            hash_uniform(seed_k, STREAM_MUT, step_k, cell, 7) * 33
         ).to(torch.int32) - 16
         child = torch.clamp(g + torch.where(mut, delta, 0), 0, 255)
         new_g = g
         for d, (s, a) in enumerate(self._SHIFTS):
-            lands = torch.roll(spawn & (weakest == d), -s, dims=a + 1)
+            lands = torch.roll(spawn & (weakest == d), -s, dims=a - 2)
             new_g = torch.where(lands[..., None],
-                                torch.roll(child, -s, dims=a + 1), new_g)
+                                torch.roll(child, -s, dims=a - 3), new_g)
         r = torch.where(spawn, r * 0.5, r)
 
         state = dict(genomes=new_g, resource=r, acc=acc)

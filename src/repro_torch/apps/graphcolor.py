@@ -410,20 +410,23 @@ class BatchedGraphColor:
                 for p in range(self.n)}
 
     def step(self, state, halo, steps, seed, pids=None):
-        """One population step.  ``pids`` are the original process ids of
-        the rows in ``state`` (``None``: rows 0..n-1); the resample draws
-        are keyed by them."""
+        """One population step over ``(..., n, H, W)`` blocks: any leading
+        dims (the engine's replicate axis) are batch, ``steps`` and
+        ``seed`` are shaped like the leading dims and the process axis
+        (``seed`` may be 0-dim, or ``(R, 1)``).  ``pids`` are the original
+        process ids of the rows in ``state`` (``None``: rows 0..n-1); the
+        resample draws are keyed by them."""
         from repro_torch.runtime.window_core import STREAM_APP, hash_uniform
         H, W, L = self.H, self.W, self.L
         b, C = self.cfg.b, self.cfg.n_colors
         colors, probs = state["colors"], state["probs"]
-        hn, hs = halo[:, 0, :W], halo[:, 1, :W]
-        hw, he = halo[:, 2, :H], halo[:, 3, :H]
+        hn, hs = halo[..., 0, :W], halo[..., 1, :W]
+        hw, he = halo[..., 2, :H], halo[..., 3, :H]
 
-        up = torch.cat([hn[:, None, :], colors[:, :-1]], dim=1)
-        down = torch.cat([colors[:, 1:], hs[:, None, :]], dim=1)
-        left = torch.cat([hw[:, :, None], colors[:, :, :-1]], dim=2)
-        right = torch.cat([colors[:, :, 1:], he[:, :, None]], dim=2)
+        up = torch.cat([hn[..., None, :], colors[..., :-1, :]], dim=-2)
+        down = torch.cat([colors[..., 1:, :], hs[..., None, :]], dim=-2)
+        left = torch.cat([hw[..., None], colors[..., :-1]], dim=-1)
+        right = torch.cat([colors[..., 1:], he[..., None]], dim=-1)
         conflict = ((colors == up) | (colors == down)
                     | (colors == left) | (colors == right))
         onehot = torch.nn.functional.one_hot(colors.long(), C).to(
@@ -432,12 +435,13 @@ class BatchedGraphColor:
         new_probs = torch.where(conflict[..., None], fail_p, onehot)
         # counter-hash resample draw keyed by original pid and cell
         if pids is None:
-            pids = torch.arange(colors.shape[0], dtype=torch.int32,
+            pids = torch.arange(colors.shape[-3], dtype=torch.int32,
                                 device=colors.device)
         cell = (pids[:, None, None] * (H * W)
                 + torch.arange(H * W, dtype=torch.int32,
                                device=colors.device).reshape(H, W))
-        u = hash_uniform(seed, STREAM_APP, steps[:, None, None], cell)
+        u = hash_uniform(seed[..., None, None], STREAM_APP,
+                         steps[..., None, None], cell)
         # cumulative sum over the colour axis as explicit sequential adds,
         # so the summation order is pinned on every device
         acc = new_probs[..., 0]
@@ -451,10 +455,10 @@ class BatchedGraphColor:
 
         pad = torch.nn.functional.pad
         edges = torch.stack([
-            pad(new_colors[:, 0, :], (0, L - W)),
-            pad(new_colors[:, -1, :], (0, L - W)),
-            pad(new_colors[:, :, 0], (0, L - H)),
-            pad(new_colors[:, :, -1], (0, L - H))], dim=1)
+            pad(new_colors[..., 0, :], (0, L - W)),
+            pad(new_colors[..., -1, :], (0, L - W)),
+            pad(new_colors[..., 0], (0, L - H)),
+            pad(new_colors[..., -1], (0, L - H))], dim=-2)
         return dict(colors=new_colors, probs=new_probs), edges
 
     def quality(self, state) -> float:

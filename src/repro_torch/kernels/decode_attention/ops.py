@@ -26,12 +26,18 @@ def decode_attention_partials_torch(q: torch.Tensor, k: torch.Tensor,
                                     v: torch.Tensor, *, kv_len: int,
                                     bc: int):
     """Plain version of the partials: acc (B*KH, G, nc, hd), m and l
-    (B*KH, G, nc), float32, nc = ceil(S / bc)."""
+    (B*KH, G, nc), float32, nc = ceil(S / bc).  The scores are computed
+    one kv head at a time, each from that head's own contiguous slices,
+    as the kernel computes each head in its own blocks: a host BLAS picks
+    its blocking by the operands' shapes and strides, so a product over
+    all KH heads at once need not round head h as the KH = 1 call does."""
     B, KH, G, hd = q.shape
     S = k.shape[1]
     nc = -(-S // bc)
-    s = torch.einsum("bhgd,bshd->bhgs", q.float(),
-                     k[:, :kv_len].float()) * hd ** -0.5
+    s = torch.stack([
+        torch.bmm(q[:, h].float().contiguous(),
+                  k[:, :kv_len, h].float().transpose(1, 2).contiguous())
+        for h in range(KH)], dim=1) * hd ** -0.5
     s_all = s.new_full((B, KH, G, nc * bc), float("-inf"))
     s_all[..., :kv_len] = s
     s_all = s_all.reshape(B * KH, G, nc, bc)

@@ -19,9 +19,18 @@ Every plain version is a slot-exact twin of the numpy oracles in the
 reference package (``duct_window_ref`` / ``duct_commit_ref`` /
 ``duct_exchange_ref``), including the ``+inf`` written into popped ring
 slots.  Payloads are int32 (graph coloring) or float32 (evo).
+
+Every op, plain or dispatched, also takes its tensors with a leading
+replicate axis (the engine's batch of seeds, ``jax.vmap``'s axis in the
+reference): it folds ``(R, rows, ...)`` into ``(R * rows, ...)`` as a
+view, runs once over all replicates' rows, and unfolds the results.  This
+is exact because all three kernels work row by row and every per-row input
+is computed outside them.  A batched tensor that is not contiguous raises
+rather than being copied.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -77,29 +86,53 @@ class CommitResult(NamedTuple):
     q_pay: torch.Tensor       # (R, C, L)
 
 
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (R, rows, ...) as ``(R * rows, ...)``, a view."""
+    if not x.is_contiguous():
+        raise ValueError("a replicate batch folds into the rows as a view; "
+                         f"got a non-contiguous {tuple(x.shape)} tensor")
+    return x.view((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
+
+
+def folds_replicates(rank: int):
+    """Let an op whose first tensor has ``rank`` dims take every tensor
+    with one more, leading, replicate axis: fold, run once, unfold."""
+    def wrap(op):
+        @functools.wraps(op)
+        def run(*args, **kwargs):
+            if args[0].dim() == rank:
+                return op(*args, **kwargs)
+            R = args[0].shape[0]
+            res = op(*(_fold(x) for x in args), **kwargs)
+            return type(res)(*(x.view((R, x.shape[0] // R) +
+                                      tuple(x.shape[1:])) for x in res))
+        return run
+    return wrap
+
+
 def dense_halo_select(delivered, payload):
     """Per-receiver halo merge for the dense layout: slot ``s`` takes the
     payload of the highest delivering row ``j`` with ``j % 4 == s``.
 
     Rows are in sorted-source order, which for a fixed receiver is
     canonical-edge-id order, so "highest j wins" reproduces the edge-major
-    tie-break as a d-step unrolled select.  ``delivered``: (n, d) bool;
-    ``payload``: (n, d, L).  Returns ``(halo_pay (n, 4, L), halo_win
-    (n, 4))``; a slot no row refreshed holds zeros and ``False``.
+    tie-break as a d-step unrolled select.  ``delivered``: (..., n, d)
+    bool; ``payload``: (..., n, d, L).  Returns ``(halo_pay (..., n, 4,
+    L), halo_win (..., n, 4))``; a slot no row refreshed holds zeros and
+    ``False``.
     """
-    n, d = delivered.shape
-    L = payload.shape[-1]
+    d = delivered.shape[-1]
     pay_cols, win_cols = [], []
     for s in range(4):
-        pay_s = torch.zeros((n, L), dtype=payload.dtype,
-                            device=payload.device)
-        win_s = torch.zeros((n,), dtype=torch.bool, device=payload.device)
+        pay_s = torch.zeros_like(payload[..., 0, :])
+        win_s = torch.zeros_like(delivered[..., 0])
         for j in range(s, d, 4):
-            pay_s = torch.where(delivered[:, j, None], payload[:, j], pay_s)
-            win_s = win_s | delivered[:, j]
+            pay_s = torch.where(delivered[..., j, None], payload[..., j, :],
+                                pay_s)
+            win_s = win_s | delivered[..., j]
         pay_cols.append(pay_s)
         win_cols.append(win_s)
-    return torch.stack(pay_cols, dim=1), torch.stack(win_cols, dim=1)
+    return torch.stack(pay_cols, dim=-2), torch.stack(win_cols, dim=-1)
 
 
 def dense_stage(head, size, active, *, capacity: int):
@@ -112,6 +145,7 @@ def dense_stage(head, size, active, *, capacity: int):
     return pos, accepted
 
 
+@folds_replicates(2)
 def duct_drain_torch(q_avail, q_touch, head, size, recv_now, recv_active,
                      *, max_pops: int) -> DrainResult:
     """Plain torch version of the edge-major drain: pop the longest
@@ -142,6 +176,7 @@ def duct_drain_torch(q_avail, q_touch, head, size, recv_now, recv_active,
                        recv_touch, pop_pos)
 
 
+@folds_replicates(2)
 def duct_send_torch(q_avail, q_touch, head, size,
                     send_now, send_active, send_lat, send_touch,
                     *, capacity: int) -> SendResult:
@@ -159,6 +194,7 @@ def duct_send_torch(q_avail, q_touch, head, size,
     return SendResult(q_avail, q_touch, size + accepted, accepted, push_pos)
 
 
+@folds_replicates(2)
 def duct_exchange_torch(q_avail, q_touch, head, size,
                         recv_now, recv_active,
                         send_now, send_active, send_lat, send_touch,
@@ -173,6 +209,7 @@ def duct_exchange_torch(q_avail, q_touch, head, size,
                           d.recv_touch, d.pop_pos, s.accepted, s.push_pos)
 
 
+@folds_replicates(3)
 def duct_window_torch(q_avail, q_touch, q_pay, head, size,
                       push_pos, push_acc, push_avail, push_touch, push_pay,
                       recv_now, recv_active,
@@ -222,6 +259,7 @@ def duct_window_torch(q_avail, q_touch, q_pay, head, size,
         recv_touch.reshape(n, d), halo_pay, halo_win)
 
 
+@folds_replicates(2)
 def duct_commit_torch(q_avail, q_touch, q_pay, head, size0, pb_cnt,
                       pb_avail, pb_touch, pb_pay) -> CommitResult:
     """Plain torch version of the superstep commit: push ``j`` of ring
@@ -245,6 +283,7 @@ def _device_kind(t: torch.Tensor) -> str:
     return device_kind(t, "duct ops")
 
 
+@folds_replicates(3)
 def duct_window(q_avail, q_touch, q_pay, head, size,
                 push_pos, push_acc, push_avail, push_touch, push_pay,
                 recv_now, recv_active, *, max_pops: int) -> WindowResult:
@@ -258,6 +297,7 @@ def duct_window(q_avail, q_touch, q_pay, head, size,
     return WindowResult(*duct_window_cuda(*args, max_pops=max_pops))
 
 
+@folds_replicates(2)
 def duct_commit(q_avail, q_touch, q_pay, head, size0, pb_cnt,
                 pb_avail, pb_touch, pb_pay) -> CommitResult:
     """Superstep commit, dispatched on the rings' device: the plain torch
@@ -270,6 +310,7 @@ def duct_commit(q_avail, q_touch, q_pay, head, size0, pb_cnt,
     return CommitResult(*duct_commit_cuda(*args))
 
 
+@folds_replicates(2)
 def duct_exchange(q_avail, q_touch, head, size,
                   recv_now, recv_active,
                   send_now, send_active, send_lat, send_touch,
@@ -287,6 +328,7 @@ def duct_exchange(q_avail, q_touch, head, size,
                                               max_pops=max_pops))
 
 
+@folds_replicates(2)
 def duct_drain(q_avail, q_touch, head, size, recv_now, recv_active,
                *, max_pops: int) -> DrainResult:
     """Edge-major drain, dispatched on the rings' device.  Both versions
@@ -301,6 +343,7 @@ def duct_drain(q_avail, q_touch, head, size, recv_now, recv_active,
                                         max_pops=max_pops))
 
 
+@folds_replicates(2)
 def duct_send(q_avail, q_touch, head, size,
               send_now, send_active, send_lat, send_touch,
               *, capacity: int) -> SendResult:

@@ -285,8 +285,9 @@ def run_replicates(run: Union[RunConfig, str], make_app, cfg: SimConfig,
     """Run one replicate per seed.
 
     ``make_app(seed)`` builds a fresh application per replicate.  Backends
-    exposing ``run_replicates`` (the torch engine, which runs the seeds one
-    after another on one engine) get all seeds at once; others loop.
+    exposing ``run_replicates`` (the torch engine, which runs all seeds as
+    one batch in one chunk loop, each duct kernel one launch a window, as
+    the reference's vmap does) get all seeds at once; others loop.
     ``cfg.seed`` is overridden by each replicate's seed.  With a
     :class:`RunConfig` first argument, ``seeds`` may be omitted: the sweep
     is ``run.seeds(cfg.seed)``.

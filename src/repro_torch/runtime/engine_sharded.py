@@ -55,7 +55,11 @@ runs ``duct_drain`` and ``duct_send`` on both its layouts.
 
 Every stochastic draw stays keyed by *original* pid and *canonical* edge
 id and halo ties resolve by canonical edge id, so any shard count
-reproduces ``shards=1`` bitwise.  Replicates run one after another.
+reproduces ``shards=1`` bitwise.  Replicates run as one batch, the
+replicate axis leading and the shard axis inside it, as the reference
+vmaps the replicates inside each shard: every carry leaf and every hop
+buffer has the replicate axis first, so the shard axis the hops move
+along is dimension 1.
 """
 from __future__ import annotations
 
@@ -75,6 +79,7 @@ from repro_torch.runtime.window_core import (
     LOCAL_RELEASE,
     PIPELINED_RELEASE,
     _i32_sum,
+    batch_seed,
     _scatter_set,
     lognormal_factor,
     segment_sum,
@@ -102,8 +107,10 @@ def _from_bits(x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _pad1(x: torch.Tensor) -> torch.Tensor:
-    """``x`` with one zero row appended: the sentinel index's gather."""
-    return torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    """``x`` (R, rows, ...) with one zero row appended to each replicate's
+    rows: the sentinel index's gather."""
+    return torch.cat([x, x.new_zeros((x.shape[0], 1) + tuple(x.shape[2:]))],
+                     dim=1)
 
 
 class ShardedTorchEngine(TorchEngine):
@@ -160,6 +167,7 @@ class ShardedTorchEngine(TorchEngine):
         self._release = (PIPELINED_RELEASE if scheduler == "pipelined"
                          else LOCAL_RELEASE)
         self._build_statics()
+        self._crashed_probe = self._crashed_pos
 
     # ------------------------------------------------------------------
     # Static shard layout: local rows (rings on the receiver's shard) and
@@ -387,8 +395,8 @@ class ShardedTorchEngine(TorchEngine):
         out = dict(carry)
         for key in _PROC_KEYS:
             if key in carry:
-                out[key] = carry[key][index]
-        out["app"] = {k: v[index] for k, v in carry["app"].items()}
+                out[key] = carry[key][:, index]
+        out["app"] = {k: v[:, index] for k, v in carry["app"].items()}
         return out
 
     def _to_sharded_layout(self, carry):
@@ -407,8 +415,9 @@ class ShardedTorchEngine(TorchEngine):
         """Drain every ring (they live on their receiver's shard)."""
         dst = self._row_dst
         return self.core.drain(
-            carry, t_pad[dst], act_pad[dst], halo_key=self._row_halo_key,
-            n_halo=4 * self.n, dst=dst, n_dst=self.n)
+            carry, t_pad[:, dst], act_pad[:, dst],
+            halo_key=self._row_halo_key, n_halo=4 * self.n, dst=dst,
+            n_dst=self.n)
 
     def _sends(self, seed, pads):
         """Every send of this window, over the send list (the local rows,
@@ -426,42 +435,45 @@ class ShardedTorchEngine(TorchEngine):
         step count, as in the unsharded engine; one latency draw and one
         fault draw serve the whole list.
 
-        Returns ``(interior, staged, kills)``: the rows' records ``(S*ein,
-        L+3)`` (only interior senders active), per offset the ``(S, bd,
-        L+3)`` buffer, and the kill counts (``None`` without faults)."""
+        Returns ``(interior, staged, kills)``: the rows' records ``(R,
+        S*ein, L+3)`` (only interior senders active), per offset the ``(R,
+        S, bd, L+3)`` buffer, and the kill counts (``None`` without
+        faults)."""
         sd, n = self._send, self.n
         src = sd["src"]
-        steps = pads["steps"][src]
+        steps = pads["steps"][:, src]
         lat = sd["lat"] * lognormal_factor(
             self.cfg.latency_sigma, seed, STREAM_LAT, sd["canon"], steps)
-        t_src = pads["t"][src]
-        act = pads["act"][src] & sd["live"]
+        t_src = pads["t"][:, src]
+        act = pads["act"][:, src] & sd["live"]
         kills = None
         if self._has_faults:
             loss_kill, dead_kill = self.core.fault_masks(
                 seed, t_src, steps, sd["canon"], sd["loss"], sd["flap"],
                 self.faults.flap_period, sd["dead"])
             cols = torch.stack([(act & loss_kill).to(torch.int32),
-                                (act & dead_kill).to(torch.int32)], dim=1)
+                                (act & dead_kill).to(torch.int32)], dim=-1)
             kills = segment_sum(cols, src, n)
             act = act & ~(loss_kill | dead_kill)
         packed = torch.cat([
-            _bits_i32(pads["eo"][src, sd["oslot"]]),
-            _bits_i32(t_src + lat)[:, None],
-            pads["ptouch"][sd["rev"]][:, None],
-            act[:, None].to(torch.int32)], dim=1)
-        interior, *bnd = packed.split(self._send_sizes)
-        staged = {off: b.reshape(self.shards, self._bnd_bd[off], -1)
+            _bits_i32(pads["eo"][:, src, sd["oslot"]]),
+            _bits_i32(t_src + lat)[..., None],
+            pads["ptouch"][:, sd["rev"]][..., None],
+            act[..., None].to(torch.int32)], dim=-1)
+        interior, *bnd = packed.split(self._send_sizes, dim=1)
+        reps = packed.shape[0]
+        staged = {off: b.reshape(reps, self.shards, self._bnd_bd[off], -1)
                   for off, b in zip(self._offsets, bnd)}
         return interior, staged, kills
 
     def _unpack(self, x):
-        """Send records ``(rows, L+3)`` as ``(pay, avail, touch, act)``;
+        """Send records ``(R, rows, L+3)`` as ``(pay, avail, touch, act)``;
         the last three, the send kernel's inputs, contiguous."""
         Lp = self.bapp.payload_len
-        return (_from_bits(x[:, :Lp], self.bapp.payload_dtype),
-                _from_bits(x[:, Lp], torch.float32),
-                x[:, Lp + 1].contiguous(), x[:, Lp + 2].contiguous().bool())
+        return (_from_bits(x[..., :Lp], self.bapp.payload_dtype),
+                _from_bits(x[..., Lp], torch.float32),
+                x[..., Lp + 1].contiguous(),
+                x[..., Lp + 2].contiguous().bool())
 
     def _close_window(self, u, active, drained_r, *, release: bool):
         """Shared window tail with the release reductions over all shards
@@ -485,7 +497,7 @@ class ShardedTorchEngine(TorchEngine):
             active = active & ~self._crashed_pos
         t_pad, act_pad = _pad1(t), _pad1(active)
         u = dict(carry)
-        drained_r = torch.zeros(self.n, dtype=torch.int32, device=self.device)
+        drained_r = torch.zeros_like(carry["steps"])
         if comm:
             dr, drained_r = self._drain_phase(carry, t_pad, act_pad)
             u.update(dr)
@@ -502,16 +514,16 @@ class ShardedTorchEngine(TorchEngine):
         """Sender counters of one window; killed sends count attempted +
         dropped + their cause."""
         if kills is not None:
-            killed = kills[:, 0] + kills[:, 1]
-            u.update(c_att=carry["c_att"] + send_sums[:, 0] + killed,
-                     c_ok=carry["c_ok"] + send_sums[:, 1],
-                     c_drop=carry["c_drop"] + send_sums[:, 2] + killed,
-                     c_loss=carry["c_loss"] + kills[:, 0],
-                     c_dead=carry["c_dead"] + kills[:, 1])
+            killed = kills[..., 0] + kills[..., 1]
+            u.update(c_att=carry["c_att"] + send_sums[..., 0] + killed,
+                     c_ok=carry["c_ok"] + send_sums[..., 1],
+                     c_drop=carry["c_drop"] + send_sums[..., 2] + killed,
+                     c_loss=carry["c_loss"] + kills[..., 0],
+                     c_dead=carry["c_dead"] + kills[..., 1])
         else:
-            u.update(c_att=carry["c_att"] + send_sums[:, 0],
-                     c_ok=carry["c_ok"] + send_sums[:, 1],
-                     c_drop=carry["c_drop"] + send_sums[:, 2])
+            u.update(c_att=carry["c_att"] + send_sums[..., 0],
+                     c_ok=carry["c_ok"] + send_sums[..., 1],
+                     c_drop=carry["c_drop"] + send_sums[..., 2])
 
     # ------------------------------------------------------------------
     # Window bodies
@@ -527,7 +539,7 @@ class ShardedTorchEngine(TorchEngine):
         u, active, drained_r, pads = self._window_inputs(carry)
         staged = {}
         if pads is not None:
-            interior, staged, kills = self._sends(carry["seed"], pads)
+            interior, staged, kills = self._sends(batch_seed(carry), pads)
             pay, avail, touch, act = self._unpack(interior)
             sp = self.core.send_edge(u, avail, act, torch.zeros_like(avail),
                                      touch, pay, self._send["src_rows"],
@@ -550,13 +562,13 @@ class ShardedTorchEngine(TorchEngine):
         u, active, drained_r, pads = self._window_inputs(carry)
         if pads is not None:
             Lp = self.bapp.payload_len
-            interior, own, kills = self._sends(carry["seed"], pads)
+            interior, own, kills = self._sends(batch_seed(carry), pads)
             # --- payload hop: one per offset for all W windows ------------
             staged_l, staged_r = {}, {}
             for off in self._offsets:
                 full = self._with_own(stage_mid, own, off)
                 staged_l[off] = full      # the sender's copy: the att bits
-                staged_r[off] = mesh.hop(full, off)
+                staged_r[off] = mesh.hop(full, off, dim=1)
             rings, acc, send_sums = self._push_passes(
                 {key: u[key] for key in _RING_KEYS}, staged_r, interior)
             u.update(rings)
@@ -564,21 +576,22 @@ class ShardedTorchEngine(TorchEngine):
             for off in self._offsets:
                 att = staged_l[off][..., Lp + 2]
                 send_sums = self._fold_bits(
-                    (att << 1) | mesh.hop(acc[off], -off), off, send_sums)
+                    (att << 1) | mesh.hop(acc[off], -off, dim=1), off,
+                    send_sums)
             self._fold_counters(u, carry, send_sums, kills)
         return self._close_window(u, active, drained_r, release=True)
 
     def _with_own(self, stage_mid, own, off):
-        """The superstep's ``(S, W, bd, L+3)`` buffer of one offset: the
+        """The superstep's ``(R, S, W, bd, L+3)`` buffer of one offset: the
         staged windows, then this window's own."""
         if stage_mid is None:
-            return own[off][:, None]
-        return torch.cat([stage_mid[off], own[off][:, None]], dim=1)
+            return own[off][:, :, None]
+        return torch.cat([stage_mid[off], own[off][:, :, None]], dim=2)
 
     def _push_passes(self, rings, bufs, interior, *, want_sums: bool = True):
         """W ordered push passes over the rings (FIFO per ring).
 
-        ``bufs`` holds one receiver-side ``(S, W, bd, L+3)`` buffer per
+        ``bufs`` holds one receiver-side ``(R, S, W, bd, L+3)`` buffer per
         offset, ``interior`` the rows' own send records.  Boundary rows
         push buffer window j in pass j; interior rows push their current
         message in the last pass.  Rings are single-writer, so the row
@@ -586,10 +599,11 @@ class ShardedTorchEngine(TorchEngine):
         the last have no interior senders, so they run compact: the union
         of boundary receiver rows (``eb`` a shard) is gathered into
         sub-rings, pushed and scattered back.  Returns ``(rings, acc,
-        sums)``: the rings, per offset the ``(S, W, bd)`` int32 accept
+        sums)``: the rings, per offset the ``(R, S, W, bd)`` int32 accept
         bits, and the last pass's per-process counter sums (``None``
         without ``want_sums``)."""
         S, W = self.shards, self.superstep_windows
+        reps = interior.shape[0]
         rings = dict(rings)
         acc = {off: [] for off in self._offsets}
         sums = None
@@ -601,13 +615,15 @@ class ShardedTorchEngine(TorchEngine):
             # boundary rows push buffer window W-1; compact pass: only the
             # boundary rows, gathered
             x = (interior if last else
-                 interior.new_zeros((S * self._eb, interior.shape[1])))
+                 interior.new_zeros((reps, S * self._eb,
+                                     interior.shape[-1])))
             where = "rcv_row" if last else "rcv_pos"
             for off in self._offsets:
                 # sentinel rows (the pads) land in a spare row, dropped
                 x = _scatter_set(x, self._bnd[off][where],
-                                 bufs[off][:, j].reshape(-1, x.shape[1]),
-                                 x.shape[0])
+                                 bufs[off][:, :, j].reshape(
+                                     reps, -1, x.shape[-1]),
+                                 x.shape[1])
             pay, avail, touch, act = self._unpack(x)
             if last:
                 sp = self.core.send_edge(
@@ -616,30 +632,35 @@ class ShardedTorchEngine(TorchEngine):
                 rings.update(sp.rings)
                 sums = sp.sums
             else:
-                sub = {key: rings[key][self._rows_bnd_gather]
+                # index_select keeps the gathered rows contiguous, which
+                # the kernels' replicate fold needs
+                sub = {key: rings[key].index_select(1, self._rows_bnd_gather)
                        for key in _RING_KEYS}
                 sp = self.core.send_edge(
                     sub, avail, act, torch.zeros_like(avail), touch, pay,
                     self._sub_src, 1, want_sums=False)
+                # contiguous again (a copy when R > 1): the rings pass
+                # through the kernels' replicate fold
                 for key, val in sp.rings.items():
                     rings[key] = _scatter_set(rings[key], self._rows_bnd,
-                                              val, rings[key].shape[0])
+                                              val, rings[key].shape[1]
+                                              ).contiguous()
             acc_pad = _pad1(sp.accepted)
             for off in self._offsets:
-                acc[off].append(acc_pad[self._bnd[off][where]].reshape(
-                    S, self._bnd_bd[off]))
-        acc = {off: torch.stack(v, dim=1).to(torch.int32)
+                acc[off].append(acc_pad[:, self._bnd[off][where]].reshape(
+                    reps, S, self._bnd_bd[off]))
+        acc = {off: torch.stack(v, dim=2).to(torch.int32)
                for off, v in acc.items()}
         return rings, acc, sums
 
     def _fold_bits(self, bits, off, sums):
-        """Fold ``(att << 1) | accept`` bits ``(S, W, bd)`` of one offset
-        into the senders' attempted / ok / dropped sums."""
+        """Fold ``(att << 1) | accept`` bits ``(R, S, W, bd)`` of one
+        offset into the senders' attempted / ok / dropped sums."""
         att = (bits >> 1) & 1
         okb = bits & 1
-        cols = torch.stack([_i32_sum(att, 1), _i32_sum(att & okb, 1),
-                            _i32_sum(att & (1 - okb), 1)], dim=-1)
-        return sums + segment_sum(cols.reshape(-1, 3),
+        cols = torch.stack([_i32_sum(att, 2), _i32_sum(att & okb, 2),
+                            _i32_sum(att & (1 - okb), 2)], dim=-1)
+        return sums + segment_sum(cols.reshape(bits.shape[0], -1, 3),
                                   self._bnd[off]["snd_src"], self.n)
 
     def _final_window_pipelined(self, carry, stage_mid):
@@ -655,7 +676,7 @@ class ShardedTorchEngine(TorchEngine):
         u, active, drained_r, pads = self._window_inputs(carry)
         if pads is not None:
             Lp = self.bapp.payload_len
-            interior, own, kills = self._sends(carry["seed"], pads)
+            interior, own, kills = self._sends(batch_seed(carry), pads)
             # --- push the buffers staged at the PREVIOUS boundary ---------
             bufs = {off: u[f"fly_fwd_{off}"] for off in self._offsets}
             rings, acc, send_sums = self._push_passes(
@@ -669,10 +690,10 @@ class ShardedTorchEngine(TorchEngine):
             # --- dispatch the next hops, consumed at the NEXT boundary ----
             for off in self._offsets:
                 u[f"fly_fwd_{off}"] = mesh.hop(
-                    self._with_own(stage_mid, own, off), off)
+                    self._with_own(stage_mid, own, off), off, dim=1)
                 att_r = bufs[off][..., Lp + 2]
                 u[f"fly_acc_{off}"] = mesh.hop((att_r << 1) | acc[off],
-                                               -off)
+                                               -off, dim=1)
         return self._close_window(u, active, drained_r, release=True)
 
     def _flush(self, u):
@@ -682,27 +703,30 @@ class ShardedTorchEngine(TorchEngine):
         supersteps after the last update already processed is a no-op; the
         flush closes the books when the run ends with an exchange still in
         flight."""
-        Lp, R, dev = self.bapp.payload_len, self.shards * self._ein, \
+        Lp, rows, dev = self.bapp.payload_len, self.shards * self._ein, \
             self.device
+        reps = u["t"].shape[0]
         u = dict(u)
-        send_sums = torch.zeros((self.n, 3), dtype=torch.int32, device=dev)
+        send_sums = torch.zeros((reps, self.n, 3), dtype=torch.int32,
+                                device=dev)
         for off in self._offsets:
             send_sums = self._fold_bits(u[f"fly_acc_{off}"], off, send_sums)
         bufs = {off: u[f"fly_fwd_{off}"] for off in self._offsets}
         rings, acc, _ = self._push_passes(
             {key: u[key] for key in _RING_KEYS}, bufs,
-            torch.zeros((R, Lp + 3), dtype=torch.int32, device=dev),
+            torch.zeros((reps, rows, Lp + 3), dtype=torch.int32,
+                        device=dev),
             want_sums=False)
         u.update(rings)
         for off in self._offsets:
             att_r = bufs[off][..., Lp + 2]
-            back = mesh.hop((att_r << 1) | acc[off], -off)
+            back = mesh.hop((att_r << 1) | acc[off], -off, dim=1)
             send_sums = self._fold_bits(back, off, send_sums)
             u[f"fly_fwd_{off}"] = torch.zeros_like(u[f"fly_fwd_{off}"])
             u[f"fly_acc_{off}"] = torch.zeros_like(u[f"fly_acc_{off}"])
-        u.update(c_att=u["c_att"] + send_sums[:, 0],
-                 c_ok=u["c_ok"] + send_sums[:, 1],
-                 c_drop=u["c_drop"] + send_sums[:, 2])
+        u.update(c_att=u["c_att"] + send_sums[..., 0],
+                 c_ok=u["c_ok"] + send_sums[..., 1],
+                 c_drop=u["c_drop"] + send_sums[..., 2])
         return u
 
     # ------------------------------------------------------------------
@@ -714,31 +738,30 @@ class ShardedTorchEngine(TorchEngine):
             stage.append(staged)
         stage_mid = None
         if stage and stage[0]:
-            stage_mid = {off: torch.stack([s[off] for s in stage], dim=1)
+            stage_mid = {off: torch.stack([s[off] for s in stage], dim=2)
                          for off in self._offsets}
         if self.scheduler == "pipelined":
             return self._final_window_pipelined(carry, stage_mid)
         return self._final_window(carry, stage_mid)
 
-    def run_carry(self, seed: int):
-        """Run one replicate to completion; returns ``(carry, windows)``
-        with the carry in canonical process order.
+    def _run_chunk(self, carry):
+        """One chunk: ``_supersteps_per_call`` whole supersteps."""
+        for _ in range(self._supersteps_per_call):
+            carry = self._superstep(carry)
+        return carry
 
-        The done probe is read once per chunk of whole supersteps: the
-        windows after every process has stopped leave the state the result
-        is assembled from unchanged (pipelined buffers still in flight
-        deliver each message once, then or in the flush)."""
-        carry = self._to_sharded_layout(self._init_carry(int(seed)))
-        windows = 0
-        while windows < self._max_windows:
-            for _ in range(self._supersteps_per_call):
-                carry = self._superstep(carry)
-            windows += self._windows_per_call
-            # crashed processes never reach the horizon; the probe treats
-            # them as terminally stopped (position order, like the carry)
-            if bool((carry["done"] | self._crashed_pos).all()):
-                break
+    def run_batch(self, seeds):
+        """Run one replicate per seed, all in one chunk loop of whole
+        supersteps; returns ``(carry, windows)``, the carry batched and in
+        canonical process order.  The windows after a replicate has
+        stopped leave the state its result is assembled from unchanged
+        (pipelined buffers still in flight deliver each message once, then
+        or in the flush)."""
+        carry = self._to_sharded_layout(self._init_batch(seeds))
+        carry, windows, needed = self._chunks(carry)
         if (self.scheduler == "pipelined" and
                 self.cfg.mode != AsyncMode.NO_COMM):
             carry = self._flush(carry)
+        self.windows.extend([windows] * len(seeds))
+        self.windows_needed.extend(needed)
         return self._to_canonical_layout(carry), windows

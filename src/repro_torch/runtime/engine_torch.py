@@ -23,6 +23,13 @@ With ``scheduler="superstep"`` (dense only) W windows run against frozen
 base rings and one ``duct_commit`` per superstep folds their pushes into
 the rings; the trajectories are bitwise those of the per-window path.
 
+A sweep of seeds runs as one batch, as the reference's ``jax.vmap``
+dispatches it: every carry leaf has a leading replicate axis, the window
+phases run once over all replicates, and each duct kernel launches once a
+window whatever the number of seeds.  ``run_replicates_sequential`` runs
+the seeds one batch of one after another, the oracle the batched run is
+held to.
+
 On ``device="cuda"`` (the default) the duct ops run as hand-written CUDA
 kernels; on ``device="cpu"`` as their plain torch versions.  A run is a
 pure function of ``(config, seed)`` and reproduces the JAX engine's
@@ -53,6 +60,7 @@ from repro_torch.runtime.window_core import (
     LOCAL_RELEASE,
     STREAM_LAT,
     WindowCore,
+    batch_seed,
     lognormal_factor,
     make_dense_spec,
     segment_sum,
@@ -65,6 +73,16 @@ def _i32(x, dev) -> torch.Tensor:
 
 def _i64(x, dev) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.int64), device=dev)
+
+
+def stack_carries(carries: Sequence[Dict]) -> Dict:
+    """One carry per replicate -> the batch: every leaf stacked along a
+    new leading replicate axis, as ``jax.vmap`` takes them."""
+    first = carries[0]
+    return {k: (stack_carries([c[k] for c in carries])
+                if isinstance(first[k], dict)
+                else torch.stack([c[k] for c in carries]))
+            for k in first}
 
 
 class TorchEngine:
@@ -134,6 +152,9 @@ class TorchEngine:
         self._has_faults = bool(loss.any() or flap.any() or dead.any())
         self._any_crashed = bool(crashed_np.any())
         self._crashed = torch.as_tensor(crashed_np, device=dev)
+        #: what the done probe counts as stopped besides done: the crashed
+        #: processes, in the carry's process order
+        self._crashed_probe = self._crashed
         self._deg = _i32([topo.degree(p) for p in range(n)], dev)
         self._cfactor = torch.as_tensor(np.asarray(
             [self.faults.compute_factor(p) for p in range(n)], np.float32),
@@ -157,8 +178,13 @@ class TorchEngine:
                              "(pass layout='auto' or 'dense')")
         self.S = self.core.S
         self._max_windows = self.core.default_max_windows
-        #: lockstep windows each run of this engine executed, in order
+        #: lockstep windows each replicate run by this engine executed, in
+        #: order: a batch's replicates all execute the batch's windows
         self.windows: List[int] = []
+        #: per replicate, the windows after which the done probe first
+        #: found it stopped; the windows it executed past that count were
+        #: state-invariant (every process inactive)
+        self.windows_needed: List[int] = []
         if scheduler == "superstep":
             W = self.superstep_windows
             self._windows_per_call = max(1, self.chunk // W) * W
@@ -219,7 +245,13 @@ class TorchEngine:
                                              self.device)
         return self.core.dense_rings(self.R, self.device)
 
+    def _init_batch(self, seeds: Sequence[int]) -> Dict[str, torch.Tensor]:
+        """The batched carry of ``seeds``: one replicate's initial carry
+        per seed, stacked."""
+        return stack_carries([self._init_carry(int(s)) for s in seeds])
+
     def _init_carry(self, seed: int) -> Dict[str, torch.Tensor]:
+        """One replicate's initial carry (no replicate axis)."""
         n, dev = self.n, self.device
         seed_t = torch.tensor(seed, dtype=torch.int32, device=dev)
         t0 = float(self.core.base_total) * self._step_factor(
@@ -275,22 +307,22 @@ class TorchEngine:
     # ------------------------------------------------------------------
     def _window_body(self, carry):
         """One lockstep window on the edge-major layout: the core's drain
-        -> compute -> send phases over the full-population edge tables;
-        returns the new carry."""
+        -> compute -> send phases over the full-population edge tables of
+        every replicate; returns the new carry."""
         cfg, n = self.cfg, self.n
         core = self.core
         comm = cfg.mode != AsyncMode.NO_COMM
         esrc, edst = self._esrc, self._edst
-        seed, t = carry["seed"], carry["t"]
+        seed, t = batch_seed(carry), carry["t"]
         active = ~carry["done"] & ~carry["waiting"]
         if self._any_crashed:
             active = active & ~self._crashed
-        drained_r = torch.zeros(n, dtype=torch.int32, device=self.device)
+        drained_r = torch.zeros_like(carry["steps"])
         u = dict(carry)
 
         if comm:
             upd, drained_r = core.drain(
-                carry, t[edst], active[edst], halo_key=self._halo_key,
+                carry, t[:, edst], active[:, edst], halo_key=self._halo_key,
                 n_halo=n * 4, dst=edst, n_dst=n)
             u.update(upd)
 
@@ -302,52 +334,53 @@ class TorchEngine:
             # latency draws are keyed by (canonical edge, sender step
             # count), as on the dense layout
             lat = self._lat_base * lognormal_factor(
-                cfg.latency_sigma, seed, STREAM_LAT, self._eids, steps[esrc])
-            act_e = active[esrc]
+                cfg.latency_sigma, seed, STREAM_LAT, self._eids,
+                steps[:, esrc])
+            act_e = active[:, esrc]
             send_act = act_e
             if self._has_faults:
                 # a lost / flapped / dead-bound send is killed before the
                 # ring: it still counts attempted + dropped, and the
                 # per-cause sums attribute it
                 loss_kill, dead_kill = core.fault_masks(
-                    seed, t[esrc], steps[esrc], self._eids,
+                    seed, t[:, esrc], steps[:, esrc], self._eids,
                     self._loss, self._flap, self.faults.flap_period,
                     self._dead)
                 send_act = act_e & ~(loss_kill | dead_kill)
             sp = core.send_edge(
-                u, t[esrc], send_act, lat, u["ptouch"][self._rev],
-                edges_out[esrc, self._out_slot], esrc, n)
+                u, t[:, esrc], send_act, lat, u["ptouch"][:, self._rev],
+                edges_out[:, esrc, self._out_slot], esrc, n)
             u.update(sp.rings)
             if self._has_faults:
                 kill_cols = torch.stack(
                     [(act_e & loss_kill).to(torch.int32),
-                     (act_e & dead_kill).to(torch.int32)], dim=1)
+                     (act_e & dead_kill).to(torch.int32)], dim=-1)
                 ks = segment_sum(kill_cols, esrc, n)
-                killed = ks[:, 0] + ks[:, 1]
-                u.update(c_att=carry["c_att"] + sp.sums[:, 0] + killed,
-                         c_ok=carry["c_ok"] + sp.sums[:, 1],
-                         c_drop=carry["c_drop"] + sp.sums[:, 2] + killed,
-                         c_loss=carry["c_loss"] + ks[:, 0],
-                         c_dead=carry["c_dead"] + ks[:, 1])
+                killed = ks[..., 0] + ks[..., 1]
+                u.update(c_att=carry["c_att"] + sp.sums[..., 0] + killed,
+                         c_ok=carry["c_ok"] + sp.sums[..., 1],
+                         c_drop=carry["c_drop"] + sp.sums[..., 2] + killed,
+                         c_loss=carry["c_loss"] + ks[..., 0],
+                         c_dead=carry["c_dead"] + ks[..., 1])
             else:
-                u.update(c_att=carry["c_att"] + sp.sums[:, 0],
-                         c_ok=carry["c_ok"] + sp.sums[:, 1],
-                         c_drop=carry["c_drop"] + sp.sums[:, 2])
+                u.update(c_att=carry["c_att"] + sp.sums[..., 0],
+                         c_ok=carry["c_ok"] + sp.sums[..., 1],
+                         c_drop=carry["c_drop"] + sp.sums[..., 2])
         return self._finish_window(u, active, drained_r)
 
     def _window_body_dense(self, carry, fused: bool = False):
-        """One lockstep window on the dense bucketed layout; returns the new
-        carry.  With ``fused`` the drain runs against frozen base rings via
-        the superstep pushbuf (same pops, same accepts, same counters)."""
+        """One lockstep window on the dense bucketed layout over every
+        replicate; returns the new carry.  With ``fused`` the drain runs
+        against frozen base rings via the superstep pushbuf (same pops,
+        same accepts, same counters)."""
         cfg = self.cfg
         core = self.core
         comm = cfg.mode != AsyncMode.NO_COMM
-        seed, t = carry["seed"], carry["t"]
+        seed, t = batch_seed(carry), carry["t"]
         active = ~carry["done"] & ~carry["waiting"]
         if self._any_crashed:
             active = active & ~self._crashed
-        drained_r = torch.zeros(self.n, dtype=torch.int32,
-                                device=self.device)
+        drained_r = torch.zeros_like(carry["steps"])
         u = dict(carry)
 
         if comm:
@@ -370,11 +403,11 @@ class TorchEngine:
             src_c = self._d_src_c
             lat = self._d_lat * lognormal_factor(
                 cfg.latency_sigma, seed, STREAM_LAT, self._d_eid,
-                steps[src_c])
+                steps[:, src_c])
             km = None
             if self._has_faults:
                 km = core.fault_masks(
-                    seed, t[src_c], steps[src_c], self._d_eid,
+                    seed, t[:, src_c], steps[:, src_c], self._d_eid,
                     self._d_loss, self._d_flap, self.faults.flap_period,
                     self._d_dead)
             u.update(core.stage_dense(
@@ -385,8 +418,9 @@ class TorchEngine:
         return self._finish_window(u, active, drained_r)
 
     def _superstep_body(self, carry):
-        """One W-fused superstep: W windows against frozen base rings, then
-        ONE ``duct_commit`` folds the superstep's pushes into the rings."""
+        """One W-fused superstep over every replicate: W windows against
+        frozen base rings, then ONE ``duct_commit`` folds the superstep's
+        pushes into the rings."""
         for _ in range(self.superstep_windows):
             carry = self._window_body_dense(carry, fused=True)
         carry = dict(carry)
@@ -415,38 +449,62 @@ class TorchEngine:
     def run(self) -> SimResult:
         return self.run_replicates([self.cfg.seed])[0]
 
-    def run_carry(self, seed: int):
-        """Run one replicate to completion; returns ``(carry, windows)``.
+    def _chunks(self, carry):
+        """Run chunks of windows (``_run_chunk``) until the done probe
+        finds every replicate stopped or the window budget is spent;
+        returns ``(carry, windows, needed)``, ``needed`` per replicate.
 
-        The done probe is read once per chunk, never per window: the
-        windows after every process has stopped leave the state the
-        result is assembled from unchanged, so where in a chunk the run
-        ends does not change the result."""
-        carry = self._init_carry(int(seed))
-        windows = 0
+        The probe is read once per chunk, never per window, over every
+        replicate at once: the windows after all of a replicate's
+        processes have stopped leave the state its result is assembled
+        from unchanged, so where in a chunk, or in which later chunk, the
+        batch ends does not change any replicate's result."""
+        reps = carry["t"].shape[0]
+        windows, needed = 0, [None] * reps
         while windows < self._max_windows:
             carry = self._run_chunk(carry)
             windows += self._windows_per_call
             # crashed processes never reach the horizon; the probe treats
             # them as terminally stopped
-            stopped = carry["done"] | self._crashed
-            if bool(stopped.all()):
+            stopped = (carry["done"] | self._crashed_probe).all(dim=-1)
+            for r, s in enumerate(stopped.tolist()):
+                if s and needed[r] is None:
+                    needed[r] = windows
+            if all(x is not None for x in needed):
                 break
+        return carry, windows, [windows if x is None else x for x in needed]
+
+    def run_batch(self, seeds: Sequence[int]):
+        """Run one replicate per seed, all in one chunk loop; returns
+        ``(carry, windows)``, the carry batched (leading replicate
+        axis)."""
+        carry, windows, needed = self._chunks(self._init_batch(seeds))
+        self.windows.extend([windows] * len(seeds))
+        self.windows_needed.extend(needed)
         return carry, windows
 
     def run_replicates(self, seeds: Sequence[int]) -> List[SimResult]:
-        """One replicate per seed, run one after another."""
+        """One replicate per seed, run as one batch: every window phase
+        once over all replicates, each duct kernel one launch a window."""
+        carry, _ = self.run_batch(seeds)
+        carry = carry_to_numpy(carry)
+        return [self._assemble(carry, r) for r in range(len(seeds))]
+
+    def run_replicates_sequential(self, seeds: Sequence[int]
+                                  ) -> List[SimResult]:
+        """One replicate per seed, run one after another, each a batch of
+        one: the oracle ``run_replicates`` is held to."""
         out = []
         for s in seeds:
-            carry, windows = self.run_carry(s)
-            self.windows.append(windows)
-            out.append(self._assemble(carry_to_numpy(carry)))
+            carry, _ = self.run_batch([int(s)])
+            out.append(self._assemble(carry_to_numpy(carry), 0))
         return out
 
-    def _assemble(self, carry) -> SimResult:
-        app_state = carry["app"]
+    def _assemble(self, carry, r: int) -> SimResult:
+        """The SimResult of replicate ``r`` of a batched numpy carry."""
+        app_state = {k: v[r] for k, v in carry["app"].items()}
         return self.core.assemble(
-            carry, np.asarray(self._deg.cpu().numpy(), np.int64),
+            carry, r, np.asarray(self._deg.cpu().numpy(), np.int64),
             self.bapp.quality(app_state),
             app_state=(self.bapp.export_state(app_state)
                        if self.cfg.carry_app_state

@@ -26,7 +26,8 @@ CUDA kernels) or ``cpu`` (their plain torch versions); asking for ``cuda``
 without a card raises.  ``--superstep-windows W`` fuses W windows per ring
 commit (bitwise-identical trajectories), ``--layout edge`` runs the
 edge-major duct layout (one ring per edge), ``--replicates R`` sweeps R
-seeds (run one after another), and ``--qos-interval`` pins the snapshot
+seeds (one batch: every window runs once over all R replicates, each duct
+kernel one launch a window), and ``--qos-interval`` pins the snapshot
 spacing of the time-resolved ``qos_timeseries`` every row carries.
 ``--shards S`` partitions the population into S shards on the one device
 (the sharded engine: boundary hops per shard offset); with it,
@@ -356,8 +357,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "CUDA duct kernels; raises without a card) or cpu "
                         "(plain torch versions)")
     p.add_argument("--replicates", type=int, default=1,
-                   help="seeds per weak-scaling point (run one after "
-                        "another)")
+                   help="seeds per weak-scaling point (the torch engine "
+                        "runs them as one batch)")
     p.add_argument("--superstep-windows", type=int, default=1,
                    help="windows per superstep: unsharded, fused per ring "
                         "commit (bitwise-identical trajectories); with "

@@ -4,7 +4,7 @@ engine's lockstep windows.
     python -m repro_torch.runtime.profile_window [--procs 4096] [--windows 64]
         [--superstep-windows 1] [--simels 1] [--layout auto|dense|edge]
         [--app graphcolor|evo] [--shards 1] [--scheduler auto|pipelined]
-        [--arrival-rate 0]
+        [--arrival-rate 0] [--replicates 1]
 
 Builds the experiments CLI's configuration (torus, buffer 64, duration
 0.02, best-effort) for the given app and duct layout (``--app evo
@@ -22,7 +22,11 @@ device time of the kernels inside a ``record_function`` range around
 ``mesh.hop``.  ``--arrival-rate R`` > 0 feeds every process open-loop
 arrivals at R a virtual second (the serve family's poisson traffic), so
 the window carries the serve hook; 0 profiles the window without it.
-Needs a CUDA device.
+``--replicates R`` profiles a batch of R seeds (``--seed`` onward) in one
+carry, as ``run_replicates`` runs them: the launches a window should equal
+R = 1's, and the output adds the duct kernels' launches a window
+(``duct_launches_per_window``, counted by the kernels' wrappers).  Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from repro_torch.kernels.duct_exchange.kernel import LAUNCHES
 from repro_torch.launch import mesh
 from repro_torch.runtime import experiments
 from repro_torch.runtime.config import RunConfig
@@ -57,6 +62,8 @@ def main(argv=None) -> dict:
     p.add_argument("--arrival-rate", type=float, default=0.0,
                    help="open-loop arrivals per process per virtual second "
                         "(0: no serve hook in the window)")
+    p.add_argument("--replicates", type=int, default=1,
+                   help="seeds in the batch the windows run over")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_window needs a CUDA device")
@@ -83,7 +90,7 @@ def main(argv=None) -> dict:
             return eng._window_body(carry)
         return eng._window_body_dense(carry)
 
-    carry = eng._init_carry(args.seed)
+    carry = eng._init_batch(range(args.seed, args.seed + a.replicates))
     if sharded:
         carry = eng._to_sharded_layout(carry)
     for _ in range(max(1, 16 // W)):
@@ -98,6 +105,7 @@ def main(argv=None) -> dict:
             return real_hop(x, off, dim)
 
     mesh.hop = hop
+    duct0 = sum(LAUNCHES.values())
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -108,6 +116,7 @@ def main(argv=None) -> dict:
             wall = time.perf_counter() - t0
     finally:
         mesh.hop = real_hop
+    duct = sum(LAUNCHES.values()) - duct0
     windows = calls * W
     events = prof.key_averages()
     kern = [e for e in events
@@ -117,10 +126,11 @@ def main(argv=None) -> dict:
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
     out = dict(
         procs=a.procs, app=a.app, simels=a.simels, layout=eng.layout,
-        arrival_rate=a.arrival_rate,
+        arrival_rate=a.arrival_rate, replicates=a.replicates,
         superstep_windows=W, windows=windows,
         wall_ms_per_window=wall * 1e3 / windows,
         kernel_launches_per_window=launches / windows,
+        duct_launches_per_window=duct / windows,
         device_busy_ms_per_window=busy_us / 1e3 / windows,
         device_busy_share=(busy_us / 1e6) / wall if wall > 0 else None,
         top_kernels=[dict(name=e.key[:80], launches=e.count,

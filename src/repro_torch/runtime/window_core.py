@@ -32,6 +32,15 @@ reductions over all shards are the single-device ones), with
 :data:`PIPELINED_RELEASE` (decisions staged one superstep boundary), or
 with no release check inside a superstep.
 
+Every phase runs a batch of replicates at once: each carry leaf has a
+leading replicate axis, as ``jax.vmap`` gives the reference's (per-process
+leaves ``(R, n, ...)``, ring leaves ``(R, rows, ...)``, the seed and the
+window counter ``(R,)``), the static topology tables are shared by every
+replicate (broadcast, never copied), gathers and scatters run along the
+process or row axis after the replicate axis, and the release reductions
+reduce within each replicate.  Every duct kernel launches once a window
+for the whole batch (``ops.folds_replicates``).
+
 Every phase is a plain function of tensors on one device; dtypes follow
 the reference (bool stays bool, int32 stays int32), and every phase
 returns new tensors rather than updating its inputs.  All stochastic
@@ -161,21 +170,24 @@ def lognormal_factor(sigma: float, *keys) -> torch.Tensor:
 # Barrier-release strategies: where the close phase's global reductions run
 # ---------------------------------------------------------------------------
 class LocalRelease:
-    """Single-device release reductions: plain torch reductions returning
-    0-dim tensors, so the window loop never waits on the device."""
+    """Single-device release reductions: plain torch reductions over the
+    process axis of ``(R, n)`` tensors, one per replicate, returned as
+    ``(R, 1)`` so that they broadcast over that replicate's processes; the
+    window loop never waits on the device.  A reduction over the whole
+    batch would couple the seeds."""
 
     #: staged strategies consume reductions issued one superstep boundary
     #: earlier (see :class:`PipelinedRelease`)
     staged = False
 
     def all_stopped(self, x: torch.Tensor) -> torch.Tensor:
-        return x.all()
+        return x.all(dim=-1, keepdim=True)
 
     def any_waiting(self, x: torch.Tensor) -> torch.Tensor:
-        return x.any()
+        return x.any(dim=-1, keepdim=True)
 
     def max_time(self, x: torch.Tensor) -> torch.Tensor:
-        return x.max()
+        return x.amax(dim=-1, keepdim=True)
 
 
 #: the default strategy (one device holds the whole population)
@@ -194,8 +206,9 @@ class PipelinedRelease(LocalRelease):
     un-staged release would compute; only the lockstep window it lands on
     moves one superstep later.  ``close_window`` reads the carried
     decision from ``u["rel_ready"]`` / ``u["rel_t"]`` (and the quarantine
-    front from ``u["rel_ref"]``), 0-dim tensors every shard shares, and
-    stores fresh post-release reductions for the next boundary.
+    front from ``u["rel_ref"]``), ``(R,)`` tensors, one value a replicate
+    that every shard shares, and stores fresh post-release reductions for
+    the next boundary.
     """
 
     staged = True
@@ -207,8 +220,8 @@ PIPELINED_RELEASE = PipelinedRelease()
 class SendPhase(NamedTuple):
     """Result of one edge-major send attempt over a block of rings."""
     rings: Dict[str, torch.Tensor]   # q_avail / q_touch / q_size / q_pay
-    accepted: torch.Tensor           # (rows,) bool push accepted
-    sums: Optional[torch.Tensor]     # (n, 3) attempted/ok/dropped per process
+    accepted: torch.Tensor           # (R, rows) bool push accepted
+    sums: Optional[torch.Tensor]     # (R, n, 3) attempted/ok/dropped
 
 
 class BucketSlab(NamedTuple):
@@ -255,25 +268,29 @@ def make_dense_spec(plan, device) -> DenseSpec:
                      n_rows=int(plan.n_rows), buckets=tuple(slabs))
 
 
+# The gathers and scatters below index axis 1 of a batch, the process or
+# row axis after the replicate axis; the index tables are shared by every
+# replicate.
 def _gather_rows(x, members, n_dst):
-    """``x[clip(members, 0, n_dst - 1)]``."""
-    return x[members.clamp(0, n_dst - 1)]
+    """``x[:, clip(members, 0, n_dst - 1)]``."""
+    return x[:, members.clamp(0, n_dst - 1)]
 
 
 def _scatter_set(x, members, vals, n_dst):
-    """``x.at[members].set(vals, mode="drop")``: rows ``members`` take
+    """``x.at[:, members].set(vals, mode="drop")``: rows ``members`` take
     ``vals``; sentinel members (``== n_dst``) land in a spare row that is
     sliced off."""
-    ext = torch.cat([x, x[:1]])
-    ext[members] = vals
-    return ext[:n_dst]
+    ext = torch.cat([x, x[:, :1]], dim=1)
+    ext[:, members] = vals
+    return ext[:, :n_dst]
 
 
 def _scatter_add(x, members, vals, n_dst):
-    """``x.at[members].add(vals, mode="drop")`` with the spare-row drop."""
-    ext = torch.cat([x, torch.zeros_like(x[:1])])
-    ext.index_add_(0, members, vals)
-    return ext[:n_dst]
+    """``x.at[:, members].add(vals, mode="drop")`` with the spare-row
+    drop."""
+    ext = torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
+    ext.index_add_(1, members, vals)
+    return ext[:, :n_dst]
 
 
 def _i32_sum(x, dim):
@@ -281,12 +298,19 @@ def _i32_sum(x, dim):
 
 
 def segment_sum(x, seg, n_seg):
-    """``jax.ops.segment_sum(x, seg, num_segments=n_seg + 1)[:n_seg]``:
-    rows of ``x`` summed per segment id; sentinel ids (``== n_seg``) land
-    in the spare segment that is sliced off."""
-    zeros = torch.zeros((n_seg,) + tuple(x.shape[1:]), dtype=x.dtype,
-                        device=x.device)
+    """``jax.ops.segment_sum(x, seg, num_segments=n_seg + 1)[:n_seg]`` in
+    each replicate: rows of ``x`` (R, rows, ...) summed per segment id;
+    sentinel ids (``== n_seg``) land in the spare segment that is sliced
+    off."""
+    zeros = torch.zeros((x.shape[0], n_seg) + tuple(x.shape[2:]),
+                        dtype=x.dtype, device=x.device)
     return _scatter_add(zeros, seg, x, n_seg)
+
+
+def batch_seed(carry) -> torch.Tensor:
+    """The carry's ``(R,)`` seeds as ``(R, 1)``: the shape of a key that
+    broadcasts over each replicate's processes or rows."""
+    return carry["seed"][:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -433,58 +457,64 @@ class WindowCore:
         segment ``n_dst``, which land in the spare segment.  Popped slots
         read ``+inf`` after the drain, where the reference leaves them (see
         ``ops.duct_drain_torch``); nothing reads them."""
-        rows_n = t_rows.shape[0]
+        reps, rows_n = t_rows.shape
         rows = torch.arange(rows_n, dtype=torch.int32, device=t_rows.device)
         d = duct_drain(carry["q_avail"], carry["q_touch"],
                        carry["q_head"], carry["q_size"],
                        t_rows, act_rows, max_pops=self.max_pops)
         delivered = d.drained > 0
-        payload = carry["q_pay"][rows.long(), d.pop_pos.long()]  # (E, L)
         L = carry["halo"].shape[-1]
+        payload = carry["q_pay"].gather(
+            2, d.pop_pos.long()[..., None, None].expand(
+                reps, rows_n, 1, L))[:, :, 0]                # (R, E, L)
         new_touch = d.recv_touch + 1
         dtouch = torch.where(delivered, new_touch - carry["ptouch"], 0)
         ptouch = torch.where(delivered, new_touch, carry["ptouch"])
         recv_cols = torch.stack([d.drained, delivered.to(torch.int32),
-                                 dtouch], dim=1)
+                                 dtouch], dim=-1)
         # segment max over (receiver, slot) keys, spare segment n_halo
-        winner = torch.full((n_halo + 1,), -1, dtype=torch.int32,
+        winner = torch.full((reps, n_halo + 1), -1, dtype=torch.int32,
                             device=rows.device).scatter_reduce_(
-            0, halo_key, torch.where(delivered, rows, -1), "amax")[:n_halo]
+            1, halo_key.expand(reps, rows_n),
+            torch.where(delivered, rows, -1), "amax")[:, :n_halo]
         has_win = winner >= 0
-        fresh = payload[torch.where(has_win, winner, 0).long()]
-        halo = torch.where(has_win[:, None], fresh,
-                           carry["halo"].reshape(n_halo, L)).reshape(
-            n_dst, 4, L)
+        fresh = payload.gather(1, torch.where(has_win, winner, 0).long()[
+            ..., None].expand(reps, n_halo, L))
+        halo = torch.where(has_win[..., None], fresh,
+                           carry["halo"].reshape(reps, n_halo, L)).reshape(
+            reps, n_dst, 4, L)
         recv_sums = segment_sum(recv_cols, dst, n_dst)
         return dict(
             halo=halo, ptouch=ptouch,
-            c_msgs=carry["c_msgs"] + recv_sums[:, 0],
-            c_laden=carry["c_laden"] + recv_sums[:, 1],
-            c_touch=carry["c_touch"] + recv_sums[:, 2],
+            c_msgs=carry["c_msgs"] + recv_sums[..., 0],
+            c_laden=carry["c_laden"] + recv_sums[..., 1],
+            c_touch=carry["c_touch"] + recv_sums[..., 2],
             q_avail=d.q_avail, q_touch=d.q_touch,
-            q_head=d.head, q_size=d.size), recv_sums[:, 0]
+            q_head=d.head, q_size=d.size), recv_sums[..., 0]
 
     def _merge_buckets(self, spec: DenseSpec, halo, delivered, payload,
                        recv_cols):
         """Bucket-sliced halo merge + receiver counter reduction over flat
         dense rows.  Each receiver lives in exactly one bucket."""
-        L = halo.shape[-1]
+        reps, L = halo.shape[0], halo.shape[-1]
         cols = recv_cols.shape[-1]
-        recv_sums = torch.zeros((spec.n_dst, cols), dtype=recv_cols.dtype,
+        recv_sums = torch.zeros((reps, spec.n_dst, cols),
+                                dtype=recv_cols.dtype,
                                 device=recv_cols.device)
         for b in spec.buckets:
             sl = slice(b.start, b.start + b.nb * b.deg)
             hp, hw = dense_halo_select(
-                delivered[sl].reshape(b.nb, b.deg),
-                payload[sl].reshape(b.nb, b.deg, L))
-            sums_b = _i32_sum(recv_cols[sl].reshape(b.nb, b.deg, cols), 1)
+                delivered[:, sl].reshape(reps, b.nb, b.deg),
+                payload[:, sl].reshape(reps, b.nb, b.deg, L))
+            sums_b = _i32_sum(recv_cols[:, sl].reshape(reps, b.nb, b.deg,
+                                                       cols), 2)
             if b.members is None:
-                halo = torch.where(hw[:, :, None], hp, halo)
+                halo = torch.where(hw[..., None], hp, halo)
                 recv_sums = recv_sums + sums_b
             else:
                 old = _gather_rows(halo, b.members, spec.n_dst)
                 halo = _scatter_set(halo, b.members,
-                                    torch.where(hw[:, :, None], hp, old),
+                                    torch.where(hw[..., None], hp, old),
                                     spec.n_dst)
                 recv_sums = _scatter_add(recv_sums, b.members, sums_b,
                                          spec.n_dst)
@@ -492,23 +522,28 @@ class WindowCore:
 
     def window_dense(self, carry, t, active, *, spec: DenseSpec):
         """Dense-layout drain phase: per degree bucket, one fused
-        ``duct_window`` pass applies the previous window's staged sends,
-        drains at this window's clocks, and merges halos.  Returns
-        ``(carry updates, drained_r)``."""
+        ``duct_window`` pass over every replicate applies the previous
+        window's staged sends, drains at this window's clocks, and merges
+        halos.  Returns ``(carry updates, drained_r)``."""
         C = self.cfg.buffer_capacity
         L = carry["halo"].shape[-1]
+        reps = t.shape[0]
         n_dst = spec.n_dst
         halo = carry["halo"]
-        zeros = torch.zeros(n_dst, dtype=torch.int32, device=t.device)
+        zeros = torch.zeros((reps, n_dst), dtype=torch.int32,
+                            device=t.device)
         drained_r, laden_r, touch_r = zeros, zeros, zeros
         parts = {key: [] for key in ("q_avail", "q_touch", "q_pay", "q_head",
                                      "q_size", "ptouch")}
         for b in spec.buckets:
             sl = slice(b.start, b.start + b.nb * b.deg)
-            shp = (b.nb, b.deg)
+            shp = (reps, b.nb, b.deg)
 
             def slab(key, *tail):
-                return carry[key][sl].reshape(shp + tail)
+                # a view when one bucket covers every row (every built-in
+                # topology); a bucket of several is copied into one
+                # contiguous slab, which the kernel's fold needs
+                return carry[key][:, sl].reshape(shp + tail).contiguous()
 
             if b.members is None:
                 t_b, act_b = t, active
@@ -527,11 +562,11 @@ class WindowCore:
             pt_b = slab("ptouch")
             dtouch = torch.where(delivered, new_touch - pt_b, 0)
             pt_b = torch.where(delivered, new_touch, pt_b)
-            dr_b = _i32_sum(w.drained, 1)
-            laden_b = _i32_sum(delivered.to(torch.int32), 1)
-            tch_b = _i32_sum(dtouch, 1)
+            dr_b = _i32_sum(w.drained, 2)
+            laden_b = _i32_sum(delivered.to(torch.int32), 2)
+            tch_b = _i32_sum(dtouch, 2)
             if b.members is None:
-                halo = torch.where(w.halo_win[:, :, None], w.halo_pay, halo)
+                halo = torch.where(w.halo_win[..., None], w.halo_pay, halo)
                 drained_r = drained_r + dr_b
                 laden_r = laden_r + laden_b
                 touch_r = touch_r + tch_b
@@ -539,7 +574,7 @@ class WindowCore:
                 old = _gather_rows(halo, b.members, n_dst)
                 halo = _scatter_set(
                     halo, b.members,
-                    torch.where(w.halo_win[:, :, None], w.halo_pay, old),
+                    torch.where(w.halo_win[..., None], w.halo_pay, old),
                     n_dst)
                 drained_r = _scatter_add(drained_r, b.members, dr_b, n_dst)
                 laden_r = _scatter_add(laden_r, b.members, laden_b, n_dst)
@@ -548,10 +583,10 @@ class WindowCore:
             for key, val in (("q_avail", w.q_avail), ("q_touch", w.q_touch),
                              ("q_pay", w.q_pay), ("q_head", w.head),
                              ("q_size", w.size), ("ptouch", pt_b)):
-                parts[key].append(val.reshape((rows,) + val.shape[2:]))
+                parts[key].append(val.reshape((reps, rows) + val.shape[3:]))
         # the buckets tile the flat rows in order, so the new ring state is
         # the concatenation of the per-bucket outputs
-        new = {key: (vals[0] if len(vals) == 1 else torch.cat(vals))
+        new = {key: (vals[0] if len(vals) == 1 else torch.cat(vals, dim=1))
                for key, vals in parts.items()}
         new.update(
             halo=halo,
@@ -565,45 +600,46 @@ class WindowCore:
         """One window of the W-fused superstep scheduler.
 
         The base rings are frozen for the whole superstep: this window's
-        accepted push appends to the compact ``(R, W)`` pushbuf, and the
+        accepted push appends to the compact ``(rows, W)`` pushbuf, and the
         drain walks the base FIFO prefix, then (once every base message is
         popped) the pushbuf prefix.  Pops, accepts and counters are bitwise
         identical to running ``window_dense`` every window.  Returns
         ``(carry updates, drained_r)``."""
         C = self.cfg.buffer_capacity
-        R = spec.n_rows
         P = self.max_pops
+        reps, R = carry["q_head"].shape
         W = carry["pb_avail"].shape[-1]
         dev = t.device
         # --- append the previous window's staged send to the pushbuf ------
-        wcol = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
-        at = carry["stage_acc"][:, None] & (wcol == carry["pb_cnt"][:, None])
-        pb_avail = torch.where(at, carry["stage_avail"][:, None],
+        wcol = torch.arange(W, dtype=torch.int32, device=dev)
+        at = carry["stage_acc"][..., None] & (
+            wcol == carry["pb_cnt"][..., None])
+        pb_avail = torch.where(at, carry["stage_avail"][..., None],
                                carry["pb_avail"])
-        pb_touch = torch.where(at, carry["stage_touch"][:, None],
+        pb_touch = torch.where(at, carry["stage_touch"][..., None],
                                carry["pb_touch"])
-        pb_pay = torch.where(at[:, :, None], carry["stage_pay"][:, None, :],
+        pb_pay = torch.where(at[..., None], carry["stage_pay"][:, :, None, :],
                              carry["pb_pay"])
         pb_cnt = carry["pb_cnt"] + carry["stage_acc"]
         # --- drain: base-prefix walk, head-blocking, bounded --------------
-        t_r = t[dst_row]
-        act_r = active[dst_row]
+        t_r = t[:, dst_row]
+        act_r = active[:, dst_row]
         base_rem = carry["size0"] - carry["dr_base"]
         off = carry["base_off"]
         odt = off.dtype
-        blocked = ((off >= carry["dr_base"].to(odt)[:, None]) &
-                   (off < carry["size0"].to(odt)[:, None]) &
-                   (carry["q_avail"] > t_r[:, None]))
+        blocked = ((off >= carry["dr_base"].to(odt)[..., None]) &
+                   (off < carry["size0"].to(odt)[..., None]) &
+                   (carry["q_avail"] > t_r[..., None]))
         first_block = torch.where(
-            blocked, off, torch.tensor(C, dtype=odt, device=dev)).amin(dim=1)
+            blocked, off, torch.tensor(C, dtype=odt, device=dev)).amin(dim=-1)
         n1 = torch.minimum(first_block.to(torch.int32) - carry["dr_base"],
                            torch.clamp(base_rem, max=P))
         n1 = torch.where(act_r, n1, 0)
         # --- then the pushbuf prefix, within the same max_pops budget -----
-        pb_ok = ((wcol < pb_cnt[:, None]) & (pb_avail <= t_r[:, None])) | (
-            wcol < carry["pb_pop"][:, None])
-        run = (_i32_sum(torch.cumprod(pb_ok.to(torch.int32), dim=1,
-                                      dtype=torch.int32), 1) -
+        pb_ok = ((wcol < pb_cnt[..., None]) & (pb_avail <= t_r[..., None])) | (
+            wcol < carry["pb_pop"][..., None])
+        run = (_i32_sum(torch.cumprod(pb_ok.to(torch.int32), dim=-1,
+                                      dtype=torch.int32), -1) -
                carry["pb_pop"])
         n2 = torch.minimum(torch.clamp(run, min=0), P - n1)
         n2 = torch.where(act_r & (n1 == base_rem), n2, 0).to(torch.int32)
@@ -612,41 +648,42 @@ class WindowCore:
         # --- freshest popped message (touch stamp + payload) --------------
         L = carry["q_pay"].shape[-1]
         last_b = ((carry["q_head"] + carry["dr_base"] + n1 - 1) % C
-                  ).long()[:, None]
-        tch_b = carry["q_touch"].gather(1, last_b)[:, 0]
+                  ).long()[..., None]
+        tch_b = carry["q_touch"].gather(-1, last_b)[..., 0]
         pay_b = carry["q_pay"].gather(
-            1, last_b[:, :, None].expand(R, 1, L))[:, 0]
+            2, last_b[..., None].expand(reps, R, 1, L))[:, :, 0]
         last_p = torch.clamp(carry["pb_pop"] + n2 - 1, 0, W - 1
-                             ).long()[:, None]
-        tch_p = pb_touch.gather(1, last_p)[:, 0]
-        pay_p = pb_pay.gather(1, last_p[:, :, None].expand(R, 1, L))[:, 0]
+                             ).long()[..., None]
+        tch_p = pb_touch.gather(-1, last_p)[..., 0]
+        pay_p = pb_pay.gather(
+            2, last_p[..., None].expand(reps, R, 1, L))[:, :, 0]
         has2 = n2 > 0
         recv_touch = torch.where(has2, tch_p, torch.where(n1 > 0, tch_b, 0))
-        fresh_pay = torch.where(has2[:, None], pay_p, pay_b)
+        fresh_pay = torch.where(has2[..., None], pay_p, pay_b)
         # --- halo merge + receiver counters (shared bucket machinery) -----
         new_touch = recv_touch + 1
         dtouch = torch.where(delivered, new_touch - carry["ptouch"], 0)
         ptouch = torch.where(delivered, new_touch, carry["ptouch"])
         recv_cols = torch.stack([drained, delivered.to(torch.int32),
-                                 dtouch], dim=1)
+                                 dtouch], dim=-1)
         halo, recv_sums = self._merge_buckets(
             spec, carry["halo"], delivered, fresh_pay, recv_cols)
         return dict(
             halo=halo, ptouch=ptouch,
-            c_msgs=carry["c_msgs"] + recv_sums[:, 0],
-            c_laden=carry["c_laden"] + recv_sums[:, 1],
-            c_touch=carry["c_touch"] + recv_sums[:, 2],
+            c_msgs=carry["c_msgs"] + recv_sums[..., 0],
+            c_laden=carry["c_laden"] + recv_sums[..., 1],
+            c_touch=carry["c_touch"] + recv_sums[..., 2],
             q_size=carry["q_size"] - drained,
             dr_base=carry["dr_base"] + n1.to(torch.int32),
             pb_pop=carry["pb_pop"] + n2,
             pb_cnt=pb_cnt, pb_avail=pb_avail, pb_touch=pb_touch,
-            pb_pay=pb_pay), recv_sums[:, 0]
+            pb_pay=pb_pay), recv_sums[..., 0]
 
     def commit_superstep(self, carry):
-        """Superstep epilogue: ONE ``duct_commit`` launch folds the whole
-        superstep's accepted pushes into the base rings (push j of ring r
-        lands at slot ``(head0 + size0 + j) % C``) and re-bases the
-        head/size counters for the next superstep."""
+        """Superstep epilogue: ONE ``duct_commit`` launch over every
+        replicate folds the whole superstep's accepted pushes into the base
+        rings (push j of ring r lands at slot ``(head0 + size0 + j) % C``)
+        and re-bases the head/size counters for the next superstep."""
         C = self.cfg.buffer_capacity
         qa, qt, qp = duct_commit(
             carry["q_avail"], carry["q_touch"], carry["q_pay"],
@@ -659,25 +696,25 @@ class WindowCore:
         size0 = (carry["size0"] - carry["dr_base"] +
                  carry["pb_cnt"] - carry["pb_pop"])
         head = (carry["q_head"] + carry["dr_base"] + carry["pb_pop"]) % C
-        col = torch.arange(C, dtype=torch.int32, device=head.device)[None, :]
+        col = torch.arange(C, dtype=torch.int32, device=head.device)
         return dict(
             q_avail=qa, q_touch=qt, q_pay=qp, q_head=head,
             size0=size0, dr_base=z, pb_cnt=z, pb_pop=z,
-            base_off=((col - head[:, None]) % C).to(self._off_dtype()))
+            base_off=((col - head[..., None]) % C).to(self._off_dtype()))
 
     # ------------------------------------------------------------------
     # Phase 2: compute
     # ------------------------------------------------------------------
     def compute(self, carry, active, halo, pids):
-        """The application's batched compute, masked by activity.
-        Returns ``(app_state, edges_out, steps)``."""
-        n = active.shape[0]
+        """The application's batched compute over every replicate, masked
+        by activity.  Returns ``(app_state, edges_out, steps)``."""
         new_state, edges_out = self.bapp.step(carry["app"], halo,
-                                              carry["steps"], carry["seed"],
-                                              pids=pids)
+                                              carry["steps"],
+                                              batch_seed(carry), pids=pids)
         app_state = {
             key: torch.where(
-                active.reshape((n,) + (1,) * (new.dim() - 1)), new,
+                active.reshape(active.shape +
+                               (1,) * (new.dim() - active.dim())), new,
                 carry["app"][key])
             for key, new in new_state.items()}
         return app_state, edges_out, carry["steps"] + active
@@ -693,24 +730,25 @@ class WindowCore:
         in the spare segment; ``want_sums=False`` skips the sums).  The
         payload is written only into the accepted rows' push slots; the
         other rows' writes go to a spare row that is sliced off."""
-        rows_n = rings["q_avail"].shape[0]
+        reps, rows_n = rings["q_avail"].shape[:2]
         rows = torch.arange(rows_n, dtype=torch.int64, device=now.device)
         s = duct_send(rings["q_avail"], rings["q_touch"],
                       rings["q_head"], rings["q_size"],
                       now, act, lat, touch,
                       capacity=self.cfg.buffer_capacity)
-        q_pay = torch.cat([rings["q_pay"], rings["q_pay"][:1]])
-        q_pay[torch.where(s.accepted, rows, rows_n), s.push_pos.long()] = \
-            payload
+        q_pay = torch.cat([rings["q_pay"], rings["q_pay"][:, :1]], dim=1)
+        rep = torch.arange(reps, dtype=torch.int64, device=now.device)
+        q_pay[rep[:, None], torch.where(s.accepted, rows, rows_n),
+              s.push_pos.long()] = payload
         sums = None
         if want_sums:
             send_cols = torch.stack([
                 act.to(torch.int32), (act & s.accepted).to(torch.int32),
-                (act & ~s.accepted).to(torch.int32)], dim=1)
+                (act & ~s.accepted).to(torch.int32)], dim=-1)
             sums = segment_sum(send_cols, src, n_src)
         return SendPhase(
             rings=dict(q_avail=s.q_avail, q_touch=s.q_touch,
-                       q_size=s.size, q_pay=q_pay[:rows_n]),
+                       q_size=s.size, q_pay=q_pay[:, :rows_n]),
             accepted=s.accepted, sums=sums)
 
     # ------------------------------------------------------------------
@@ -723,39 +761,40 @@ class WindowCore:
         post-drain rings (so counters land in this window) and defer only
         the ring writes to the next fused pass.  ``live`` masks the dead
         padding rows: they never accept a push."""
-        n = t.shape[0]
+        reps, n = t.shape
         src_c = src.clamp(0, n - 1)     # sentinel n on dead rows
-        s_avail = t[src_c] + lat
-        s_act = live & active[src_c]
+        s_avail = t[:, src_c] + lat
+        s_act = live & active[:, src_c]
         if kill_masks is not None:
             # a lost / flapped / dead-bound send still counts as attempted
             # but never reaches the ring, so it folds into c_drop via
             # att - ok like a capacity drop; loss_r/dead_r attribute it
             loss_kill, dead_kill = kill_masks
             s_act = s_act & ~(loss_kill | dead_kill)
-        s_touch = u["ptouch"][rev]
-        s_pay = edges_out[src_c, out_slot]
+        s_touch = u["ptouch"][:, rev]
+        s_pay = edges_out[:, src_c, out_slot]
         s_pos, s_acc = dense_stage(u["q_head"], u["q_size"], s_act,
                                    capacity=self.cfg.buffer_capacity)
         # acceptance of receiver p's own sends lives at its out-edge rows
         # rev[rows of p]; dead rows rev to themselves and contribute 0
-        acc_out = s_acc[rev].to(torch.int32)
+        acc_out = s_acc[:, rev].to(torch.int32)
         cols = [acc_out]
         if kill_masks is not None:
-            sender_act = (live & active[src_c]).to(torch.int32)
-            cols.append((loss_kill.to(torch.int32) * sender_act)[rev])
-            cols.append((dead_kill.to(torch.int32) * sender_act)[rev])
-        out_cols = torch.stack(cols, dim=1)
-        sums_r = torch.zeros((spec.n_dst, out_cols.shape[1]),
+            sender_act = (live & active[:, src_c]).to(torch.int32)
+            cols.append((loss_kill.to(torch.int32) * sender_act)[:, rev])
+            cols.append((dead_kill.to(torch.int32) * sender_act)[:, rev])
+        out_cols = torch.stack(cols, dim=-1)
+        sums_r = torch.zeros((reps, spec.n_dst, out_cols.shape[-1]),
                              dtype=torch.int32, device=t.device)
         for b in spec.buckets:
             sl = slice(b.start, b.start + b.nb * b.deg)
-            sums_b = _i32_sum(out_cols[sl].reshape(b.nb, b.deg, -1), 1)
+            sums_b = _i32_sum(out_cols[:, sl].reshape(reps, b.nb, b.deg, -1),
+                              2)
             if b.members is None:
                 sums_r = sums_r + sums_b
             else:
                 sums_r = _scatter_add(sums_r, b.members, sums_b, spec.n_dst)
-        ok_r = sums_r[:, 0]
+        ok_r = sums_r[..., 0]
         att_r = torch.where(active, deg, 0)
         out = dict(q_size=u["q_size"] + s_acc,
                    c_att=carry["c_att"] + att_r,
@@ -764,8 +803,8 @@ class WindowCore:
                    stage_pos=s_pos, stage_acc=s_acc, stage_avail=s_avail,
                    stage_touch=s_touch, stage_pay=s_pay)
         if kill_masks is not None:
-            out["c_loss"] = carry["c_loss"] + sums_r[:, 1]
-            out["c_dead"] = carry["c_dead"] + sums_r[:, 2]
+            out["c_loss"] = carry["c_loss"] + sums_r[..., 1]
+            out["c_dead"] = carry["c_dead"] + sums_r[..., 2]
         return out
 
     # ------------------------------------------------------------------
@@ -787,7 +826,7 @@ class WindowCore:
         mode = cfg.mode
         barriered = mode in BARRIER_MODES
         t, steps = u["t"], u["steps"]
-        n = t.shape[0]
+        reps, n = t.shape
         done, waiting = u["done"], u["waiting"]
         # rolling barriers meter their quantum on the WORK clock: compute
         # plus the (degree-fixed) halo pull cost, so the update schedule is
@@ -808,13 +847,15 @@ class WindowCore:
             u["c_att"].to(torch.float32), u["c_ok"].to(torch.float32),
             u["c_drop"].to(torch.float32),
             u["c_laden"].to(torch.float32),
-            u["c_msgs"].to(torch.float32), t], dim=1)
+            u["c_msgs"].to(torch.float32), t], dim=-1)
         # snapshot scatter without a host sync: rows that are not due
         # rewrite the value already at their (clamped) slot
+        rr = torch.arange(reps, device=t.device)[:, None]
         ar = torch.arange(n, device=t.device)
         slot = snap_idx.clamp(max=self.S - 1).long()
         snap = u["snap"].clone()
-        snap[ar, slot] = torch.where(snap_due[:, None], row, snap[ar, slot])
+        snap[rr, ar, slot] = torch.where(snap_due[..., None], row,
+                                         snap[rr, ar, slot])
         snap_idx = snap_idx + snap_due
 
         # --- termination / barriers / time advance ------------------------
@@ -833,7 +874,7 @@ class WindowCore:
         if served is not None:
             arr_cum = u["arr_cum"]
             b = arrival_bin_index(t, cfg.arrival_bin, arr_cum.shape[-1] - 1)
-            avail = arr_cum[ar, b.long()]
+            avail = arr_cum[rr, ar, b.long()]
             serve = torch.clamp(avail - served, 0, cfg.service_chunk)
             serve = torch.where(active & ~newly_done, serve, 0)
             pending = pending + serve.to(torch.float32) * _f32(
@@ -841,7 +882,7 @@ class WindowCore:
             served = served + serve
 
         d_next = _f32(self.base_total) * self.step_factor(
-            u["seed"], steps, pids, cfactor)
+            batch_seed(u), steps, pids, cfactor)
         barrier_seq = u["barrier_seq"]
         last_release = u["last_release"]
         pending_saved = u["pending"]
@@ -866,10 +907,10 @@ class WindowCore:
                 if release.staged:
                     # pipelined: apply the decision issued one boundary
                     # earlier (frozen cohort, see PipelinedRelease)
-                    release_ready = u["rel_ready"]
-                    release_t = u["rel_t"]
+                    release_ready = u["rel_ready"][:, None]
+                    release_t = u["rel_t"][:, None]
                     if quarantined:
-                        ref = u["rel_ref"]
+                        ref = u["rel_ref"][:, None]
                 elif quarantined:
                     # quarantine release: a non-waiting, non-done process's
                     # clock is its next barrier arrival, so "unreachable"
@@ -929,14 +970,14 @@ class WindowCore:
                     release.any_waiting(waiting) &
                     release.all_stopped(fstopped | quar | funreach))
                 fresh_t = fref + _f32(self.barrier_cost)
-                out["rel_ref"] = fref
+                out["rel_ref"] = fref[:, 0]
             else:
                 fresh_ready = (release.all_stopped(waiting | done) &
                                release.any_waiting(waiting))
                 fresh_t = (release.max_time(
                     torch.where(waiting, t, -torch.inf)) +
                     _f32(self.barrier_cost))
-            out.update(rel_ready=fresh_ready, rel_t=fresh_t)
+            out.update(rel_ready=fresh_ready[:, 0], rel_t=fresh_t[:, 0])
         return out
 
     def _quarantine_ref(self, release, t, waiting, quar):
@@ -950,13 +991,16 @@ class WindowCore:
     # ------------------------------------------------------------------
     # QoS assembly
     # ------------------------------------------------------------------
-    def assemble(self, carry, deg: np.ndarray, quality: float,
+    def assemble(self, carry, r: int, deg: np.ndarray, quality: float,
                  app_state=None) -> SimResult:
-        """Numpy-vectorized QoS assembly from one replicate's carry (a dict
-        of numpy arrays); the math mirrors ``core.qos.report`` exactly."""
+        """Numpy-vectorized QoS assembly of replicate ``r`` of a batched
+        carry (a dict of numpy arrays); the math mirrors
+        ``core.qos.report`` exactly."""
         cfg = self.cfg
         n = deg.shape[0]
         comm = cfg.mode != AsyncMode.NO_COMM
+        carry = {key: val[r] for key, val in carry.items()
+                 if not isinstance(val, dict)}
         snap = np.asarray(carry["snap"], np.float64)          # (n, S, 8)
         snap_idx = np.asarray(carry["snap_idx"])
         steps = np.asarray(carry["steps"])

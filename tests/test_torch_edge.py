@@ -38,7 +38,7 @@ from repro_torch.interop import carry_from_numpy, carry_to_numpy  # noqa: E402
 from repro_torch.runtime.config import RunConfig  # noqa: E402
 from repro_torch.runtime.engine import make_engine  # noqa: E402
 from repro_torch.runtime.engine_torch import TorchEngine  # noqa: E402
-from torch_cases import torch_scenario  # noqa: E402
+from torch_cases import as_one_replicate, torch_scenario  # noqa: E402
 
 SUBSET = [
     "torus-best-effort",                     # regular degree 4
@@ -108,7 +108,8 @@ def test_carry_across_one_edge_window(name):
     start = jax.device_get(carry)
     assert int(np.sum(start["q_size"])) > 0, "rings hold traffic"
     want = jax.device_get(body(carry))
-    got = carry_to_numpy(teng._window_body(carry_from_numpy(start, "cpu")))
+    got = carry_to_numpy(as_one_replicate(
+        teng._window_body, carry_from_numpy(start, "cpu")))
     assert sorted(got) == sorted(want)
     live = _live(want)
     for key in want:

@@ -41,7 +41,12 @@ from repro_torch.runtime.config import RunConfig  # noqa: E402
 from repro_torch.runtime.engine import make_engine  # noqa: E402
 from repro_torch.runtime.engine_torch import TorchEngine  # noqa: E402
 from repro_torch.runtime.experiments import main as cli_main  # noqa: E402
-from torch_cases import torch_app, torch_cfg, torch_scenario  # noqa: E402
+from torch_cases import (  # noqa: E402
+    as_one_replicate,
+    torch_app,
+    torch_cfg,
+    torch_scenario,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -101,8 +106,8 @@ def test_carry_across_one_window(scenario):
     start = jax.device_get(carry)
     assert int(np.sum(start["q_size"])) > 0, "rings hold traffic"
     want = jax.device_get(body(carry))
-    got = carry_to_numpy(teng._window_body_dense(
-        carry_from_numpy(start, "cpu")))
+    got = carry_to_numpy(as_one_replicate(
+        teng._window_body_dense, carry_from_numpy(start, "cpu")))
     _assert_carry_equal(got, want)
 
 
@@ -118,8 +123,8 @@ def test_carry_across_one_superstep(topology):
     start = jax.device_get(carry)
     assert start["base_off"].dtype == np.int8
     want = jax.device_get(body(carry))
-    got = carry_to_numpy(teng._superstep_body(
-        carry_from_numpy(start, "cpu")))
+    got = carry_to_numpy(as_one_replicate(
+        teng._superstep_body, carry_from_numpy(start, "cpu")))
     _assert_carry_equal(got, want)
 
 

@@ -42,7 +42,11 @@ from repro_torch.interop import carry_from_numpy, carry_to_numpy  # noqa: E402
 from repro_torch.runtime.config import RunConfig  # noqa: E402
 from repro_torch.runtime.engine import make_engine  # noqa: E402
 from repro_torch.runtime.engine_torch import TorchEngine  # noqa: E402
-from torch_cases import torch_cfg, torch_evo_app  # noqa: E402
+from torch_cases import (  # noqa: E402
+    as_one_replicate,
+    torch_cfg,
+    torch_evo_app,
+)
 
 #: (topology, n, cells per process): a square block, a ring (degree 2, so
 #: two halo slots are reflective), an irregular smallworld, and a
@@ -179,7 +183,7 @@ def test_carry_across_one_dense_window():
     tstart = carry_from_numpy(start, "cpu")
     assert tstart["app"]["acc"].dtype == torch.int64
     want = jax.device_get(body(carry))
-    got = carry_to_numpy(teng._window_body_dense(tstart))
+    got = carry_to_numpy(as_one_replicate(teng._window_body_dense, tstart))
     assert sorted(got) == sorted(want)
     for key in want:
         a, b = want[key], got[key]

@@ -68,7 +68,12 @@ from repro_torch.runtime.topologies import (  # noqa: E402
     patch_topology,
 )
 from repro_torch.runtime.window_core import arrival_bin_index  # noqa: E402
-from torch_cases import torch_app, torch_cfg, torch_faults  # noqa: E402
+from torch_cases import (  # noqa: E402
+    as_one_replicate,
+    torch_app,
+    torch_cfg,
+    torch_faults,
+)
 
 #: the serve scenarios of tests/test_service.py's exact parity check:
 #: (arrival shape, mode); poisson keeps clocks lockstep under saturation,
@@ -258,8 +263,8 @@ def test_one_window_from_the_jax_carry():
     start = jax.device_get(carry)
     assert int(np.sum(start["served"])) > 0
     want = jax.device_get(body(carry))
-    got = carry_to_numpy(teng._window_body_dense(
-        carry_from_numpy(start, "cpu")))
+    got = carry_to_numpy(as_one_replicate(
+        teng._window_body_dense, carry_from_numpy(start, "cpu")))
     assert sorted(got) == sorted(want)
     for key in ("served", "pending", "t", "steps", "done"):
         a, b = np.asarray(want[key]), np.asarray(got[key])

@@ -136,9 +136,9 @@ def test_pipelined_conservation_across_flush(mode, w):
                                 superstep_windows=w, scheduler="pipelined"),
                       torch_app(64, "torus", case_seed("torus")), cfg,
                       chunk=64, device="cpu")
-    carry, _ = eng.run_carry(cfg.seed)
+    carry, _ = eng.run_batch([cfg.seed])
     c = carry_to_numpy(carry)
-    res = eng._assemble(c)
+    res = eng._assemble(c, 0)
     att, ok, drop = (int(np.sum(c[k])) for k in ("c_att", "c_ok", "c_drop"))
     msgs, inring = int(np.sum(c["c_msgs"])), int(np.sum(c["q_size"]))
     assert att == ok + drop, (att, ok, drop)

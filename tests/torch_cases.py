@@ -34,6 +34,16 @@ TORCH_THREADS = 2
 torch.set_num_threads(TORCH_THREADS)
 
 
+def as_one_replicate(body, carry):
+    """Run a window body, which takes a batch of replicates, on one
+    replicate's carry (no replicate axis), as the reference's body runs
+    under vmap: a batch of one, handed back without the axis."""
+    def tree(fn, c):
+        return {k: tree(fn, v) if isinstance(v, dict) else fn(v)
+                for k, v in c.items()}
+    return tree(lambda x: x[0], body(tree(lambda x: x[None], carry)))
+
+
 def torch_app(n: int, topology: str, seed: int, simels: int = 1):
     return GraphColorApp(
         GraphColorConfig(n_processes=n, nodes_per_process=simels, seed=seed),
