@@ -200,7 +200,8 @@ phase fails:
                (phase 5's torus-1024 under the window, W=8 superstep and
                W=8 pipelined schedulers, evo on torus-64); phase 6's
                torus-4096 at 8 shards equals its unsharded result, then
-               W=8 superstep, W=8 pipelined and 64 shards (0.005 s):
+               the 8-shard window again, W=8 superstep, W=8 pipelined and
+               64 shards (0.005 s):
                windows executed and needed, duct launches a window (the
                edge-major ``drain`` and ``send`` only), hops a superstep,
                bytes a hop; the paper's faulty
@@ -246,20 +247,37 @@ phase fails:
   21. replicates  batched replicates, a sweep of seeds in one carry: (a)
                the weak-scaling sweep through the CLI, ``--procs 256
                --replicates 32`` (8192 processes in one carry; duration
-               cut to 0.0005), then the same seeds through the sequential
+               cut to 0.00025), then the same seeds through the sequential
                loop, every SimResult field equal; wall s, duct launches a
                window and busy share of both; seeds of phase 4's lossy
                torus-16 that stop in different windows, one window a
                chunk: each replicate equals its own run; (b) phase 6's graph
-               coloring torus-4096 (0.02 s) at R = 8, dense window and W =
+               coloring torus-4096 (0.0025 s) at R = 8, dense window and W =
                8: duct launches a window equal phase 6's R = 1, ms a
                window and updates/s summed over the replicates beside
-               phase 6's (W = 8 at 0.005 s); card == CPU at R = 3 on
+               phase 6's; card == CPU at R = 3 on
                graph coloring torus-256 (int32) and evo torus-64
                (float32); (c) torus-4096 at R = 4 (0.0025 s): 8 shards ==
                unsharded, every SimResult field; then the duct kernels at
                the shapes one launch covers there, against their plain
                versions, with their bounds
+  22. ranks    the shard axis over torch.distributed ranks: (a) gc
+               torus-4096 at 8 shards over 2 gloo ranks that the phase
+               spawns on the one card (boundary buffers and release
+               reductions staged through pinned host memory), under the
+               window and W=8 pipelined schedulers (0.005 s):
+               every SimResult field of each rank equals phase 18's
+               one-process run; and in barrier mode 0 (0.00125 s, every
+               window a release all-reduced) equal to the one-process
+               run made here; (b) the window and pipelined runs over 1
+               NCCL rank in this process; (c) phase 20's (16, 16) mesh of
+               256 x 256 blocks, its rows over the 2 gloo ranks, 20
+               best-effort steps equal to one process bitwise; (d) per
+               run and rank: ms a window, duct launches a window, hops
+               and the exchanges that move them a window (the hops one
+               phase has ready go in one exchange, one wait on the card),
+               the hops' host and device ms a window, bytes a hop,
+               all-reduces a window, beside the one-process run's
 
 It imports nothing of JAX or of the JAX package.  The line before the last
 is a JSON object with one record per kernel and float32 entry point (the
@@ -274,13 +292,17 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import datetime
+import hashlib
 import json
 import math
 import os
+import pickle
 import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -1580,25 +1602,29 @@ def card_equals_cpu(cases):
 DRIVEN = {}
 
 
-def drive_engine(app_name, n, simels, duration, kw, chunk=256):
+def drive_engine(app_name, n, simels, duration, kw, chunk=256,
+                 mode=AsyncMode.BEST_EFFORT, group=None):
     """The engine of one main-path run through the CLI's configuration
-    (torus, buffer 64, best effort)."""
+    (torus, buffer 64, best effort unless ``mode`` says otherwise), its
+    shards split over the ranks of ``group`` where given."""
     argv = ["--engine", "torch", "--device", "cuda", "--topology", "torus",
             "--procs", str(n), "--simels", str(simels), "--buffer", "64",
             "--duration", str(duration)]
     args = experiments.build_parser().parse_args(argv)
-    cfg = experiments._sim_config(args, n)
+    cfg = experiments._sim_config(args, n, mode=mode)
+    extra = {} if group is None else {"group": group}
     return make_engine(RunConfig(engine="torch", **kw),
                        experiments.make_app(app_name, n, simels,
                                             make_topology("torus", n),
                                             args.seed), cfg,
-                       chunk=chunk, device="cuda"), args.seed
+                       chunk=chunk, device="cuda", **extra), args.seed
 
 
-def drive(label, app_name, n, simels, duration, kw, chunk=256):
+def drive(label, app_name, n, simels, duration, kw, chunk=256,
+          mode=AsyncMode.BEST_EFFORT):
     """One main-path run through the CLI's configuration, with the launch
     counters set to 0 just before it and read just after it."""
-    eng, _ = drive_engine(app_name, n, simels, duration, kw, chunk)
+    eng, _ = drive_engine(app_name, n, simels, duration, kw, chunk, mode)
     torch.cuda.synchronize()
     K.reset_launches()
     t0 = time.perf_counter()
@@ -1618,6 +1644,8 @@ def drive(label, app_name, n, simels, duration, kw, chunk=256):
     print(f"full size {label} QoS medians: {json.dumps(med)}", flush=True)
     DRIVEN[label] = dict(windows=windows, wall=wall, updates=updates,
                          launches=launches)
+    if label in RANK_HELD:
+        DRIVEN[label]["result"] = res
     return res, windows, launches, routes
 
 
@@ -2914,10 +2942,10 @@ class HopCounter:
     def __enter__(self):
         real = self._real = mesh.hop
 
-        def counting(x, off, dim=0):
+        def counting(x, off, dim=0, group=None):
             self.calls += 1
             self.bytes += x.numel() * x.element_size()
-            return real(x, off, dim)
+            return real(x, off, dim, group)
 
         mesh.hop = counting
         return self
@@ -2980,8 +3008,8 @@ def sharded(window_sig):
     one row order, edge-major, whatever ``layout`` asks for); (b) 8
     shards on the card equal 8 on the CPU; (c) the torus-4096 at full
     width: 8 shards with the window scheduler equal phase 6's unsharded
-    result (``window_sig``), then W=8 under ``superstep`` and
-    ``pipelined``, and 64 shards, at the same duration 0.02; (d) the paper's
+    result (``window_sig``), then at 0.005 s the window again, W=8 under
+    ``superstep`` and ``pipelined``, and 64 shards; (d) the paper's
     faulty node at 8 shards, W=8.  Returns the edge-major entry points'
     launches on (c)'s 8-shard window run."""
     oracle_on_card(layouts=("edge",), shards=8)
@@ -3003,6 +3031,7 @@ def sharded(window_sig):
     # (SHARDED_DEPTH, cut for the script's time limit) and one chunk, so
     # every run executes as many windows: timed and counted, not compared
     for label, kw in (
+            ("8 shards window short", {"shards": 8}),
             ("8 shards superstep8", {"shards": 8, "superstep_windows": 8}),
             ("8 shards pipelined8", {"shards": 8, "superstep_windows": 8,
                                      "scheduler": "pipelined"}),
@@ -3621,16 +3650,17 @@ ENTRIES = (
 # 21. batched replicates
 # ---------------------------------------------------------------------------
 #: (a): the documented weak-scaling sweep (``--procs 256 --replicates 32``,
-#: EXPERIMENTS.md), cut from 0.05 virtual s to 0.0005 so that its
+#: EXPERIMENTS.md), cut from 0.05 virtual s to 0.00025 so that its
 #: sequential loop (32 runs, each launch-bound) fits the phase; that loop
 #: probes every 16 windows (a probe's place does not change a result)
-SWEEP = dict(procs=256, replicates=32, duration=0.0005, sequential_chunk=16)
+SWEEP = dict(procs=256, replicates=32, duration=0.00025, sequential_chunk=16)
 #: (a): seeds of phase 4's lossy 16-process torus that stop in different
 #: windows at 2**-8 virtual s (237 and 236), run one window a chunk so
 #: that the done probe reads each stop
 STAGGERED = dict(seeds=(0, 6), duration=2.0 ** -8)
-#: (b): phase 6's graph coloring at R replicates
-BATCH_R = 8
+#: (b): phase 6's graph coloring at R replicates, and its duration (cut
+#: from 0.02 for the script's time: one chunk)
+BATCH_R, BATCH_DEPTH = 8, 0.0025
 #: (c): the sharded batch: R, duration (cut from 0.02), chunk
 SHARDED_BATCH = dict(replicates=4, duration=0.0025, chunk=64)
 
@@ -3818,18 +3848,18 @@ def batched_shapes(hbm):
 
 def replicate_full_width():
     """(b) Phase 6's graph coloring at BATCH_R replicates, dense window and
-    W = 8 (0.005 s): duct launches a window equal phase 6's (R = 1), ms a
+    W = 8 (BATCH_DEPTH): duct launches a window equal phase 6's (R = 1), ms a
     window and updates/s summed over replicates beside phase 6's; card ==
     CPU at R = 3 on a reduced size, graph coloring (int32) and evo
     (float32).  Returns the duct entries' launches."""
     launched = {}
     seeds = list(range(BATCH_R))
-    # the W = 8 batch at SHARDED_DEPTH (cut from 0.02 for the script's
-    # time): its launches a window are compared, not its results
+    # both batches at BATCH_DEPTH (cut from 0.02 for the script's time):
+    # their launches a window are compared, not their results
     for label, kw, used, depth in (
-            ("window", {}, "duct_window", 0.02),
+            ("window", {}, "duct_window", BATCH_DEPTH),
             ("superstep8", {"superstep_windows": 8}, "duct_commit",
-             SHARDED_DEPTH)):
+             BATCH_DEPTH)):
         base = f"graphcolor torus-4096 {label}"
         if base not in DRIVEN:
             drive(base, "graphcolor", 4096, 1, 0.02, kw)
@@ -3905,6 +3935,196 @@ def replicates(hbm):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# 22. the shard axis over torch.distributed ranks
+# ---------------------------------------------------------------------------
+#: (label, RunConfig fields, duration, mode, chunk) of the engine runs over
+#: ranks: phase 18's 8-shard window and W=8 pipelined runs at
+#: SHARDED_DEPTH, and a barrier run (every window a release all-reduced
+#: over the ranks), probed every 64 windows
+RANK_RUNS = (
+    ("8 shards window short", {"shards": 8}, SHARDED_DEPTH,
+     AsyncMode.BEST_EFFORT, 256),
+    ("8 shards pipelined8", {"shards": 8, "superstep_windows": 8,
+                             "scheduler": "pipelined"}, SHARDED_DEPTH,
+     AsyncMode.BEST_EFFORT, 256),
+    ("8 shards window barrier", {"shards": 8}, 0.00125,
+     AsyncMode.BARRIER_EVERY_STEP, 64))
+#: gloo ranks sharing the card, and the SPMD steps over them
+RANK_WORLD, RANK_SPMD_STEPS = 2, 20
+#: the one-process runs whose SimResults phase 22 holds the ranks to
+#: (``drive`` keeps no other run's result)
+RANK_HELD = {"graphcolor torus-4096 " + run[0] for run in RANK_RUNS}
+
+
+def digest(x: torch.Tensor) -> str:
+    return hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def rank_drive(label, kw, duration, mode, chunk, backend):
+    """One engine run of ``RANK_RUNS`` with its shards over this process's
+    ranks (the process group is up), launch counters and the group's
+    stats zeroed just before the run and read just after it."""
+    group = mesh.make_shard_mesh(kw["shards"], backend, device="cuda")
+    eng, _ = drive_engine("graphcolor", 4096, 1, duration, kw, chunk=chunk,
+                          mode=mode, group=group)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    group.reset_stats()
+    group.time_device = True
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(result=res, wall=wall, windows=eng.windows[-1],
+                needed=eng.windows_needed[-1], launches=dict(K.LAUNCHES),
+                stats=dict(group.stats), hop_device_ms=group.hop_device_ms())
+
+
+def rank_spmd(steps):
+    """``steps`` best-effort ``spmd_step``s on phase 20's mesh, its rows
+    over this process's gloo ranks: digests of this rank's colors,
+    probabilities and conflicts, and the wall s."""
+    group = mesh.make_shard_mesh(SPMD_MESH[0], "gloo", device="cuda")
+    rowc, colc = conduit.torus_conduits(("row", "col"),
+                                        AsyncMode.BEST_EFFORT, group)
+    state = graphcolor.init_spmd_state(SPMD_MESH, SPMD_BLOCK, SPMD_COLORS,
+                                       rowc, colc, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    confs = []
+    for _ in range(steps):
+        state, conf = graphcolor.spmd_step(state, rowc, colc, SPMD_B)
+        confs.append(conf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(colors=digest(state["colors"]), probs=digest(state["probs"]),
+                conflicts=digest(torch.stack(confs)), wall=wall,
+                stats=dict(group.stats))
+
+
+def rank_main(rank, world, store, out_dir):
+    """A gloo rank on the card: every ``RANK_RUNS`` run, then the SPMD
+    steps; what it measured goes to ``out_dir``."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        out = {run[0]: rank_drive(*run, "gloo") for run in RANK_RUNS}
+        out["spmd"] = rank_spmd(RANK_SPMD_STEPS)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def rank_report(label, how, rank, got, one):
+    """The measured line of one rank's run beside the one-process run's
+    (``one``, from ``DRIVEN``)."""
+    w, st = got["windows"], got["stats"]
+    print(f"ranks {label} {how} rank {rank}: {got['wall'] * 1e3 / w:.3f} ms "
+          f"a window (one process {one['wall'] * 1e3 / one['windows']:.3f}), "
+          f"{got['launches']['duct_exchange'] / w:.3f} duct launches a "
+          f"window (one process "
+          f"{one['launches']['duct_exchange'] / one['windows']:.3f}), "
+          f"{w} windows, {got['needed']} needed, {st['hops'] / w:.3f} hops "
+          f"in {st['exchanges'] / w:.3f} exchanges a window, hop host "
+          f"{st['hop_s'] * 1e3 / w:.4f} ms and device "
+          f"{got['hop_device_ms'] / w:.4f} ms a window, "
+          f"{st['hop_bytes'] / max(st['hops'], 1):.0f} bytes to peers a "
+          f"hop, {st['all_reduces'] / w:.4f} all-reduces a window "
+          f"({st['all_reduce_s'] * 1e3 / w:.4f} host ms a window), "
+          f"{st['all_gathers']} all-gathers", flush=True)
+
+
+@phase("ranks")
+def ranks():
+    """The shard axis over torch.distributed ranks on the one card.  (a)
+    ``RANK_RUNS`` over 2 gloo ranks sharing the card (spawned here; the
+    boundary buffers and the release reductions staged through pinned
+    host memory): every SimResult field of every rank equals the
+    one-process 8-shard run's (phase 18's window and pipelined runs, and a
+    barrier run made here); (b) the same over 1 NCCL rank (in this
+    process); (c) phase 20's (16, 16) mesh of 256 x 256 blocks, its rows
+    over the 2 gloo ranks: ``RANK_SPMD_STEPS`` best-effort steps equal
+    one process's state bitwise; (d) each run's ms a window, duct
+    launches a window, the hops' host and device ms a window and the
+    all-reduces a window on each rank, beside the one-process run's."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    label, kw, duration, mode, chunk = RANK_RUNS[2]
+    drive("graphcolor torus-4096 " + label, "graphcolor", 4096, 1, duration,
+          kw, chunk, mode)
+    one = {label: DRIVEN["graphcolor torus-4096 " + label]
+           for label, *_ in RANK_RUNS}
+    spmd_one, confs, _, _ = spmd_run(AsyncMode.BEST_EFFORT, None,
+                                     RANK_SPMD_STEPS, SPMD_MESH, SPMD_BLOCK,
+                                     "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(rank_main, args=(RANK_WORLD,
+                                            os.path.join(tmp, "store"), tmp),
+                           nprocs=RANK_WORLD, join=True,
+                           start_method="spawn")
+        spawned = time.perf_counter() - t0
+        got = []
+        for r in range(RANK_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                got.append(pickle.load(f))
+    for label, *_ in RANK_RUNS:
+        for r, out in enumerate(got):
+            same_results(f"ranks {label} gloo rank {r}",
+                         [one[label]["result"]], [out[label]["result"]])
+            check(out[label]["stats"]["hops"] > 0 and
+                  out[label]["launches"]["duct_exchange"] > 0,
+                  f"ranks {label} gloo rank {r}: {out[label]['stats']}")
+            rank_report(label, f"{RANK_WORLD} gloo ranks", r, out[label],
+                        one[label])
+        print(f"ranks {label}: {RANK_WORLD} gloo ranks == one process "
+              "(every SimResult field, every rank)", flush=True)
+    per = SPMD_MESH[0] // RANK_WORLD
+    for r, out in enumerate(got):
+        rows = slice(r * per, (r + 1) * per)
+        want = dict(colors=digest(spmd_one["colors"][rows]),
+                    probs=digest(spmd_one["probs"][rows]),
+                    conflicts=digest(confs[:, rows]))
+        for k, v in want.items():
+            check(out["spmd"][k] == v, f"ranks spmd rank {r}: {k} differs")
+        st = out["spmd"]["stats"]
+        print(f"ranks spmd {SPMD_MESH} x {SPMD_BLOCK} rank {r}: "
+              f"{RANK_SPMD_STEPS} best-effort steps == one process (colors, "
+              f"probs, conflicts), "
+              f"{out['spmd']['wall'] * 1e3 / RANK_SPMD_STEPS:.3f} ms a step, {st['hops'] / RANK_SPMD_STEPS:.1f} hops in "
+              f"{st['exchanges'] / RANK_SPMD_STEPS:.1f} exchanges a step, "
+              f"hop host {st['hop_s'] * 1e3 / RANK_SPMD_STEPS:.3f} ms a step",
+              flush=True)
+    print(f"ranks: {RANK_WORLD} gloo ranks spawned, ran and joined in "
+          f"{spawned:.1f}s", flush=True)
+    # (b) one NCCL rank: the collectives run, the hops are rolls
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl",
+                                init_method="file://" + os.path.join(
+                                    tmp, "store"), rank=0, world_size=1)
+        try:
+            for run in RANK_RUNS[:2]:
+                label = run[0]
+                out = rank_drive(*run, "nccl")
+                same_results(f"ranks {label} nccl", [one[label]["result"]],
+                             [out["result"]])
+                check(out["stats"]["all_gathers"] > 0,
+                      f"ranks {label} nccl: {out['stats']}")
+                rank_report(label, "1 nccl rank", 0, out, one[label])
+                print(f"ranks {label}: 1 nccl rank == one process (every "
+                      "SimResult field)", flush=True)
+        finally:
+            dist.destroy_process_group()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3931,6 +4151,7 @@ def main():
     service_launched = service()
     spmd_launched = spmd()
     replicates_launched = replicates(hbm)
+    ranks()
     kernels_line = []
     for entry, kname, replaces in ENTRIES:
         rec = records[entry]

@@ -476,7 +476,8 @@ class BatchedGraphColor:
 
 # ---------------------------------------------------------------------------
 # SPMD in-graph version (Conduit) — the reference's shard_map form, every
-# device of the mesh a leading tensor dimension on one card
+# mesh axis a leading tensor dimension, the rows in one process or split
+# over ranks
 # ---------------------------------------------------------------------------
 #: stream tag of the SPMD step's counter-hash draws
 STREAM_SPMD = 0x53504D44
@@ -521,17 +522,28 @@ def update_block(colors, probs, halo, b, u):
     return new_colors, new_probs, conflict
 
 
-def spmd_uniforms(seed, step, shape, device) -> torch.Tensor:
+def spmd_uniforms(seed, step, shape, device, first: int = 0
+                  ) -> torch.Tensor:
     """The SPMD step's resample draws for blocks of ``shape`` (..., H, W)
     on ``device``: the counter hash keyed by seed, step (an int or a 0-dim
     integer tensor), device index (row-major over the leading mesh
-    dimensions) and cell."""
+    dimensions, from ``first``: a rank's first device where the leading
+    axis is split over ranks) and cell."""
     from repro_torch.runtime.window_core import hash_uniform
     *lead, H, W = shape
-    dev = torch.arange(math.prod(lead), dtype=torch.int32, device=device
-                       ).reshape(*lead, 1, 1)
+    dev = torch.arange(first, first + math.prod(lead), dtype=torch.int32,
+                       device=device).reshape(*lead, 1, 1)
     cell = torch.arange(H * W, dtype=torch.int32, device=device).reshape(H, W)
     return hash_uniform(seed, STREAM_SPMD, step, dev, cell)
+
+
+def _first_device(row_conduit, lead) -> int:
+    """The mesh index of this rank's first device: 0 in one process;
+    where the row conduit's rows are split over ranks, the rows before
+    this rank's times the devices a row (``lead`` the local leading mesh
+    shape)."""
+    group = row_conduit.group
+    return 0 if group is None else group.lo * math.prod(lead[1:])
 
 
 def init_spmd_state(mesh_shape, block, n_colors, row_conduit, col_conduit,
@@ -540,12 +552,20 @@ def init_spmd_state(mesh_shape, block, n_colors, row_conduit, col_conduit,
     colors drawn uniformly from the counter hash (step -1 of the draws),
     probabilities uniform, zeroed conduit buffers, ``key`` the seed and
     ``step`` 0 on ``device`` (the card unless the caller asks for the
-    CPU)."""
+    CPU).  Where ``row_conduit`` has a rank group, the state is this
+    rank's rows of the mesh (R / ranks of them) on the group's device."""
     from repro_torch.device import resolve_device
-    dev = resolve_device(device)
+    group = row_conduit.group
+    dev = resolve_device(device) if group is None else group.device
     H, W = block
+    if group is not None:
+        if mesh_shape[0] != group.blocks:
+            raise ValueError(f"the rank group splits {group.blocks} mesh "
+                             f"rows, the mesh has {mesh_shape[0]}")
+        mesh_shape = (group.per, *mesh_shape[1:])
     shape = (*mesh_shape, H, W)
-    u = spmd_uniforms(seed, -1, shape, dev)
+    u = spmd_uniforms(seed, -1, shape, dev,
+                      _first_device(row_conduit, mesh_shape))
     colors = torch.clamp((u * n_colors).to(torch.int32), max=n_colors - 1)
     z = dict(dtype=torch.int32, device=dev)
     return {
@@ -568,6 +588,8 @@ def spmd_step(state, row_conduit, col_conduit, b, flush=None, u=None):
     "bufs_row", "bufs_col", "key", "step"} — device (r, c)'s block is
     ``colors[r, c]``; halos travel over the conduits (``torus_conduits``:
     rows dimension 0, columns dimension 1) with their mode's semantics.
+    Where the row conduit has a rank group, ``state`` holds this rank's
+    rows and the step is that of the whole mesh, bitwise.
     The draws differ from the reference's: it splits a threefry key per
     device every step, the port draws ``spmd_uniforms(key, step, ...)``
     (``key`` is the seed and stays as it is), so the card and the CPU give
@@ -593,7 +615,8 @@ def spmd_step(state, row_conduit, col_conduit, b, flush=None, u=None):
     }
     if u is None:
         u = spmd_uniforms(state["key"], state["step"], colors.shape,
-                          colors.device)
+                          colors.device,
+                          _first_device(row_conduit, colors.shape[:-2]))
     new_colors, new_probs, conflict = update_block(colors, probs, halo, b, u)
     return {
         "colors": new_colors, "probs": new_probs,

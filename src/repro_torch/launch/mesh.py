@@ -1,28 +1,45 @@
-"""Meshes, the logical-axis rules, and the one function that moves data
+"""Meshes, the logical-axis rules, and the functions that move data
 along a mesh axis.
 
-The torch counterpart of the reference's ``launch/mesh.py``.  Every mesh
-axis lives on one device here: a tensor's leading dimension of the axis's
-size is the axis, so device ``i``'s block along it is ``x[i]``.  ``hop``
-moves blocks along such a dimension (``torch.roll``) where the reference
-calls ``lax.ppermute`` inside ``shard_map`` with ``perm = [(i, (i + off)
-% S)]``: the sharded engine hops along the shard axis (dimension 0), the
-conduits of ``core/conduit.py`` along a mesh axis of their own.  Callers
-reach it through this module (``mesh.hop(...)``), so it is the one seam a
-multi-card layout replaces with peer copies or NCCL.  The release
-reductions (the reference's pmin / pmax) need no seam while every shard
-is on one device: they are the single-device reductions of
-``runtime/window_core.py``.
+The torch counterpart of the reference's ``launch/mesh.py``.  A mesh axis
+is a tensor dimension: a tensor's dimension of the axis's size holds its
+blocks, so device ``i``'s block along it is ``x[i]``.  ``hop`` moves blocks
+along such a dimension where the reference calls ``lax.ppermute`` inside
+``shard_map`` with ``perm = [(i, (i + off) % S)]``: the sharded engine hops
+along the shard axis, the conduits of ``core/conduit.py`` along a mesh
+axis of their own.  Callers reach it through this module (``mesh.hop(...)``),
+so it is the one seam between the layouts:
+
+* one process (``group=None``): every block is on one device and ``hop``
+  is ``torch.roll``; the release reductions (the reference's pmin / pmax)
+  are the single-device ones of ``runtime/window_core.py``;
+* ranks (a :class:`RankGroup`, made by :func:`make_shard_mesh`): the
+  leading mesh axis is split over ``torch.distributed`` ranks, each rank
+  holding a contiguous run of ``per`` blocks, and ``hop`` sends the blocks
+  that leave the rank to their peers (one ``dist.batch_isend_irecv`` a hop,
+  one contiguous buffer a peer; ``hops`` moves several hops in one such
+  exchange).  ``RankGroup.all_reduce`` and
+  ``all_gather`` are the other collectives the port issues over ranks.
+
+The backend is the caller's choice and nothing falls back: ``nccl`` puts
+one rank on each card (``cuda:{local_rank}``) and moves device buffers;
+``gloo`` runs on the CPU, or with several ranks sharing one card, and then
+stages every CUDA buffer through pinned host memory explicitly (gloo's
+send and receive take host tensors).  A failed send, receive or reduction
+raises.
 
 The production meshes are shapes only (``Mesh``: ``.shape``,
-``.axis_names``): with every axis on one card they place nothing, and
-``rules_for`` and the spec rules of ``launch/sharding.py`` read only the
-axis sizes.  ``make_shard_mesh`` and the ``shard_map`` wrapper have no
-one-card counterpart.
+``.axis_names``): ``rules_for`` and the spec rules of
+``launch/sharding.py`` read only the axis sizes.  The reference's
+``shard_map`` wrapper has no counterpart: a caller over ranks runs its
+body on its own blocks and calls these collectives itself.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import math
+import os
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,11 +75,309 @@ def make_debug_mesh(shape=(2, 2), axes=("data", "model")) -> Mesh:
 SHARD_AXIS = "shard"
 
 
-def hop(x: torch.Tensor, off: int, dim: int = 0) -> torch.Tensor:
+class RankGroup:
+    """The ranks that the leading mesh axis of ``blocks`` blocks is split
+    over: rank ``r`` holds blocks ``[r * per, (r + 1) * per)``, every
+    other axis whole.
+
+    ``pg`` is the ``torch.distributed`` process group (``None``: the
+    default group), ``backend`` its backend, ``device`` where this rank's
+    blocks live.  ``stats`` counts what the collectives did: ``hops``, the
+    ``exchanges`` that moved them, ``hop_bytes`` sent to peers, ``hop_s``
+    of host time in them, ``all_reduces`` and ``all_reduce_s`` of host
+    time in them, ``all_gathers``.  With ``time_device`` set on a CUDA
+    rank, :meth:`hop_device_ms` gives the card's own time in the hops.
+    """
+
+    def __init__(self, pg, backend: str, blocks: int, device: torch.device,
+                 rank: int, size: int):
+        self.pg = pg
+        self.backend = backend
+        self.blocks = int(blocks)
+        self.rank = int(rank)
+        self.size = int(size)
+        self.per = self.blocks // self.size
+        #: this rank's first block
+        self.lo = self.rank * self.per
+        self.device = device
+        self.time_device = False
+        self._events: List[tuple] = []
+        self._plans: Dict[tuple, tuple] = {}
+        self.reset_stats()
+
+    def reset_stats(self) -> None:
+        self.stats = dict(hops=0, exchanges=0, hop_bytes=0, hop_s=0.0,
+                          all_reduces=0, all_reduce_s=0.0, all_gathers=0)
+        self._events = []
+
+    @property
+    def staged(self) -> bool:
+        """Whether buffers cross through host memory: gloo with the
+        blocks on a card."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def _peer(self, q: int) -> int:
+        import torch.distributed as dist
+        return q if self.pg is None else dist.get_global_rank(self.pg, q)
+
+    # -- host staging ---------------------------------------------------
+    def _out(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as the backend sends it: bool as uint8, and on a staged
+        rank in pinned host memory."""
+        if x.dtype == torch.bool:
+            x = x.view(torch.uint8)
+        if self.staged:
+            h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            h.copy_(x)
+            return h
+        return x.contiguous()
+
+    def _buffer(self, shape, dtype) -> torch.Tensor:
+        if dtype == torch.bool:
+            dtype = torch.uint8
+        if self.staged:
+            return torch.empty(shape, dtype=dtype, pin_memory=True)
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
+    def _back(self, h: torch.Tensor, dtype) -> torch.Tensor:
+        x = h.to(self.device, non_blocking=True) if self.staged else h
+        return x.view(torch.bool) if dtype == torch.bool else x
+
+    # -- the collectives ------------------------------------------------
+    def _hop_plan(self, off: int, device) -> tuple:
+        """Which local block goes where for a hop by ``off``: ``(local,
+        sends, recvs)``.  ``local`` is (source, destination) index tensors
+        of the blocks that stay on this rank; ``sends`` {peer: indices of
+        the blocks it gets}, ascending; ``recvs`` {peer: destination
+        indices of its blocks}, in the order it sends them (ascending
+        global source block)."""
+        key = (off % self.blocks, device)
+        if key not in self._plans:
+            S, per, lo = self.blocks, self.per, self.lo
+            local: List[Tuple[int, int]] = []
+            sends: Dict[int, List[int]] = {}
+            recvs: Dict[int, List[Tuple[int, int]]] = {}
+            for b in range(per):
+                g = (lo + b + off) % S
+                if g // per == self.rank:
+                    local.append((b, g % per))
+                else:
+                    sends.setdefault(g // per, []).append(b)
+            for d in range(per):
+                g = (lo + d - off) % S
+                if g // per != self.rank:
+                    recvs.setdefault(g // per, []).append((g, d))
+
+            def t(v):
+                return torch.as_tensor(v, dtype=torch.int64, device=device)
+
+            self._plans[key] = (
+                (t([s for s, _ in local]), t([d for _, d in local]))
+                if local else None,
+                {q: t(v) for q, v in sorted(sends.items())},
+                {q: t([d for _, d in sorted(v)])
+                 for q, v in sorted(recvs.items())})
+        return self._plans[key]
+
+    def _record(self) -> Optional[torch.cuda.Event]:
+        if not (self.time_device and self.device.type == "cuda"):
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def hops(self, pairs, dim: int) -> List[torch.Tensor]:
+        """:func:`hop` of every ``(x, off)`` of ``pairs`` (tensors of one
+        dtype) over the ranks, as one exchange: the blocks each peer gets
+        from all of them packed into one buffer a peer, one
+        ``batch_isend_irecv``, and on a staged rank one copy to host and
+        one back, so the exchange waits on the card once."""
+        import torch.distributed as dist
+        if not pairs:
+            return []
+        dtype = pairs[0][0].dtype
+        wire = torch.uint8 if dtype == torch.bool else dtype
+        t0 = time.perf_counter()
+        ev0 = self._record()
+        outs: List[torch.Tensor] = []
+        parts: Dict[int, List[torch.Tensor]] = {}
+        wanted: Dict[int, List[tuple]] = {}
+        for x, off in pairs:
+            if x.dtype != dtype:
+                raise ValueError(f"hops of one exchange share a dtype: "
+                                 f"{x.dtype} beside {dtype}")
+            if x.shape[dim] != self.per:
+                raise ValueError(
+                    f"hop over {self.size} ranks of {self.blocks} blocks: "
+                    f"dimension {dim} of x has {x.shape[dim]} blocks, this "
+                    f"rank holds {self.per}")
+            local, sends, recvs = self._hop_plan(off, x.device)
+            out = torch.empty_like(x)
+            if local is not None:
+                out.index_copy_(dim, local[1], x.index_select(dim, local[0]))
+            for q, idx in sends.items():
+                parts.setdefault(q, []).append(
+                    x.index_select(dim, idx).view(wire).reshape(-1))
+            for q, idx in recvs.items():
+                shape = list(x.shape)
+                shape[dim] = idx.numel()
+                wanted.setdefault(q, []).append((len(outs), idx, shape))
+            outs.append(out)
+        device = pairs[0][0].device
+        peers_out, peers_in = sorted(parts), sorted(wanted)
+        sizes_out = [sum(p.numel() for p in parts[q]) for q in peers_out]
+        sizes_in = [sum(math.prod(sh) for _, _, sh in wanted[q])
+                    for q in peers_in]
+        flat = (torch.cat([p for q in peers_out for p in parts[q]])
+                if peers_out else torch.empty(0, dtype=wire, device=device))
+        host_out = self._out(flat)
+        host_in = self._buffer((sum(sizes_in),), wire)
+        ev1 = self._record()
+        ops = [dist.P2POp(dist.isend, b, self._peer(q), self.pg)
+               for q, b in zip(peers_out, host_out.split(sizes_out))
+               if b.numel()]
+        ops += [dist.P2POp(dist.irecv, b, self._peer(q), self.pg)
+                for q, b in zip(peers_in, host_in.split(sizes_in))
+                if b.numel()]
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        ev2 = self._record()
+        got = self._back(host_in, wire)
+        for q, buf in zip(peers_in, got.split(sizes_in)):
+            at = 0
+            for i, idx, shape in wanted[q]:
+                n = math.prod(shape)
+                piece = buf[at:at + n].view(shape)
+                at += n
+                outs[i].index_copy_(
+                    dim, idx, piece.view(torch.bool) if dtype == torch.bool
+                    else piece)
+        ev3 = self._record()
+        if ev0 is not None:
+            self._events.append((ev0, ev1, ev2, ev3))
+        self.stats["hops"] += len(pairs)
+        self.stats["exchanges"] += 1
+        self.stats["hop_bytes"] += flat.numel() * flat.element_size()
+        self.stats["hop_s"] += time.perf_counter() - t0
+        return outs
+
+    def hop_device_ms(self) -> float:
+        """The card's time in the hops since ``reset_stats``: the packing
+        and the copies to host before the transfer and the copies back
+        and the unpacking after it (a staged rank); on an unstaged rank
+        the transfer itself too.  Synchronizes."""
+        torch.cuda.synchronize()
+        total = 0.0
+        for e0, e1, e2, e3 in self._events:
+            if self.staged:
+                total += e0.elapsed_time(e1) + e2.elapsed_time(e3)
+            else:
+                total += e0.elapsed_time(e3)
+        return total
+
+    def all_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        """``x`` reduced over the ranks, elementwise, by ``op`` ("min" or
+        "max"); a new tensor on ``x``'s device."""
+        import torch.distributed as dist
+        red = {"min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}[op]
+        t0 = time.perf_counter()
+        buf = self._out(x)
+        if buf.data_ptr() == x.data_ptr():
+            buf = buf.clone()
+        dist.all_reduce(buf, red, group=self.pg)
+        out = self._back(buf, x.dtype)
+        self.stats["all_reduces"] += 1
+        self.stats["all_reduce_s"] += time.perf_counter() - t0
+        return out
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along ``dim`` in rank order:
+        the blocks of every rank, in the one-process order."""
+        import torch.distributed as dist
+        buf = self._out(x)
+        parts = [self._buffer(buf.shape, buf.dtype)
+                 for _ in range(self.size)]
+        dist.all_gather(parts, buf, group=self.pg)
+        self.stats["all_gathers"] += 1
+        return torch.cat([self._back(p, x.dtype) for p in parts], dim=dim)
+
+
+BACKENDS = ("nccl", "gloo")
+
+
+def make_shard_mesh(n_shards: int, backend: str, *, group=None,
+                    device="cuda", local_rank: Optional[int] = None
+                    ) -> RankGroup:
+    """The ranks of ``group`` (``None``: the default process group, which
+    the caller has initialized) as a :class:`RankGroup` over ``n_shards``
+    blocks: the counterpart of the reference's ``make_shard_mesh``, which
+    lays the shard axis over devices.
+
+    ``backend`` is the caller's explicit choice and must be the group's:
+    ``"nccl"`` puts rank ``local_rank`` (``LOCAL_RANK``, as
+    ``torch.distributed.run`` sets it; else the rank) on
+    ``cuda:{local_rank}`` and raises with more ranks than visible cards;
+    ``"gloo"`` keeps ``device`` as given (the CPU, or one card that several
+    ranks share).  ``n_shards`` must be a multiple of the ranks."""
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; choose from "
+                         f"{BACKENDS}")
+    if not dist.is_initialized():
+        raise RuntimeError("make_shard_mesh needs an initialized "
+                           "torch.distributed process group")
+    size = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    if backend == "nccl":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if size > cards:
+            raise RuntimeError(
+                f"backend 'nccl' puts one rank on each card: {size} ranks, "
+                f"{cards} visible card(s); ranks that share a card need "
+                "backend 'gloo'")
+    if n_shards % size:
+        raise ValueError(f"{n_shards} shards do not split evenly over "
+                         f"{size} ranks")
+    got = dist.get_backend(group)
+    if got != backend:
+        raise ValueError(f"backend {backend!r} was asked for, but the "
+                         f"process group runs {got!r}")
+    if backend == "nccl":
+        if local_rank is None:
+            local_rank = int(os.environ.get("LOCAL_RANK", rank))
+        dev = torch.device("cuda", local_rank)
+    else:
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return RankGroup(group, backend, n_shards, dev, rank, size)
+
+
+def hop(x: torch.Tensor, off: int, dim: int = 0,
+        group: Optional[RankGroup] = None) -> torch.Tensor:
     """Move every block ``off`` places along the mesh axis that is
     dimension ``dim`` of ``x``: the result's block ``(i + off) % S`` is
-    block ``i`` of ``x`` (a negative ``off`` is the reverse hop)."""
-    return torch.roll(x, shifts=off, dims=dim)
+    block ``i`` of ``x`` (a negative ``off`` is the reverse hop).  With a
+    :class:`RankGroup` of more than one rank, ``x`` holds this rank's
+    blocks of that axis, and the result is this rank's blocks of the
+    roll of every rank's blocks."""
+    if group is None or group.size == 1:
+        return torch.roll(x, shifts=off, dims=dim)
+    return group.hops([(x, off)], dim)[0]
+
+
+def hops(pairs: Sequence[Tuple[torch.Tensor, int]], dim: int = 0,
+         group: Optional[RankGroup] = None) -> List[torch.Tensor]:
+    """``[hop(x, off, dim, group) for x, off in pairs]``: hops that are
+    ready together.  In one process each goes through :func:`hop`; over
+    ranks they move as one exchange (``RankGroup.hops``), which waits on
+    the card once for all of them."""
+    if group is None or group.size == 1:
+        return [hop(x, off, dim) for x, off in pairs]
+    return group.hops(list(pairs), dim)
 
 
 def rules_for(mesh, *, long_context: bool = False,

@@ -102,8 +102,10 @@ def _make_torch(app, cfg: SimConfig, faults: Optional[FaultModel],
         from repro_torch.runtime.engine_sharded import ShardedTorchEngine
         return ShardedTorchEngine(app, cfg, faults, shards=shards, **kwargs)
     # the unsharded engine understands window + superstep (the W-fused
-    # dense scheduler); _validate already rejected pipelined here
+    # dense scheduler); _validate already rejected pipelined and a rank
+    # group here
     from repro_torch.runtime.engine_torch import TorchEngine
+    kwargs.pop("group", None)
     return TorchEngine(app, cfg, faults, **kwargs)
 
 
@@ -171,6 +173,12 @@ def _validate(spec: EngineSpec, kwargs: dict) -> dict:
         raise ValueError(
             f"the {spec.name} engine is single-device; --shards requires a "
             "shardable engine (--engine torch)")
+    if kwargs.get("group") is not None and (shards <= 1 or
+                                            not spec.shardable):
+        raise ValueError(
+            "a rank group splits the shard axis over torch.distributed "
+            "ranks; it needs a shardable engine (--engine torch) and "
+            "shards > 1 (--shards)")
     if layout != "auto" and layout not in spec.layouts:
         if not spec.layouts:
             raise ValueError(
@@ -225,7 +233,8 @@ def _validate(spec: EngineSpec, kwargs: dict) -> dict:
     # the event factory takes no strategy kwargs at all; strip the
     # defaults we resolved so TypeError stays reserved for true unknowns
     if not spec.vectorized:
-        for key in ("shards", "superstep_windows", "layout", "device"):
+        for key in ("shards", "superstep_windows", "layout", "device",
+                    "group"):
             kwargs.pop(key, None)
     else:
         kwargs["scheduler"] = scheduler
@@ -263,7 +272,9 @@ def make_engine(run: Union[RunConfig, str], app, cfg: SimConfig,
 
     ``kwargs`` are backend extras such as ``max_pops`` / ``chunk`` /
     ``device`` (the torch engine runs on ``"cuda"`` unless given
-    ``device="cpu"``).  The event engine accepts none.
+    ``device="cpu"``) and ``group`` (a ``launch.mesh.RankGroup``: the
+    sharded engine's shards split over its ranks).  The event engine
+    accepts none.
     """
     name, kwargs = _resolve_run(run, kwargs)
     spec = get_engine_spec(name)

@@ -15,15 +15,27 @@ between shards are exchanged, in two hops per distinct shard offset:
      shard returns the accept bits, so the sender keeps its processes'
      attempted / ok / dropped counters.
 
-All S shards live on one device.  The shard axis is a tensor dimension:
-shard ``s``'s process ``i`` sits at position ``s * m + i`` and its local
-duct row ``r`` at row ``s * ein + r`` (every shard padded to ``ein`` rows,
-as the reference pads its tables for ``shard_map``), so each window phase
-(drain, compute, stage, send, close) runs once over all shards and each
-duct kernel launches once per phase whatever S is.  The hops go through
-``launch/mesh.py``, the one seam a multi-card layout replaces; the
-release reductions over all shards are the single-device ones
-(``window_core.LOCAL_RELEASE``), which a multi-card layout replaces too.
+The shard axis is a tensor dimension: shard ``s``'s process ``i`` sits at
+position ``s * m + i`` and its local duct row ``r`` at row ``s * ein + r``
+(every shard padded to ``ein`` rows, as the reference pads its tables for
+``shard_map``), so each window phase (drain, compute, stage, send, close)
+runs once over all of a process's shards and each duct kernel launches
+once per phase whatever S is.  The hops go through ``launch/mesh.py``,
+the hops one phase has ready together in one call (``mesh.hops``).
+
+In one process (``group=None``) all S shards live on one device, a hop is
+a ``torch.roll`` and the release reductions over all shards are the
+single-device ones (``window_core.LOCAL_RELEASE``).  With ``group=`` a
+``launch.mesh.RankGroup`` of P ranks, the shard axis is split over them:
+rank ``r`` keeps shards ``[r * S/P, (r + 1) * S/P)``, its block of the
+static tables (built for all S shards as in one process, then sliced)
+and its block of the carry, indexed as if its shards were all there are.
+A hop sends the boundary buffers that leave the rank to its peers, the
+release reductions and the done probe are all-reduced over the ranks
+(``window_core.RankRelease``), so every rank runs the same windows and
+chunks, and the run ends with every rank gathering the whole carry, so
+each returns the one-process ``SimResult``.  P ranks compute exactly what
+one process computes at the same S.
 
 Schedulers (``scheduler=``):
 
@@ -78,6 +90,8 @@ from repro_torch.runtime.window_core import (
     STREAM_LAT,
     LOCAL_RELEASE,
     PIPELINED_RELEASE,
+    PipelinedRankRelease,
+    RankRelease,
     _i32_sum,
     batch_seed,
     _scatter_set,
@@ -94,6 +108,8 @@ _PROC_KEYS = ("t", "steps", "done", "waiting", "barrier_seq", "last_release",
               "halo", "arr_cum", "served")
 #: the ring fields a push pass reads and writes
 _RING_KEYS = ("q_avail", "q_touch", "q_head", "q_size", "q_pay")
+#: carry keys indexed by the duct row axis
+_ROW_KEYS = ("ptouch",) + _RING_KEYS
 
 
 def _bits_i32(x: torch.Tensor) -> torch.Tensor:
@@ -114,7 +130,8 @@ def _pad1(x: torch.Tensor) -> torch.Tensor:
 
 
 class ShardedTorchEngine(TorchEngine):
-    """Windowed-time engine over S shards on one device.
+    """Windowed-time engine over S shards, on one device or split over
+    the ranks of ``group``.
 
     Same ``Engine`` contract and same trajectories as
     :class:`~repro_torch.runtime.engine_torch.TorchEngine`; built by the
@@ -124,10 +141,20 @@ class ShardedTorchEngine(TorchEngine):
     def __init__(self, app, cfg, faults=None, *, shards: int,
                  superstep_windows: int = 1, scheduler: str = "auto",
                  max_pops: int = 16, chunk: int = 256, layout: str = "auto",
-                 device="cuda"):
+                 device="cuda", group=None):
         if layout not in LAYOUTS:
             raise ValueError(
                 f"unknown layout {layout!r}; choose from {LAYOUTS}")
+        if group is not None:
+            if group.blocks != int(shards):
+                raise ValueError(
+                    f"the rank group splits {group.blocks} shards, the "
+                    f"engine has {shards}")
+            if torch.device(device).type != group.device.type:
+                raise ValueError(
+                    f"device {device!r} was asked for, but the rank group "
+                    f"keeps its shards on {group.device}")
+            device = group.device
         super().__init__(app, cfg, faults, max_pops=max_pops, chunk=chunk,
                          layout="edge", device=device)
         if self.bapp.payload_dtype not in (torch.int32, torch.float32):
@@ -164,8 +191,21 @@ class ShardedTorchEngine(TorchEngine):
         self.shards = int(shards)
         self.plan = contiguous_partition(self.topo, self.shards)
         self._m = self.n // self.shards
-        self._release = (PIPELINED_RELEASE if scheduler == "pipelined"
-                         else LOCAL_RELEASE)
+        #: the ranks the shard axis is split over (None: one process)
+        self.group = group
+        #: this process's shards: ``_blocks`` of them from shard ``_lo``,
+        #: ``_nl`` processes
+        self._blocks = self.shards // (1 if group is None else group.size)
+        self._lo = 0 if group is None else group.lo
+        self._nl = self._blocks * self._m
+        if group is None:
+            self._release = (PIPELINED_RELEASE if scheduler == "pipelined"
+                             else LOCAL_RELEASE)
+        else:
+            self._release = (PipelinedRankRelease(group)
+                             if scheduler == "pipelined"
+                             else RankRelease(group))
+            self._stop_release = RankRelease(group)
         self._build_statics()
         self._crashed_probe = self._crashed_pos
 
@@ -175,7 +215,7 @@ class ShardedTorchEngine(TorchEngine):
     # reference builds them, then laid out over all shards
     # ------------------------------------------------------------------
     def _build_statics(self) -> None:
-        S, m, E, n = self.shards, self._m, self.E, self.n
+        S, m, E = self.shards, self._m, self.E
         esrc = self._esrc.cpu().numpy()
         edst = self._edst.cpu().numpy()
         slot = self._halo_key.cpu().numpy() % 4
@@ -292,44 +332,50 @@ class ShardedTorchEngine(TorchEngine):
                         rcv_pos[s, j] = pos_of[s][r]
             tb["rcv_pos"] = rcv_pos
 
-        # --- lay every table out over all shards: positions s*m + i, rows
-        # s*ein + r, sub-ring entries s*eb + i; the local sentinels become
-        # the global ones (n, S*ein, S*eb, 4n), one spare slot each
+        # --- lay this process's shards' tables out over its B shards:
+        # positions s*m + i, rows s*ein + r, sub-ring entries s*eb + i; the
+        # local sentinels become the process's (B*m, B*ein, B*eb, 4*B*m),
+        # one spare slot each.  Every other rank's shards are left out
         dev = self.device
+        B, own = self._blocks, slice(self._lo, self._lo + self._blocks)
         glob = self._to_global
 
         def t(x):
             return torch.as_tensor(np.ascontiguousarray(x).reshape(-1),
                                    device=dev)
 
-        self._row_dst = t(glob(row["dst"], m, n))
-        self._row_halo_key = t(glob(row["halo_key"], 4 * m, 4 * n))
-        self._rows_bnd = t(glob(rows_bnd, ein, S * ein))
+        row = {key: x[own] for key, x in row.items()}
+        rows_bnd = rows_bnd[own]
+        tables = {d: {key: x[own] for key, x in tb.items()}
+                  for d, tb in tables.items()}
+        self._row_dst = t(glob(row["dst"], m))
+        self._row_halo_key = t(glob(row["halo_key"], 4 * m))
+        self._rows_bnd = t(glob(rows_bnd, ein))
         # the compact passes' gather reads row 0 at the pads (nothing
         # pushes into it); their scatter drops the pads
-        self._rows_bnd_gather = self._rows_bnd.clamp(max=S * ein - 1)
-        self._sub_src = torch.zeros(S * eb, dtype=torch.int64, device=dev)
+        self._rows_bnd_gather = self._rows_bnd.clamp(max=B * ein - 1)
+        self._sub_src = torch.zeros(B * eb, dtype=torch.int64, device=dev)
         # the send list: every send a window makes, the local rows (only
-        # interior rows send; the others carry the sentinel source n), then
+        # interior rows send; the others carry the sentinel source), then
         # each offset's boundary entries in canonical order per shard
         self._bnd: Dict[int, Dict[str, torch.Tensor]] = {}
-        parts = [dict(src=glob(row["src"], m, n), canon=row["canon"],
+        parts = [dict(src=glob(row["src"], m), canon=row["canon"],
                       lat=row["lat"], oslot=row["out_slot"],
-                      rev=glob(row["rev"], ein, S * ein),
+                      rev=glob(row["rev"], ein),
                       live=row["interior"],
                       **{key: row[key] for key in per_edge})]
         for d in self._offsets:
             tb = tables[d]
-            snd_src = glob(tb["snd_src"], m, n)
+            snd_src = glob(tb["snd_src"], m)
             parts.append(dict(
                 src=snd_src, canon=tb["snd_canon"], lat=tb["snd_lat"],
-                oslot=tb["snd_oslot"], rev=glob(tb["snd_rev"], ein, S * ein),
+                oslot=tb["snd_oslot"], rev=glob(tb["snd_rev"], ein),
                 live=np.ones(snd_src.shape, bool),
                 **{key: tb["snd_" + key] for key in per_edge}))
             self._bnd[d] = dict(
                 snd_src=t(snd_src),
-                rcv_row=t(glob(tb["rcv_row"], ein, S * ein)),
-                rcv_pos=t(glob(tb["rcv_pos"], eb, S * eb)))
+                rcv_row=t(glob(tb["rcv_row"], ein)),
+                rcv_pos=t(glob(tb["rcv_pos"], eb)))
         self._send = {key: t(np.concatenate([p[key].reshape(-1)
                                              for p in parts]))
                       for key in parts[0]}
@@ -337,26 +383,30 @@ class ShardedTorchEngine(TorchEngine):
         self._send_sizes = [p["src"].size for p in parts]
         self._perm = torch.as_tensor(perm, device=dev)
         self._inv = torch.as_tensor(inv, device=dev)
-        self._pids_pos = self._perm.to(torch.int32)
-        self._cfactor_pos = self._cfactor[self._perm]
-        self._deg_pos = self._deg[self._perm]
-        self._crashed_pos = self._crashed[self._perm]
+        # the original pids of this process's positions
+        own_perm = self._perm[self._lo * m:(self._lo + B) * m]
+        self._pids_pos = own_perm.to(torch.int32)
+        self._cfactor_pos = self._cfactor[own_perm]
+        self._deg_pos = self._deg[own_perm]
+        self._crashed_pos = self._crashed[own_perm]
 
-    def _to_global(self, local: np.ndarray, block: int,
-                   sentinel: int) -> np.ndarray:
-        """Shard-local indices ``local`` (S, k), each in ``[0, block)`` or
-        the local sentinel ``block``, as indices over all shards: ``s *
-        block + local``, the sentinel mapped to ``sentinel``."""
-        base = np.arange(self.shards, dtype=np.int64)[:, None] * block
-        return np.where(local >= block, sentinel, base + local)
+    def _to_global(self, local: np.ndarray, block: int) -> np.ndarray:
+        """Shard-local indices ``local`` (B, k) of this process's B
+        shards, each in ``[0, block)`` or the local sentinel ``block``, as
+        indices over its shards: ``s * block + local``, the sentinel
+        mapped to ``B * block``."""
+        B = local.shape[0]
+        base = np.arange(B, dtype=np.int64)[:, None] * block
+        return np.where(local >= block, B * block, base + local)
 
     # ------------------------------------------------------------------
     # Carry and its layout transforms
     # ------------------------------------------------------------------
     def _edge_state(self) -> Dict[str, torch.Tensor]:
-        """Empty rings in padded per-shard layout: ``S * ein`` rows, row
-        ``s * ein + j`` = shard s's local row j."""
-        return self.core.edge_rings(self.shards * self._ein, self.device)
+        """Empty rings of this process's shards in padded per-shard
+        layout: ``B * ein`` rows, row ``s * ein + j`` = its shard s's local
+        row j."""
+        return self.core.edge_rings(self._blocks * self._ein, self.device)
 
     def _init_carry(self, seed: int) -> Dict[str, torch.Tensor]:
         carry = super()._init_carry(seed)
@@ -369,15 +419,15 @@ class ShardedTorchEngine(TorchEngine):
             #   fly_acc_<off>  packed (att << 1) | accept bits returning to
             #                  the sender, folded at the next boundary
             # all zero: att = 0 entries are no-ops, so the pipeline fills
-            W, S, Lp = self.superstep_windows, self.shards, \
+            W, B, Lp = self.superstep_windows, self._blocks, \
                 self.bapp.payload_len
             dev = self.device
             for off in self._offsets:
                 bd = self._bnd_bd[off]
                 carry[f"fly_fwd_{off}"] = torch.zeros(
-                    (S, W, bd, Lp + 3), dtype=torch.int32, device=dev)
+                    (B, W, bd, Lp + 3), dtype=torch.int32, device=dev)
                 carry[f"fly_acc_{off}"] = torch.zeros(
-                    (S, W, bd), dtype=torch.int32, device=dev)
+                    (B, W, bd), dtype=torch.int32, device=dev)
             if self.cfg.mode in BARRIER_MODES:
                 # the staged release decision (PipelinedRelease): issued at
                 # boundary i, consumed at i+1; every shard holds the same
@@ -408,6 +458,38 @@ class ShardedTorchEngine(TorchEngine):
         """Undo the process permutation on everything the result reads."""
         return self._permuted(carry, self._inv)
 
+    def _own_block(self, carry):
+        """A carry of all S shards (in shard order) cut to this process's
+        shards' processes; its rings and in-flight buffers are built for
+        its shards alone."""
+        if self.group is None:
+            return carry
+        own = slice(self._lo * self._m, (self._lo + self._blocks) * self._m)
+        out = dict(carry)
+        for key in _PROC_KEYS:
+            if key in carry:
+                out[key] = carry[key][:, own]
+        out["app"] = {k: v[:, own] for k, v in carry["app"].items()}
+        return out
+
+    def _gathered(self, carry):
+        """Every rank's carry of its shards, all-gathered into the carry
+        of all S shards in shard order: processes, rings and in-flight
+        buffers concatenated in rank order (the ranks hold ascending runs
+        of shards).  The seed, the window counter and the staged release
+        are the same on every rank and stay as they are."""
+        if self.group is None:
+            return carry
+        g = self.group
+        out = dict(carry)
+        for key, x in carry.items():
+            if key in _PROC_KEYS or key in _ROW_KEYS or key.startswith(
+                    "fly_"):
+                out[key] = g.all_gather(x, 1)
+        out["app"] = {k: g.all_gather(v, 1)
+                      for k, v in carry["app"].items()}
+        return out
+
     # ------------------------------------------------------------------
     # Window phases over all shards at once
     # ------------------------------------------------------------------
@@ -416,8 +498,8 @@ class ShardedTorchEngine(TorchEngine):
         dst = self._row_dst
         return self.core.drain(
             carry, t_pad[:, dst], act_pad[:, dst],
-            halo_key=self._row_halo_key, n_halo=4 * self.n, dst=dst,
-            n_dst=self.n)
+            halo_key=self._row_halo_key, n_halo=4 * self._nl, dst=dst,
+            n_dst=self._nl)
 
     def _sends(self, seed, pads):
         """Every send of this window, over the send list (the local rows,
@@ -436,10 +518,10 @@ class ShardedTorchEngine(TorchEngine):
         fault draw serve the whole list.
 
         Returns ``(interior, staged, kills)``: the rows' records ``(R,
-        S*ein, L+3)`` (only interior senders active), per offset the ``(R,
-        S, bd, L+3)`` buffer, and the kill counts (``None`` without
-        faults)."""
-        sd, n = self._send, self.n
+        B*ein, L+3)`` (only interior senders active; B the process's
+        shards), per offset the ``(R, B, bd, L+3)`` buffer, and the kill
+        counts (``None`` without faults)."""
+        sd, n = self._send, self._nl
         src = sd["src"]
         steps = pads["steps"][:, src]
         lat = sd["lat"] * lognormal_factor(
@@ -462,7 +544,7 @@ class ShardedTorchEngine(TorchEngine):
             act[..., None].to(torch.int32)], dim=-1)
         interior, *bnd = packed.split(self._send_sizes, dim=1)
         reps = packed.shape[0]
-        staged = {off: b.reshape(reps, self.shards, self._bnd_bd[off], -1)
+        staged = {off: b.reshape(reps, self._blocks, self._bnd_bd[off], -1)
                   for off, b in zip(self._offsets, bnd)}
         return interior, staged, kills
 
@@ -543,7 +625,7 @@ class ShardedTorchEngine(TorchEngine):
             pay, avail, touch, act = self._unpack(interior)
             sp = self.core.send_edge(u, avail, act, torch.zeros_like(avail),
                                      touch, pay, self._send["src_rows"],
-                                     self.n)
+                                     self._nl)
             u.update(sp.rings)
             self._fold_counters(u, carry, sp.sums, kills)
         return self._close_window(u, active, drained_r,
@@ -564,25 +646,27 @@ class ShardedTorchEngine(TorchEngine):
             Lp = self.bapp.payload_len
             interior, own, kills = self._sends(batch_seed(carry), pads)
             # --- payload hop: one per offset for all W windows ------------
-            staged_l, staged_r = {}, {}
-            for off in self._offsets:
-                full = self._with_own(stage_mid, own, off)
-                staged_l[off] = full      # the sender's copy: the att bits
-                staged_r[off] = mesh.hop(full, off, dim=1)
+            # (the sender keeps its copy: the att bits)
+            staged_l = {off: self._with_own(stage_mid, own, off)
+                        for off in self._offsets}
+            staged_r = dict(zip(self._offsets, mesh.hops(
+                [(staged_l[off], off) for off in self._offsets], dim=1,
+                group=self.group)))
             rings, acc, send_sums = self._push_passes(
                 {key: u[key] for key in _RING_KEYS}, staged_r, interior)
             u.update(rings)
             # --- accept hop: one reverse hop per offset -------------------
-            for off in self._offsets:
+            backs = mesh.hops([(acc[off], -off) for off in self._offsets],
+                              dim=1, group=self.group)
+            for off, back in zip(self._offsets, backs):
                 att = staged_l[off][..., Lp + 2]
-                send_sums = self._fold_bits(
-                    (att << 1) | mesh.hop(acc[off], -off, dim=1), off,
-                    send_sums)
+                send_sums = self._fold_bits((att << 1) | back, off,
+                                            send_sums)
             self._fold_counters(u, carry, send_sums, kills)
         return self._close_window(u, active, drained_r, release=True)
 
     def _with_own(self, stage_mid, own, off):
-        """The superstep's ``(R, S, W, bd, L+3)`` buffer of one offset: the
+        """The superstep's ``(R, B, W, bd, L+3)`` buffer of one offset: the
         staged windows, then this window's own."""
         if stage_mid is None:
             return own[off][:, :, None]
@@ -591,7 +675,7 @@ class ShardedTorchEngine(TorchEngine):
     def _push_passes(self, rings, bufs, interior, *, want_sums: bool = True):
         """W ordered push passes over the rings (FIFO per ring).
 
-        ``bufs`` holds one receiver-side ``(R, S, W, bd, L+3)`` buffer per
+        ``bufs`` holds one receiver-side ``(R, B, W, bd, L+3)`` buffer per
         offset, ``interior`` the rows' own send records.  Boundary rows
         push buffer window j in pass j; interior rows push their current
         message in the last pass.  Rings are single-writer, so the row
@@ -599,10 +683,10 @@ class ShardedTorchEngine(TorchEngine):
         the last have no interior senders, so they run compact: the union
         of boundary receiver rows (``eb`` a shard) is gathered into
         sub-rings, pushed and scattered back.  Returns ``(rings, acc,
-        sums)``: the rings, per offset the ``(R, S, W, bd)`` int32 accept
+        sums)``: the rings, per offset the ``(R, B, W, bd)`` int32 accept
         bits, and the last pass's per-process counter sums (``None``
         without ``want_sums``)."""
-        S, W = self.shards, self.superstep_windows
+        B, W = self._blocks, self.superstep_windows
         reps = interior.shape[0]
         rings = dict(rings)
         acc = {off: [] for off in self._offsets}
@@ -615,7 +699,7 @@ class ShardedTorchEngine(TorchEngine):
             # boundary rows push buffer window W-1; compact pass: only the
             # boundary rows, gathered
             x = (interior if last else
-                 interior.new_zeros((reps, S * self._eb,
+                 interior.new_zeros((reps, B * self._eb,
                                      interior.shape[-1])))
             where = "rcv_row" if last else "rcv_pos"
             for off in self._offsets:
@@ -628,7 +712,7 @@ class ShardedTorchEngine(TorchEngine):
             if last:
                 sp = self.core.send_edge(
                     rings, avail, act, torch.zeros_like(avail), touch, pay,
-                    self._send["src_rows"], self.n, want_sums=want_sums)
+                    self._send["src_rows"], self._nl, want_sums=want_sums)
                 rings.update(sp.rings)
                 sums = sp.sums
             else:
@@ -648,20 +732,20 @@ class ShardedTorchEngine(TorchEngine):
             acc_pad = _pad1(sp.accepted)
             for off in self._offsets:
                 acc[off].append(acc_pad[:, self._bnd[off][where]].reshape(
-                    reps, S, self._bnd_bd[off]))
+                    reps, B, self._bnd_bd[off]))
         acc = {off: torch.stack(v, dim=2).to(torch.int32)
                for off, v in acc.items()}
         return rings, acc, sums
 
     def _fold_bits(self, bits, off, sums):
-        """Fold ``(att << 1) | accept`` bits ``(R, S, W, bd)`` of one
+        """Fold ``(att << 1) | accept`` bits ``(R, B, W, bd)`` of one
         offset into the senders' attempted / ok / dropped sums."""
         att = (bits >> 1) & 1
         okb = bits & 1
         cols = torch.stack([_i32_sum(att, 2), _i32_sum(att & okb, 2),
                             _i32_sum(att & (1 - okb), 2)], dim=-1)
         return sums + segment_sum(cols.reshape(bits.shape[0], -1, 3),
-                                  self._bnd[off]["snd_src"], self.n)
+                                  self._bnd[off]["snd_src"], self._nl)
 
     def _final_window_pipelined(self, carry, stage_mid):
         """Superstep-boundary window of the ``pipelined`` scheduler.
@@ -688,12 +772,15 @@ class ShardedTorchEngine(TorchEngine):
                                             send_sums)
             self._fold_counters(u, carry, send_sums, kills)
             # --- dispatch the next hops, consumed at the NEXT boundary ----
+            pairs = []
             for off in self._offsets:
-                u[f"fly_fwd_{off}"] = mesh.hop(
-                    self._with_own(stage_mid, own, off), off, dim=1)
                 att_r = bufs[off][..., Lp + 2]
-                u[f"fly_acc_{off}"] = mesh.hop((att_r << 1) | acc[off],
-                                               -off, dim=1)
+                pairs += [(self._with_own(stage_mid, own, off), off),
+                          ((att_r << 1) | acc[off], -off)]
+            moved = mesh.hops(pairs, dim=1, group=self.group)
+            for k, off in enumerate(self._offsets):
+                u[f"fly_fwd_{off}"] = moved[2 * k]
+                u[f"fly_acc_{off}"] = moved[2 * k + 1]
         return self._close_window(u, active, drained_r, release=True)
 
     def _flush(self, u):
@@ -703,11 +790,11 @@ class ShardedTorchEngine(TorchEngine):
         supersteps after the last update already processed is a no-op; the
         flush closes the books when the run ends with an exchange still in
         flight."""
-        Lp, rows, dev = self.bapp.payload_len, self.shards * self._ein, \
+        Lp, rows, dev = self.bapp.payload_len, self._blocks * self._ein, \
             self.device
         reps = u["t"].shape[0]
         u = dict(u)
-        send_sums = torch.zeros((reps, self.n, 3), dtype=torch.int32,
+        send_sums = torch.zeros((reps, self._nl, 3), dtype=torch.int32,
                                 device=dev)
         for off in self._offsets:
             send_sums = self._fold_bits(u[f"fly_acc_{off}"], off, send_sums)
@@ -718,9 +805,9 @@ class ShardedTorchEngine(TorchEngine):
                         device=dev),
             want_sums=False)
         u.update(rings)
-        for off in self._offsets:
-            att_r = bufs[off][..., Lp + 2]
-            back = mesh.hop((att_r << 1) | acc[off], -off, dim=1)
+        backs = mesh.hops([((bufs[off][..., Lp + 2] << 1) | acc[off], -off)
+                           for off in self._offsets], dim=1, group=self.group)
+        for off, back in zip(self._offsets, backs):
             send_sums = self._fold_bits(back, off, send_sums)
             u[f"fly_fwd_{off}"] = torch.zeros_like(u[f"fly_fwd_{off}"])
             u[f"fly_acc_{off}"] = torch.zeros_like(u[f"fly_acc_{off}"])
@@ -757,11 +844,12 @@ class ShardedTorchEngine(TorchEngine):
         stopped leave the state its result is assembled from unchanged
         (pipelined buffers still in flight deliver each message once, then
         or in the flush)."""
-        carry = self._to_sharded_layout(self._init_batch(seeds))
+        carry = self._own_block(
+            self._to_sharded_layout(self._init_batch(seeds)))
         carry, windows, needed = self._chunks(carry)
         if (self.scheduler == "pipelined" and
                 self.cfg.mode != AsyncMode.NO_COMM):
             carry = self._flush(carry)
         self.windows.extend([windows] * len(seeds))
         self.windows_needed.extend(needed)
-        return self._to_canonical_layout(carry), windows
+        return self._to_canonical_layout(self._gathered(carry)), windows

@@ -155,6 +155,10 @@ class TorchEngine:
         #: what the done probe counts as stopped besides done: the crashed
         #: processes, in the carry's process order
         self._crashed_probe = self._crashed
+        #: where the done probe reduces over the processes (the sharded
+        #: engine over ranks all-reduces it, so every rank runs as many
+        #: chunks)
+        self._stop_release = LOCAL_RELEASE
         self._deg = _i32([topo.degree(p) for p in range(n)], dev)
         self._cfactor = torch.as_tensor(np.asarray(
             [self.faults.compute_factor(p) for p in range(n)], np.float32),
@@ -466,7 +470,8 @@ class TorchEngine:
             windows += self._windows_per_call
             # crashed processes never reach the horizon; the probe treats
             # them as terminally stopped
-            stopped = (carry["done"] | self._crashed_probe).all(dim=-1)
+            stopped = self._stop_release.all_stopped(
+                carry["done"] | self._crashed_probe)[:, 0]
             for r, s in enumerate(stopped.tolist()):
                 if s and needed[r] is None:
                     needed[r] = windows

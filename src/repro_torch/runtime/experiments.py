@@ -30,7 +30,10 @@ seeds (one batch: every window runs once over all R replicates, each duct
 kernel one launch a window), and ``--qos-interval`` pins the snapshot
 spacing of the time-resolved ``qos_timeseries`` every row carries.
 ``--shards S`` partitions the population into S shards on the one device
-(the sharded engine: boundary hops per shard offset); with it,
+(the sharded engine: boundary hops per shard offset), or, launched through
+``python -m torch.distributed.run`` with ``--dist-backend nccl|gloo``
+(and ``--dist-init``), over the ranks, each holding S / ranks of them and
+computing exactly what one process computes (rank 0 prints); with it,
 ``--superstep-windows W`` runs W shard-local windows per exchange and
 ``--scheduler pipelined`` double-buffers that exchange.  ``--app`` picks
 graph coloring or digital evolution (``evo``, float32 halos).  The
@@ -48,8 +51,11 @@ runs weak scaling on a torus at 64 and 256 processes on the card;
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -106,8 +112,17 @@ def _sim_config(args, n: int, mode: AsyncMode = AsyncMode.BEST_EFFORT,
     return SimConfig(**base)
 
 
+def _engine_kwargs(args) -> dict:
+    """The backend extras every engine of a run gets: the device, and
+    under ranks the rank group the shards are split over."""
+    group = getattr(args, "group", None)
+    if group is None:
+        return {"device": args.device}
+    return {"device": args.device, "group": group}
+
+
 def _engine(args, app, cfg, faults=None):
-    return make_engine(args.run, app, cfg, faults, device=args.device)
+    return make_engine(args.run, app, cfg, faults, **_engine_kwargs(args))
 
 
 def _distributions(res) -> Dict[str, Dict[str, float]]:
@@ -173,7 +188,7 @@ def run_weak_scaling(args) -> List[dict]:
         results = run_replicates(
             args.run,
             lambda s: make_app(args.app, n, args.simels, topo, s), cfg,
-            device=args.device)
+            **_engine_kwargs(args))
         wall = time.perf_counter() - t0
         # QoS distribution pools (process, window) samples over replicates
         all_qos = [q for res in results for q in res.qos]
@@ -311,7 +326,7 @@ def run_serve(args) -> List[dict]:
         lambda topology, s, init_state=None: make_app(
             args.app, topology.n, args.simels, topology, s,
             initial_state=init_state),
-        cfg, topo, timeline, policy, device=args.device)
+        cfg, topo, timeline, policy, **_engine_kwargs(args))
     for ep in out["epochs"]:
         print(f"  epoch {ep['epoch']}: t=[{ep['t_start']:.4f}, "
               f"{ep['t_end']:.4f}) procs={ep['n_procs']} "
@@ -383,6 +398,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="contiguous process blocks the population is "
                         "partitioned into, all on the one device (must "
                         "divide --procs); 1 = the unsharded engine")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="under torch.distributed.run (RANK, WORLD_SIZE and "
+                        "LOCAL_RANK set), the backend the --shards are "
+                        "split over the ranks with: nccl = one card a rank; "
+                        "gloo = the CPU, or ranks sharing one card; no "
+                        "default")
+    p.add_argument("--dist-init", default=None,
+                   help="the process group's init method under ranks, e.g. "
+                        "file:///tmp/store (default env://, the launcher's "
+                        "store)")
     p.add_argument("--qos-interval", type=float, default=None,
                    help="QoS snapshot spacing in virtual seconds for the "
                         "time-resolved stream (default: duration/12)")
@@ -473,17 +498,75 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         # fail before any work when the card is asked for and missing
         from repro_torch.device import resolve_device
         resolve_device(args.device)
+    rank = _init_ranks(args, parser)
     families = list(FAMILIES) if args.family == "all" else [args.family]
     rows: List[dict] = []
-    t0 = time.perf_counter()
-    for fam in families:
-        rows.extend(FAMILIES[fam](args))
-    print(f"done in {time.perf_counter() - t0:.1f}s wall")
-    if args.json:
-        with open(args.json, "w") as f:
-            json.dump(rows, f, indent=1, default=float)
-        print(f"wrote {args.json}")
+    # every rank runs every engine; rank 0 alone reports
+    report = (contextlib.nullcontext() if rank == 0 else
+              contextlib.redirect_stdout(io.StringIO()))
+    try:
+        with report:
+            t0 = time.perf_counter()
+            for fam in families:
+                rows.extend(FAMILIES[fam](args))
+            print(f"done in {time.perf_counter() - t0:.1f}s wall")
+            if args.json and rank == 0:
+                with open(args.json, "w") as f:
+                    json.dump(rows, f, indent=1, default=float)
+                print(f"wrote {args.json}")
+    finally:
+        if args.group is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
     return rows
+
+
+def _init_ranks(args, parser) -> int:
+    """Join the ranks ``torch.distributed.run`` started (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK`` in the environment) and set
+    ``args.group``, the rank group the ``--shards`` are split over; without
+    those variables the run is one process (``args.group`` None).  Returns
+    this process's rank."""
+    args.group = None
+    if "WORLD_SIZE" not in os.environ:
+        if args.dist_backend or args.dist_init:
+            parser.error("--dist-backend / --dist-init split the shards "
+                         "over ranks; launch through python -m "
+                         "torch.distributed.run (it sets RANK, WORLD_SIZE "
+                         "and LOCAL_RANK)")
+        return 0
+    world = int(os.environ["WORLD_SIZE"])
+    rank = int(os.environ["RANK"])
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    if args.dist_backend is None:
+        parser.error(f"rank {rank} of {world}: pass --dist-backend nccl (one "
+                     "card a rank) or gloo (the CPU, or ranks sharing a "
+                     "card)")
+    if args.engine != "torch" or args.shards <= 1:
+        parser.error("ranks split the torch engine's --shards; pass "
+                     "--engine torch and --shards > 1")
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_shard_mesh
+    if args.dist_backend == "nccl":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if world > cards or args.device != "cuda":
+            parser.error(f"--dist-backend nccl puts one rank on each card: "
+                         f"{world} ranks, {cards} visible card(s), device "
+                         f"{args.device}; ranks sharing a card or the CPU "
+                         "need --dist-backend gloo")
+        torch.cuda.set_device(local)
+    dist.init_process_group(args.dist_backend,
+                            init_method=args.dist_init or "env://",
+                            rank=rank, world_size=world)
+    try:
+        args.group = make_shard_mesh(args.shards, args.dist_backend,
+                                     device=args.device, local_rank=local)
+    except ValueError as e:
+        dist.destroy_process_group()
+        parser.error(str(e))
+    return rank
 
 
 if __name__ == "__main__":

@@ -99,10 +99,10 @@ def main(argv=None) -> dict:
     calls = max(1, a.windows // W)
     real_hop, hops = mesh.hop, [0]
 
-    def hop(x, off, dim=0):
+    def hop(x, off, dim=0, group=None):
         hops[0] += 1
         with record_function("mesh.hop"):
-            return real_hop(x, off, dim)
+            return real_hop(x, off, dim, group)
 
     mesh.hop = hop
     duct0 = sum(LAUNCHES.values())

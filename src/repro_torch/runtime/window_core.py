@@ -26,10 +26,12 @@ plus a compact pushbuf (``window_dense_fused``) and ``commit_superstep``
 folds the pushbuf into the rings with one ``duct_commit`` per superstep.
 
 The sharded engine (``runtime/engine_sharded.py``) runs the edge-major
-``drain`` and ``send_edge`` over all shards at once and closes its
-windows with :data:`LOCAL_RELEASE` (every shard is on one device, so the
+``drain`` and ``send_edge`` over all its shards at once and closes its
+windows with :data:`LOCAL_RELEASE` (every shard in one process, so the
 reductions over all shards are the single-device ones), with
-:data:`PIPELINED_RELEASE` (decisions staged one superstep boundary), or
+:data:`PIPELINED_RELEASE` (decisions staged one superstep boundary), with
+:class:`RankRelease` / :class:`PipelinedRankRelease` (the shards split
+over ``torch.distributed`` ranks: each rank's reductions all-reduced), or
 with no release check inside a superstep.
 
 Every phase runs a batch of replicates at once: each carry leaf has a
@@ -189,6 +191,14 @@ class LocalRelease:
     def max_time(self, x: torch.Tensor) -> torch.Tensor:
         return x.amax(dim=-1, keepdim=True)
 
+    def reduce(self, stopped=None, waiting=None, times=()):
+        """The reductions one close phase issues together:
+        ``(all_stopped(stopped), any_waiting(waiting), [max_time(x) for x
+        in times])``, ``None`` for an argument not given."""
+        return (None if stopped is None else self.all_stopped(stopped),
+                None if waiting is None else self.any_waiting(waiting),
+                [self.max_time(x) for x in times])
+
 
 #: the default strategy (one device holds the whole population)
 LOCAL_RELEASE = LocalRelease()
@@ -215,6 +225,58 @@ class PipelinedRelease(LocalRelease):
 
 
 PIPELINED_RELEASE = PipelinedRelease()
+
+
+class RankRelease(LocalRelease):
+    """Release reductions over the ranks of a ``launch.mesh.RankGroup``,
+    the counterpart of the reference's ``MeshRelease`` (pmin / pmax over
+    the shard axis): each rank reduces its own processes as
+    :class:`LocalRelease` does, per replicate ``(R, 1)``, then the ranks
+    all-reduce the results: MIN over ``all_stopped``, MAX over
+    ``any_waiting`` and ``max_time`` (exact in float32).
+
+    :meth:`reduce` issues a phase's reductions as one all-reduce: one
+    float32 buffer of ``-all_stopped``, ``any_waiting`` and the times,
+    reduced by MAX (the MIN of 0/1 bits is minus the MAX of their
+    negations; 0, 1 and every float32 time are exact), so a barrier
+    window costs one collective, and on a staged rank one copy to host
+    and back."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def all_stopped(self, x: torch.Tensor) -> torch.Tensor:
+        local = super().all_stopped(x).to(torch.int32)
+        return self.group.all_reduce(local, "min") > 0
+
+    def any_waiting(self, x: torch.Tensor) -> torch.Tensor:
+        local = super().any_waiting(x).to(torch.int32)
+        return self.group.all_reduce(local, "max") > 0
+
+    def max_time(self, x: torch.Tensor) -> torch.Tensor:
+        return self.group.all_reduce(super().max_time(x), "max")
+
+    def reduce(self, stopped=None, waiting=None, times=()):
+        rows = []
+        if stopped is not None:
+            rows.append(-LocalRelease.all_stopped(self, stopped).to(
+                torch.float32))
+        if waiting is not None:
+            rows.append(LocalRelease.any_waiting(self, waiting).to(
+                torch.float32))
+        rows += [LocalRelease.max_time(self, x) for x in times]
+        out = list(self.group.all_reduce(torch.stack(rows), "max").unbind(0))
+        all_stopped = None if stopped is None else out.pop(0) < 0
+        any_waiting = None if waiting is None else out.pop(0) > 0
+        return all_stopped, any_waiting, out
+
+
+class PipelinedRankRelease(RankRelease):
+    """:class:`RankRelease` for the ``pipelined`` scheduler: the decision
+    staged one superstep boundary, as :class:`PipelinedRelease` stages
+    it; the counterpart of the reference's ``PipelinedRelease``."""
+
+    staged = True
 
 
 class SendPhase(NamedTuple):
@@ -817,7 +879,9 @@ class WindowCore:
 
         ``release`` picks where the barrier-release reductions run:
         :data:`LOCAL_RELEASE`, :data:`PIPELINED_RELEASE` (decisions
-        staged one superstep boundary), or ``None`` to skip the release
+        staged one superstep boundary), their rank counterparts
+        (:class:`RankRelease`, :class:`PipelinedRankRelease`), or ``None``
+        to skip the release
         check (the sharded engine's mid-superstep windows: waiting clocks
         do not advance, so the release *time* computed at the superstep
         boundary is the same; only the lockstep window it lands on
@@ -911,25 +975,11 @@ class WindowCore:
                     release_t = u["rel_t"][:, None]
                     if quarantined:
                         ref = u["rel_ref"][:, None]
-                elif quarantined:
-                    # quarantine release: a non-waiting, non-done process's
-                    # clock is its next barrier arrival, so "unreachable"
-                    # == next arrival lags the cohort front (ref) by more
-                    # than the timeout; crashed clocks sit at +inf
-                    quar0 = u["quar"]
-                    ref = self._quarantine_ref(release, t, waiting, quar0)
-                    stopped = waiting | done
-                    unreachable = ~stopped & (t > ref + tau)
-                    release_ready = (
-                        release.any_waiting(waiting) &
-                        release.all_stopped(stopped | quar0 | unreachable))
-                    release_t = ref + _f32(self.barrier_cost)
                 else:
-                    release_ready = (release.all_stopped(waiting | done) &
-                                     release.any_waiting(waiting))
-                    release_t = (release.max_time(
-                        torch.where(waiting, t, -torch.inf)) +
-                        _f32(self.barrier_cost))
+                    # decide now, over every process (see _decide)
+                    release_ready, release_t, ref = self._decide(
+                        release, t, waiting, done,
+                        u["quar"] if quarantined else None)
                 rel = release_ready & waiting
                 if quarantined:
                     # hysteresis, evaluated on the pre-release state
@@ -962,31 +1012,44 @@ class WindowCore:
             out["quar"] = quar
         if barriered and release is not None and release.staged:
             # store fresh post-release reductions for the next boundary
+            fresh_ready, fresh_t, fref = self._decide(
+                release, t, waiting, done, quar if quarantined else None)
             if quarantined:
-                fref = self._quarantine_ref(release, t, waiting, quar)
-                fstopped = waiting | done
-                funreach = ~fstopped & (t > fref + tau)
-                fresh_ready = (
-                    release.any_waiting(waiting) &
-                    release.all_stopped(fstopped | quar | funreach))
-                fresh_t = fref + _f32(self.barrier_cost)
                 out["rel_ref"] = fref[:, 0]
-            else:
-                fresh_ready = (release.all_stopped(waiting | done) &
-                               release.any_waiting(waiting))
-                fresh_t = (release.max_time(
-                    torch.where(waiting, t, -torch.inf)) +
-                    _f32(self.barrier_cost))
             out.update(rel_ready=fresh_ready[:, 0], rel_t=fresh_t[:, 0])
         return out
 
-    def _quarantine_ref(self, release, t, waiting, quar):
-        """Cohort front for the quarantine gate: max waiting clock over the
-        non-quarantined core, falling back to the full waiting set when
-        every waiting member is quarantined."""
-        core = release.max_time(torch.where(waiting & ~quar, t, -torch.inf))
-        full = release.max_time(torch.where(waiting, t, -torch.inf))
-        return torch.where(core == -torch.inf, full, core)
+    def _decide(self, release, t, waiting, done, quar=None):
+        """The barrier-release decision over the whole population:
+        ``(ready, release time, cohort front)``, each ``(R, 1)``; the
+        front is ``None`` without quarantine.  Without it the cohort is
+        released once every process is waiting or done and one is
+        waiting, at the latest waiting clock plus the barrier cost.  With
+        it (``quar`` the quarantine flags), the front is the latest
+        waiting clock of the non-quarantined core (of every waiting
+        process where all are quarantined), a process that is neither
+        stopped nor quarantined but lags the front by more than the
+        timeout no longer holds the release back, and the release time is
+        the front plus the barrier cost (a non-waiting, non-done
+        process's clock is its next barrier arrival; crashed clocks sit at
+        ``+inf``).  Each phase's reductions go to ``release.reduce``
+        together."""
+        cost = _f32(self.barrier_cost)
+        stopped = waiting | done
+        if quar is None:
+            all_stopped, any_waiting, (tmax,) = release.reduce(
+                stopped=stopped, waiting=waiting,
+                times=(torch.where(waiting, t, -torch.inf),))
+            return all_stopped & any_waiting, tmax + cost, None
+        _, any_waiting, (core, full) = release.reduce(
+            waiting=waiting,
+            times=(torch.where(waiting & ~quar, t, -torch.inf),
+                   torch.where(waiting, t, -torch.inf)))
+        ref = torch.where(core == -torch.inf, full, core)
+        unreachable = ~stopped & (t > ref + _f32(self.cfg.barrier_timeout))
+        all_stopped, _, _ = release.reduce(
+            stopped=stopped | quar | unreachable)
+        return any_waiting & all_stopped, ref + cost, ref
 
     # ------------------------------------------------------------------
     # QoS assembly

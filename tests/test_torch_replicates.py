@@ -26,7 +26,6 @@ reference's ``jax.vmap`` gives it.  On the dyadic configs of
   couples the seeds, and the bitwise check catches it.
 """
 import dataclasses
-import struct
 
 import numpy as np
 import pytest
@@ -62,7 +61,8 @@ from repro_torch.runtime.faults import (  # noqa: E402
     TimelineEvent,
 )
 from repro_torch.runtime.topologies import make_topology  # noqa: E402
-from torch_cases import torch_cfg, torch_evo_app, torch_scenario  # noqa: E402
+from torch_cases import (assert_same, torch_cfg,  # noqa: E402
+                         torch_evo_app, torch_scenario)
 
 SEEDS = (0, 1, 2, 3)
 #: windows a chunk: small, so that replicates can stop in different chunks
@@ -93,37 +93,6 @@ VARIANTS = {
 CASES = ([(sc, "dense") for sc in SCENARIOS] +
          [(SCENARIOS[i], "superstep4") for i in (0, 3, 5)] +
          [(SCENARIOS[i], "edge") for i in (1, 4, 6)])
-
-
-def assert_same(want, got, path="result"):
-    """Two results (dataclasses, dicts, lists, arrays, numbers) equal bit
-    for bit; floats compared as their IEEE bits, so ``inf`` and ``nan``
-    compare exactly.  Classes may differ (the reference's and the port's
-    ``QosReport``); their fields may not."""
-    if dataclasses.is_dataclass(want):
-        assert dataclasses.is_dataclass(got), path
-        names = [f.name for f in dataclasses.fields(want)]
-        assert names == [f.name for f in dataclasses.fields(got)], path
-        for name in names:
-            assert_same(getattr(want, name), getattr(got, name),
-                        f"{path}.{name}")
-    elif isinstance(want, dict):
-        assert isinstance(got, dict) and list(want) == list(got), path
-        for key in want:
-            assert_same(want[key], got[key], f"{path}[{key!r}]")
-    elif isinstance(want, (list, tuple)):
-        assert len(want) == len(got), (path, len(want), len(got))
-        for i, (a, b) in enumerate(zip(want, got)):
-            assert_same(a, b, f"{path}[{i}]")
-    elif isinstance(want, np.ndarray):
-        got = np.asarray(got)
-        assert got.dtype == want.dtype and got.shape == want.shape, path
-        assert got.tobytes() == want.tobytes(), path
-    elif isinstance(want, float):
-        assert struct.pack("<d", want) == struct.pack("<d", float(got)), (
-            path, want, got)
-    else:
-        assert want == got, (path, want, got)
 
 
 def signature(res):

@@ -77,9 +77,9 @@ def _run(topology, n, duration, mode=None, faults=None, **kw):
                       device="cpu")
     real, calls = mesh.hop, [0]
 
-    def counting(x, off, dim=0):
+    def counting(x, off, dim=0, group=None):
         calls[0] += 1
-        return real(x, off, dim)
+        return real(x, off, dim, group)
 
     mesh.hop = counting
     try:

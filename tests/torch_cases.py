@@ -4,15 +4,17 @@ The port keeps its own copies of the app, config, topology and fault
 modules, so a parity pair needs the same scenario built twice: once from
 ``repro`` (``Scenario.app/config/fault_model``) and once from
 ``repro_torch`` here, with the same topology, seed and parameters.  It
-also holds the bitwise comparison of op results the op tests share, the
-relative closeness and the perturbed reference weights the LM tests
-share, and the cap on torch's CPU threads that every port test file
-takes by importing it; it imports no JAX, so the card-side tests can use
+also holds the bitwise comparisons of op results and of whole results
+(``assert_same``) the tests share, the relative closeness and the
+perturbed reference weights the LM tests share, and the cap on torch's
+CPU threads that every port test file takes by importing it; it imports
+no JAX, so the card-side tests and the ranks the rank tests spawn can use
 it.
 """
 from __future__ import annotations
 
 import dataclasses
+import struct
 
 import numpy as np
 import torch
@@ -119,3 +121,34 @@ def perturbed_params(ref, ref_cfg, seed):
     return ref.jax.tree.map(
         lambda a: (a + rng.standard_normal(a.shape) * 0.05).astype(a.dtype),
         params)
+
+
+def assert_same(want, got, path="result"):
+    """Two results (dataclasses, dicts, lists, arrays, numbers) equal bit
+    for bit; floats compared as their IEEE bits, so ``inf`` and ``nan``
+    compare exactly.  Classes may differ (the reference's and the port's
+    ``QosReport``); their fields may not."""
+    if dataclasses.is_dataclass(want):
+        assert dataclasses.is_dataclass(got), path
+        names = [f.name for f in dataclasses.fields(want)]
+        assert names == [f.name for f in dataclasses.fields(got)], path
+        for name in names:
+            assert_same(getattr(want, name), getattr(got, name),
+                        f"{path}.{name}")
+    elif isinstance(want, dict):
+        assert isinstance(got, dict) and list(want) == list(got), path
+        for key in want:
+            assert_same(want[key], got[key], f"{path}[{key!r}]")
+    elif isinstance(want, (list, tuple)):
+        assert len(want) == len(got), (path, len(want), len(got))
+        for i, (a, b) in enumerate(zip(want, got)):
+            assert_same(a, b, f"{path}[{i}]")
+    elif isinstance(want, np.ndarray):
+        got = np.asarray(got)
+        assert got.dtype == want.dtype and got.shape == want.shape, path
+        assert got.tobytes() == want.tobytes(), path
+    elif isinstance(want, float):
+        assert struct.pack("<d", want) == struct.pack("<d", float(got)), (
+            path, want, got)
+    else:
+        assert want == got, (path, want, got)
