@@ -118,7 +118,7 @@ phase fails:
                modes 0-4 at n_pods = 2 and mode 3 with int8 and with
                top-k: 3 steps on the card (kernels) and on the CPU (plain
                versions) from the same state agree, with exact launch
-               counts, mode 3's lossy sums counted through
+               counts, mode 3's sums (plain and lossy) counted through
                ``collectives.cross_pod_sum`` (a leaf a step); a
                checkpoint saved on the card restores on the CPU
   10. train full size  qwen2-1.5b at full width through
@@ -278,6 +278,19 @@ phase fails:
                phase has ready go in one exchange, one wait on the card),
                the hops' host and device ms a window, bytes a hop,
                all-reduces a window, beside the one-process run's
+  23. train_ranks  training's pod axis over torch.distributed ranks:
+               qwen3-0.6b uncut (bf16 compute, float32 masters), batch 4
+               x 2048 at n_pods = 2, 3 steps each of mode 0, mode 3 int8
+               and mode 3 top-k through ``train.run_training``, in one
+               process, over 2 gloo ranks sharing the card (one pod each;
+               payloads staged through pinned host memory) and over 1
+               NCCL rank holding both pods: every rank's losses, grad
+               norms and final parameters equal the one process's
+               bitwise, launches and routes exact per rank; ms a step,
+               all-gathered bytes a step, the all-gathers' host time and
+               peak memory beside the one process's; the compression
+               kernels held to their plain versions on rank 0's step-1
+               payload
 
 It imports nothing of JAX or of the JAX package.  The line before the last
 is a JSON object with one record per kernel and float32 entry point (the
@@ -285,7 +298,9 @@ edge-major drain and send add ``sharded_launches``, their launches on
 phase 18's 8-shard torus-4096 run; the duct entries add
 ``service_launches``, their launches in phase 19's runs on the card; the
 compression kernels add ``spmd_launches``, theirs in phase 20's sums; the
-dense duct entries add ``replicates_launches``, theirs in phase 21 (b));
+dense duct entries add ``replicates_launches``, theirs in phase 21 (b);
+flash_attention and the compression kernels add ``train_ranks_launches``,
+theirs in phase 23's one-process runs);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2081,7 +2096,7 @@ def train_case_card_vs_cpu(cfg, mode, comp, adamw):
     real_sum, summed = collectives.cross_pod_sum, []
 
     def counting_sum(tree, *a, **k):
-        # mode 3's lossy sums go through the ported collective
+        # mode 3's sums go through the ported collective
         summed.append(tree.device.type)
         return real_sum(tree, *a, **k)
 
@@ -2114,12 +2129,13 @@ def train_case_card_vs_cpu(cfg, mode, comp, adamw):
     check(launches == want_l,
           f"{label}: launches {launches}, expected {want_l}")
     worst = state_agrees(label, card, cpu, lr_sum, comp is not None)
-    want_sums = leaves * TRAIN_STEPS if comp is not None else 0
+    # every mode-3 sum, plain or lossy, goes through the collective
+    want_sums = leaves * TRAIN_STEPS if mode == 3 else 0
     check(summed.count("cuda") == want_sums == summed.count("cpu"),
           f"{label}: {summed.count('cuda')} collectives.cross_pod_sum calls "
           f"on the card, expected {want_sums}")
-    if comp is not None:
-        print(f"{label}: the lossy cross-pod sums through "
+    if mode == 3:
+        print(f"{label}: the cross-pod sums through "
               f"collectives.cross_pod_sum, {want_sums} calls on the card "
               f"({leaves} leaves x {TRAIN_STEPS} steps), launches as "
               f"expected", flush=True)
@@ -2186,25 +2202,32 @@ def real_gradient_kernels(cfg):
              for k, v in src.batch_for_step(0).items()}
     grads, _ = train.pod_grads(params, batch, cfg)
     del params
+    payload_kernels("step-1 gradient", grads)
+    del grads
+    torch.cuda.empty_cache()
+
+
+def payload_kernels(label, grads):
+    """The gradient leaves ``grads`` as the compressors cut them (with a
+    zero residual, the payload is the gradient's) through the three
+    compression kernels and their plain versions: bitwise."""
     topk = TopKCompressor()
     for name, g in grads.items():
         rows = (g.reshape(g.shape[0], -1) if g.ndim > 2 else
                 g if g.ndim == 2 else g.reshape(1, -1))
         k = topk.k_for(rows.shape[-1])
-        held(f"step-1 gradient {name} {tuple(rows.shape)} topk_compress "
+        held(f"{label} {name} {tuple(rows.shape)} topk_compress "
              f"k={k}", topk_compress_blocks(rows, k),
              topk_compress_torch(rows, k))
         qrows = (g.reshape(-1, g.shape[-1]) if g.ndim >= 2 else
                  F.pad(g, (0, -g.numel() % 1024)).reshape(-1, 1024))
         got = quantize_blocks(qrows, residual=True)
-        held(f"step-1 gradient {name} {tuple(qrows.shape)} quantize", got,
+        held(f"{label} {name} {tuple(qrows.shape)} quantize", got,
              quantize_torch(qrows, residual=True))
-        held(f"step-1 gradient {name} dequantize",
+        held(f"{label} {name} dequantize",
              (dequantize_blocks(got[0], got[1]),),
              (dequantize_torch(got[0], got[1]),))
         del got
-    del grads
-    torch.cuda.empty_cache()
 
 
 def leaf_topk_routes(params, steps):
@@ -4125,6 +4148,247 @@ def ranks():
             dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# 23. training's pod axis over torch.distributed ranks
+# ---------------------------------------------------------------------------
+#: qwen3-0.6b uncut (28 layers, d 1024; bf16 compute, float32 masters),
+#: batch 4 x 2048 over 2 pods, TRAIN_RANKS_STEPS steps of each mode: the
+#: CLI's spec (lr 3e-3, 20 warmup steps).  Cut in steps, 4 -> 3, to hold
+#: the phase near 90 s: alone it took 125.0 s at 4 steps on an H100 80GB
+#: HBM3 (700 W), 78 s of them in the 2 gloo ranks, whose mode-0 step
+#: stages 2.38 GB a rank through the host (6.8 s a step)
+TRAIN_RANKS_ARCH, TRAIN_RANKS_PODS = "qwen3-0.6b", 2
+TRAIN_RANKS_B, TRAIN_RANKS_S, TRAIN_RANKS_STEPS = 4, 2048, 3
+TRAIN_RANKS_MODES = ((0, None), (3, "int8"), (3, "topk"))
+
+
+def fingerprint(x: torch.Tensor) -> int:
+    """A bitwise fingerprint of a float32 tensor, made on its device: its
+    bits as int64, weighted by position (1 .. 65536, cycling) and summed
+    modulo 2**64.  One differing element changes it."""
+    bits = x.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    w = torch.arange(bits.numel(), device=x.device) % 65536 + 1
+    return int((bits * w).sum())
+
+
+def train_ranks_run(mode, comp, group=None):
+    """``TRAIN_RANKS_STEPS`` steps of ``run_training`` in ``mode`` with
+    ``comp`` at n_pods = 2, over ``group`` (this rank's pods) or in one
+    process; launch counters, routes and the group's stats zeroed just
+    before and read just after.  Returns the history, the launches and
+    routes, the peak memory and each pod's final parameter fingerprints
+    {(path, pod): int}."""
+    cfg = train.resolve_config(TRAIN_RANKS_ARCH)
+    spec = train.TrainSpec(
+        mode=AsyncMode(mode), compressor=comp,
+        adamw=AdamWConfig(lr=3e-3, warmup_steps=20,
+                          total_steps=TRAIN_RANKS_STEPS))
+    data = DataConfig(cfg.vocab_size, TRAIN_RANKS_S, TRAIN_RANKS_B, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    if group is not None:
+        group.reset_stats()
+    state, history = train.run_training(
+        cfg, spec, data, steps=TRAIN_RANKS_STEPS, n_pods=TRAIN_RANKS_PODS,
+        log_every=1, log=lambda _: None, device="cuda", seed=0, group=group)
+    torch.cuda.synchronize()
+    out = dict(history=history, launches=dict(K.LAUNCHES),
+               routes=dict(K.ROUTES),
+               peak=torch.cuda.max_memory_allocated(),
+               leaves=len(state["params"]),
+               topk_routes=leaf_topk_routes(state["params"], 1))
+    lo = 0 if group is None else group.lo
+    out["params"] = {(k, lo + p): fingerprint(v[p])
+                     for k, v in state["params"].items()
+                     for p in range(v.shape[0])}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_ranks_launches(cfg, got, pods):
+    """The launches and routes of a run holding ``pods`` of the
+    ``TRAIN_RANKS_PODS`` pods: flash_attention forward and recompute per
+    attention layer per pod-step on the tensor-core route; per leaf per
+    pod-step one quantize and one topk_compress (by its route); per leaf
+    per step one dequantize for every pod's payload."""
+    steps = TRAIN_RANKS_STEPS
+    want = train_launches(cfg, steps * pods)
+    routes = {"flash_attention/wgmma": want["flash_attention"]}
+    mode, comp = got["case"]
+    if comp == "int8":
+        want["quantize"] = got["leaves"] * steps * pods
+        want["dequantize"] = got["leaves"] * steps * TRAIN_RANKS_PODS
+    elif comp == "topk":
+        want["topk_compress"] = got["leaves"] * steps * pods
+        routes.update({k: v * steps * pods
+                       for k, v in got["topk_routes"].items()})
+    return want, routes
+
+
+def train_rank_main(rank, world, store, out_dir):
+    """A gloo rank on the card holding 1 of the 2 pods: every
+    ``TRAIN_RANKS_MODES`` run, then its pod's step-1 gradient payload
+    through the compression kernels (rank 0); what it measured goes to
+    ``out_dir``."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        group = mesh.make_shard_mesh(TRAIN_RANKS_PODS, "gloo", device="cuda")
+        out = {}
+        for case in TRAIN_RANKS_MODES:
+            out[case] = train_ranks_run(*case, group)
+            out[case]["case"] = case
+            out[case]["stats"] = dict(group.stats)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        cfg = train.resolve_config(TRAIN_RANKS_ARCH)
+        params = lm.init_params(cfg, seed=0, device="cuda")
+        b = {k: torch.as_tensor(v).cuda() for k, v in SyntheticLM(DataConfig(
+            cfg.vocab_size, TRAIN_RANKS_S, TRAIN_RANKS_B, seed=0)
+        ).batch_for_step(0).items()}
+        per = TRAIN_RANKS_B // TRAIN_RANKS_PODS
+        grads, _ = train.pod_grads(
+            params, {k: v[group.lo * per:(group.lo + 1) * per]
+                     for k, v in b.items()}, cfg)
+        del params
+        payload_kernels(f"train_ranks gloo rank 0 pod {group.lo} step-1 "
+                        "payload", grads)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def train_rank_report(label, got, one):
+    """The measured line of one run beside the one-process run's."""
+    def steady(h, key):
+        return statistics.mean(x[key] for x in h[1:])
+
+    h, o = got["history"], one["history"]
+    extra = ""
+    if "gathered_bytes" in h[0]:
+        st = got["stats"]
+        extra = (f", all-gathered {steady(h, 'gathered_bytes'):.0f} bytes "
+                 f"a step in {st['all_gathers'] / TRAIN_RANKS_STEPS:.1f} "
+                 f"all-gathers ({steady(h, 'gather_s') * 1e3:.1f} ms of host "
+                 "time a step)")
+    print(f"train_ranks {label}: {steady(h, 'ms'):.1f} ms a step after "
+          f"step 1 (one process {steady(o, 'ms'):.1f}), step ms "
+          f"{[round(x['ms'], 1) for x in h]}, peak memory "
+          f"{got['peak'] / 2 ** 30:.2f} GiB (one process "
+          f"{one['peak'] / 2 ** 30:.2f}){extra}", flush=True)
+
+
+def train_ranks_exact(label, got, pods):
+    """A run's losses are finite and its launches and routes exact."""
+    cfg = train.resolve_config(TRAIN_RANKS_ARCH)
+    losses = [x["loss"] for x in got["history"]]
+    check(all(np.isfinite(losses)), f"{label}: losses {losses}")
+    want, routes = train_ranks_launches(cfg, got, pods)
+    launches = {k: v for k, v in got["launches"].items() if v}
+    check(launches == {k: v for k, v in want.items() if v},
+          f"{label}: launches {launches}, expected {want}")
+    check(got["routes"] == routes,
+          f"{label}: routes {got['routes']}, expected {routes}")
+    return launches
+
+
+def train_ranks_agree(label, got, one, pods):
+    """Losses, grad norms and the final parameters of ``pods`` equal the
+    one-process run's bitwise; the launches and routes are exact."""
+    launches = train_ranks_exact(label, got, len(pods))
+    for key in ("loss", "grad_norm", "aux", "lr"):
+        a = [x[key] for x in got["history"]]
+        b = [x[key] for x in one["history"]]
+        check(a == b, f"{label}: {key} {a}, one process {b}")
+    losses = [x["loss"] for x in got["history"]]
+    differ = sorted({k for (k, p), v in got["params"].items()
+                     if v != one["params"][(k, p)]})
+    check(not differ and len(got["params"]) == got["leaves"] * len(pods),
+          f"{label}: final parameters differ from one process in {differ}")
+    print(f"train_ranks {label}: {TRAIN_RANKS_STEPS} steps == one process "
+          f"(losses {[round(x, 6) for x in losses]}, grad norms, final "
+          f"parameters of pods {list(pods)} bitwise); launches {launches}",
+          flush=True)
+
+
+@phase("train_ranks")
+def train_ranks():
+    """Training's pod axis over torch.distributed ranks on the one card:
+    qwen3-0.6b uncut, bf16 compute and float32 masters, batch 4 x 2048 at
+    n_pods = 2, ``TRAIN_RANKS_STEPS`` steps of mode 0, mode 3 int8 and
+    mode 3 top-k through ``train.run_training``: (a) one process holding
+    both pods; (b) 2 gloo ranks sharing the card, one pod each (spawned
+    here; the payloads staged through pinned host memory); (c) 1 NCCL
+    rank holding both pods, in this process.  Each run's losses, grad
+    norms and final parameters equal (a)'s bitwise, its launches and
+    routes are exact, and its ms a step, all-gathered bytes a step, the
+    all-gathers' host time and peak memory are printed beside (a)'s.  Rank
+    0 also holds the compression kernels to their plain versions on its
+    pod's step-1 payload.  Returns the launches of (a)."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    one = {}
+    for case in TRAIN_RANKS_MODES:
+        one[case] = train_ranks_run(*case)
+        one[case]["case"] = case
+        label = f"mode {case[0]} {case[1] or 'plain'} one process"
+        launches = train_ranks_exact(label, one[case], TRAIN_RANKS_PODS)
+        print(f"train_ranks {label}: losses "
+              f"{[round(x['loss'], 6) for x in one[case]['history']]}, "
+              f"step ms {[round(x['ms'], 1) for x in one[case]['history']]}"
+              f", peak memory {one[case]['peak'] / 2 ** 30:.2f} GiB; "
+              f"launches {launches}", flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(train_rank_main,
+                           args=(TRAIN_RANKS_PODS,
+                                 os.path.join(tmp, "store"), tmp),
+                           nprocs=TRAIN_RANKS_PODS, join=True,
+                           start_method="spawn")
+        spawned = time.perf_counter() - t0
+        got = []
+        for r in range(TRAIN_RANKS_PODS):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                got.append(pickle.load(f))
+    for case in TRAIN_RANKS_MODES:
+        label = f"mode {case[0]} {case[1] or 'plain'}"
+        for r, out in enumerate(got):
+            train_ranks_agree(f"{label} gloo rank {r}", out[case], one[case],
+                              [r])
+            train_rank_report(f"{label} gloo rank {r} of 2", out[case],
+                              one[case])
+    print(f"train_ranks: 2 gloo ranks spawned, ran and joined in "
+          f"{spawned:.1f}s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl",
+                                init_method="file://" + os.path.join(
+                                    tmp, "store"), rank=0, world_size=1)
+        try:
+            group = mesh.make_shard_mesh(TRAIN_RANKS_PODS, "nccl")
+            for case in TRAIN_RANKS_MODES:
+                label = f"mode {case[0]} {case[1] or 'plain'}"
+                out = train_ranks_run(*case, group)
+                out["case"], out["stats"] = case, dict(group.stats)
+                train_ranks_agree(f"{label} 1 nccl rank", out, one[case],
+                                  range(TRAIN_RANKS_PODS))
+                train_rank_report(f"{label} 1 nccl rank", out, one[case])
+        finally:
+            dist.destroy_process_group()
+    launched = {}
+    for case in TRAIN_RANKS_MODES:
+        for k, v in one[case]["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+    return launched
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4152,6 +4416,7 @@ def main():
     spmd_launched = spmd()
     replicates_launched = replicates(hbm)
     ranks()
+    train_ranks_launched = train_ranks()
     kernels_line = []
     for entry, kname, replaces in ENTRIES:
         rec = records[entry]
@@ -4174,7 +4439,9 @@ def main():
             **({"spmd_launches": spmd_launched[entry]}
                if spmd_launched.get(entry) else {}),
             **({"replicates_launches": replicates_launched[entry]}
-               if replicates_launched.get(entry) else {})))
+               if replicates_launched.get(entry) else {}),
+            **({"train_ranks_launches": train_ranks_launched[entry]}
+               if train_ranks_launched.get(entry) else {})))
     print("phases: " + ", ".join(f"{p} {t:.1f}s" for p, t in PHASES))
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -94,10 +94,12 @@ def _from_bytes(raw: np.ndarray, dtype: str, shape) -> torch.Tensor:
     return torch.from_numpy(raw.view(np.dtype(dtype)).reshape(shape).copy())
 
 
-def restore(ckpt_dir: str, step: int, like) -> Dict:
+def restore(ckpt_dir: str, step: int, like, take=None) -> Dict:
     """Restore into the structure of ``like`` (a state of nested dicts of
     tensors): every leaf of ``like`` is read by its path, checked for its
-    shape, cast to its dtype and put on its device."""
+    shape, cast to its dtype and put on its device.  ``take(path, leaf)``,
+    where given, cuts each leaf read (a CPU tensor) to the part ``like``
+    holds before the check: a rank's pods of a train state."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -106,6 +108,8 @@ def restore(ckpt_dir: str, step: int, like) -> Dict:
         for key, leaf in flatten(like).items():
             meta = manifest["leaves"][key]
             arr = _from_bytes(z[key], meta["dtype"], meta["shape"])
+            if take is not None:
+                arr = take(key, arr)
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"{key}: checkpoint shape "
                                  f"{tuple(arr.shape)}, expected "

@@ -53,6 +53,9 @@ def _gathered(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 
 def _psum(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The sum over every pod, expanded over this process's pods.  One
+    expression in both layouts: over ranks it reduces the gathered pods
+    exactly as one process reduces its own."""
     return _gathered(x, dim, group).sum(dim, keepdim=True).expand_as(x)
 
 
@@ -148,6 +151,11 @@ def exchange_gradients(grads, state: dict, mode: AsyncMode, dim: int = 0,
 # Periodic parameter sync (modes 1/2 outer step)
 # ---------------------------------------------------------------------------
 def pod_mean(tree, dim: int = 0, group: Optional[mesh.RankGroup] = None):
+    """The mean over every pod as the sum divided by the pod count (the
+    reference's ``jnp.mean``; torch's CUDA ``mean`` multiplies by the
+    reciprocal instead, which rounds otherwise for 3 pods), expanded over
+    this process's pods.  ``launch/train.py`` takes every mean over the
+    pods from here."""
     return _map(lambda x: _psum(x, dim, group) / _pods(x, dim, group), tree)
 
 

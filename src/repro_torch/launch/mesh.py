@@ -20,13 +20,18 @@ so it is the one seam between the layouts:
   one contiguous buffer a peer; ``hops`` moves several hops in one such
   exchange).  ``RankGroup.all_reduce`` and
   ``all_gather`` are the other collectives the port issues over ranks.
+  Training's pod axis splits over the ranks the same way
+  (``make_shard_mesh(n_pods, backend)``): each rank holds ``per`` pods of
+  the pod-stacked train state, and the cross-pod reductions of
+  ``core/collectives.py`` all-gather the pods.
 
 The backend is the caller's choice and nothing falls back: ``nccl`` puts
 one rank on each card (``cuda:{local_rank}``) and moves device buffers;
 ``gloo`` runs on the CPU, or with several ranks sharing one card, and then
 stages every CUDA buffer through pinned host memory explicitly (gloo's
-send and receive take host tensors).  A failed send, receive or reduction
-raises.
+send and receive take host tensors), from a pool of pinned buffers kept
+by size, dtype and role, so a training step that gathers every leaf pins
+no fresh memory.  A failed send, receive or reduction raises.
 
 The production meshes are shapes only (``Mesh``: ``.shape``,
 ``.axis_names``): ``rules_for`` and the spec rules of
@@ -84,9 +89,11 @@ class RankGroup:
     default group), ``backend`` its backend, ``device`` where this rank's
     blocks live.  ``stats`` counts what the collectives did: ``hops``, the
     ``exchanges`` that moved them, ``hop_bytes`` sent to peers, ``hop_s``
-    of host time in them, ``all_reduces`` and ``all_reduce_s`` of host
-    time in them, ``all_gathers``.  With ``time_device`` set on a CUDA
-    rank, :meth:`hop_device_ms` gives the card's own time in the hops.
+    of host time in them; ``all_reduces``, ``all_reduce_bytes`` this rank
+    sent and ``all_reduce_s`` of host time in them; ``all_gathers``,
+    ``all_gather_bytes`` this rank sent and ``all_gather_s``.  With
+    ``time_device`` set on a CUDA rank, :meth:`hop_device_ms` gives the
+    card's own time in the hops.
     """
 
     def __init__(self, pg, backend: str, blocks: int, device: torch.device,
@@ -103,11 +110,18 @@ class RankGroup:
         self.time_device = False
         self._events: List[tuple] = []
         self._plans: Dict[tuple, tuple] = {}
+        #: pinned staging buffers {(numel, dtype, role): buffer}
+        self._pool: Dict[tuple, torch.Tensor] = {}
+        #: {buffer's data_ptr: event after the copy to the card that reads
+        #: it}: the buffer is free once the event has passed
+        self._fences: Dict[int, torch.cuda.Event] = {}
         self.reset_stats()
 
     def reset_stats(self) -> None:
         self.stats = dict(hops=0, exchanges=0, hop_bytes=0, hop_s=0.0,
-                          all_reduces=0, all_reduce_s=0.0, all_gathers=0)
+                          all_reduces=0, all_reduce_bytes=0,
+                          all_reduce_s=0.0, all_gathers=0,
+                          all_gather_bytes=0, all_gather_s=0.0)
         self._events = []
 
     @property
@@ -121,13 +135,28 @@ class RankGroup:
         return q if self.pg is None else dist.get_global_rank(self.pg, q)
 
     # -- host staging ---------------------------------------------------
+    def _pinned(self, shape, dtype, role: str) -> torch.Tensor:
+        """A pinned host buffer of ``shape`` from the pool: one buffer a
+        (size, dtype, role), taken again once the copy to the card that
+        last read it has finished."""
+        numel = math.prod(shape)
+        key = (numel, dtype, role)
+        buf = self._pool.get(key)
+        if buf is None:
+            buf = self._pool[key] = torch.empty(numel, dtype=dtype,
+                                                pin_memory=True)
+        fence = self._fences.pop(buf.data_ptr(), None)
+        if fence is not None:
+            fence.synchronize()
+        return buf.view(shape)
+
     def _out(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` as the backend sends it: bool as uint8, and on a staged
         rank in pinned host memory."""
         if x.dtype == torch.bool:
             x = x.view(torch.uint8)
         if self.staged:
-            h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            h = self._pinned(x.shape, x.dtype, "out")
             h.copy_(x)
             return h
         return x.contiguous()
@@ -136,11 +165,17 @@ class RankGroup:
         if dtype == torch.bool:
             dtype = torch.uint8
         if self.staged:
-            return torch.empty(shape, dtype=dtype, pin_memory=True)
+            return self._pinned(shape, dtype, "in")
         return torch.empty(shape, dtype=dtype, device=self.device)
 
     def _back(self, h: torch.Tensor, dtype) -> torch.Tensor:
-        x = h.to(self.device, non_blocking=True) if self.staged else h
+        if self.staged:
+            x = h.to(self.device, non_blocking=True)
+            fence = torch.cuda.Event()
+            fence.record()
+            self._fences[h.data_ptr()] = fence
+        else:
+            x = h
         return x.view(torch.bool) if dtype == torch.bool else x
 
     # -- the collectives ------------------------------------------------
@@ -288,19 +323,27 @@ class RankGroup:
         dist.all_reduce(buf, red, group=self.pg)
         out = self._back(buf, x.dtype)
         self.stats["all_reduces"] += 1
+        self.stats["all_reduce_bytes"] += buf.numel() * buf.element_size()
         self.stats["all_reduce_s"] += time.perf_counter() - t0
         return out
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's ``x`` concatenated along ``dim`` in rank order:
-        the blocks of every rank, in the one-process order."""
+        the blocks of every rank, in the one-process order.  The ranks'
+        parts land in one buffer, rank after rank, which along dimension 0
+        is the concatenation itself."""
         import torch.distributed as dist
+        t0 = time.perf_counter()
         buf = self._out(x)
-        parts = [self._buffer(buf.shape, buf.dtype)
-                 for _ in range(self.size)]
-        dist.all_gather(parts, buf, group=self.pg)
+        flat = self._buffer((self.size, *buf.shape), buf.dtype)
+        dist.all_gather(list(flat.unbind(0)), buf, group=self.pg)
+        got = self._back(flat, x.dtype)
+        out = (got.reshape(-1, *x.shape[1:]) if dim == 0 else
+               torch.cat(got.unbind(0), dim=dim))
         self.stats["all_gathers"] += 1
-        return torch.cat([self._back(p, x.dtype) for p in parts], dim=dim)
+        self.stats["all_gather_bytes"] += buf.numel() * buf.element_size()
+        self.stats["all_gather_s"] += time.perf_counter() - t0
+        return out
 
 
 BACKENDS = ("nccl", "gloo")
@@ -319,7 +362,8 @@ def make_shard_mesh(n_shards: int, backend: str, *, group=None,
     ``torch.distributed.run`` sets it; else the rank) on
     ``cuda:{local_rank}`` and raises with more ranks than visible cards;
     ``"gloo"`` keeps ``device`` as given (the CPU, or one card that several
-    ranks share).  ``n_shards`` must be a multiple of the ranks."""
+    ranks share).  ``n_shards`` must be a multiple of the ranks.  Training
+    splits its pods the same way: ``make_shard_mesh(n_pods, backend)``."""
     import torch.distributed as dist
 
     from repro_torch.device import resolve_device
@@ -339,8 +383,8 @@ def make_shard_mesh(n_shards: int, backend: str, *, group=None,
                 f"{cards} visible card(s); ranks that share a card need "
                 "backend 'gloo'")
     if n_shards % size:
-        raise ValueError(f"{n_shards} shards do not split evenly over "
-                         f"{size} ranks")
+        raise ValueError(f"{n_shards} blocks (shards or pods) do not split "
+                         f"evenly over {size} ranks")
     got = dist.get_backend(group)
     if got != backend:
         raise ValueError(f"backend {backend!r} was asked for, but the "

@@ -361,3 +361,146 @@ def spmd_cases(rank, world, payload):
                                     dim, shift, group=g)
     return dict(ring=rings, collectives=collective_results(inputs, pods),
                 spmd=spmd_results(rows))
+
+
+# ---------------------------------------------------------------------------
+# training's pod axis
+# ---------------------------------------------------------------------------
+#: the reduced archs, (mode, compressor) cases, batch, sequence and steps
+#: of the training cases
+TRAIN_ARCHS = ("qwen2-1.5b", "qwen3-0.6b")
+TRAIN_MODES = ((0, None), (1, None), (2, None), (3, None), (3, "int8"),
+               (3, "topk"), (4, None))
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 32, 3
+#: (ranks, pods a rank) of the training layouts
+TRAIN_LAYOUTS = ((2, 1), (2, 2), (4, 1))
+
+
+def train_cfg(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.smoke import reduce_for_smoke
+    return reduce_for_smoke(get_config(arch)).replace(dtype="float32")
+
+
+def train_spec(mode, compressor):
+    from repro_torch.core.modes import AsyncMode
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.outer import OuterConfig
+    return train.TrainSpec(
+        mode=AsyncMode(mode), compressor=compressor,
+        adamw=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20),
+        outer=OuterConfig(sync_period=2))
+
+
+def train_batches(cfg, n_pods, steps=TRAIN_STEPS):
+    """Each step's batch, (n_pods, B / n_pods, S), from one stream."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    src = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=2))
+    return [{k: torch.as_tensor(v).reshape(n_pods, -1, TRAIN_S)
+             for k, v in src.batch_for_step(k).items()}
+            for k in range(steps)]
+
+
+def train_result(arch, mode, compressor, n_pods, group=None):
+    """``TRAIN_STEPS`` steps from the seed-0 state at ``n_pods`` (over
+    ``group``, this rank's pods of each batch): (final state, every
+    step's metrics)."""
+    from repro_torch.launch import train
+    cfg, spec = train_cfg(arch), train_spec(mode, compressor)
+    state = train.init_train_state(cfg, spec, n_pods, device="cpu",
+                                   group=group)
+    step = train.make_train_step(cfg, spec, n_pods, group)
+    lo, per = (0, n_pods) if group is None else (group.lo, group.per)
+    metrics = []
+    for b in train_batches(cfg, n_pods):
+        state, m = step(state, {k: v[lo:lo + per] for k, v in b.items()})
+        metrics.append(m)
+    return state, metrics
+
+
+#: the checkpoint runs: arch, mode, compressor, pods
+CKPT_CASE = ("qwen2-1.5b", 3, "topk", 2)
+
+
+def ckpt_run(ckpt_dir, steps, ckpt_every, group=None, log=None):
+    """``run_training`` of ``CKPT_CASE`` with checkpoints in ``ckpt_dir``:
+    the history."""
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.launch import train
+    arch, mode, comp, n_pods = CKPT_CASE
+    cfg = train_cfg(arch)
+    _, history = train.run_training(
+        cfg, train_spec(mode, comp),
+        DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=2), steps=steps,
+        ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, n_pods=n_pods,
+        log_every=1, log=log or (lambda _: None), device="cpu", group=group)
+    return history
+
+
+def train_negative_cases(world):
+    """Each call the pod path over ranks must refuse: ``{case: (exception
+    type, message)}``, ``None`` where nothing was raised."""
+    from unittest import mock
+
+    from repro_torch.launch import train
+    cfg, spec = train_cfg("qwen2-1.5b"), train_spec(3, "int8")
+    group = mesh.make_shard_mesh(world, "gloo", device="cpu")
+
+    def cards(n):
+        return mock.patch.multiple(torch.cuda, is_available=lambda: True,
+                                   device_count=lambda: n)
+
+    def nccl_on_a_gloo_group():
+        with cards(world):
+            mesh.make_shard_mesh(world, "nccl", device="cpu")
+
+    def wrong_batch():
+        step = train.make_train_step(cfg, spec, world, group)
+        state = train.init_train_state(cfg, spec, world, device="cpu",
+                                       group=group)
+        step(state, {k: v[:2] for k, v in
+                     train_batches(cfg, world, 1)[0].items()})
+
+    calls = {
+        "pods_not_a_multiple_of_ranks": lambda: mesh.make_shard_mesh(
+            2 * world + 1, "gloo", device="cpu"),
+        "nccl_more_ranks_than_cards": lambda: mesh.make_shard_mesh(
+            world, "nccl", device="cpu"),
+        "backend_not_the_groups": nccl_on_a_gloo_group,
+        "state_of_other_pods": lambda: train.init_train_state(
+            cfg, spec, 2 * world, device="cpu", group=group),
+        "step_of_other_pods": lambda: train.make_train_step(
+            cfg, spec, 2 * world, group),
+        "batch_of_other_pods": wrong_batch,
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except Exception as e:  # the test reads the type and message
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
+def train_cases(rank, world, payload):
+    """Every training case of ``payload`` ({"cases": [(arch, mode,
+    compressor, pods a rank)], "ckpt": dirs or None}) over the ranks, each
+    with its group's stats, then the checkpoint runs and the refusals."""
+    out, stats = {}, {}
+    for case in payload["cases"]:
+        arch, mode, comp, per = case
+        group = mesh.make_shard_mesh(world * per, "gloo", device="cpu")
+        out[case] = train_result(arch, mode, comp, world * per, group)
+        stats[case] = dict(group.stats)
+    ckpt = {}
+    if payload.get("ckpt"):
+        group = mesh.make_shard_mesh(CKPT_CASE[3], "gloo", device="cpu")
+        written, restored = payload["ckpt"]
+        logs = []
+        ckpt["written"] = ckpt_run(written, 2, 2, group)
+        ckpt["restored"] = ckpt_run(restored, 3, 1, group, logs.append)
+        ckpt["logs"] = logs
+    return dict(results=out, stats=stats, ckpt=ckpt,
+                negative=train_negative_cases(world))
