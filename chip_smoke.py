@@ -247,7 +247,7 @@ phase fails:
   21. replicates  batched replicates, a sweep of seeds in one carry: (a)
                the weak-scaling sweep through the CLI, ``--procs 256
                --replicates 32`` (8192 processes in one carry; duration
-               cut to 0.00025), then the same seeds through the sequential
+               cut to 0.00025), then its first 8 seeds through the sequential
                loop, every SimResult field equal; wall s, duct launches a
                window and busy share of both; seeds of phase 4's lossy
                torus-16 that stop in different windows, one window a
@@ -280,7 +280,7 @@ phase fails:
                all-reduces a window, beside the one-process run's
   23. train_ranks  training's pod axis over torch.distributed ranks:
                qwen3-0.6b uncut (bf16 compute, float32 masters), batch 4
-               x 2048 at n_pods = 2, 3 steps each of mode 0, mode 3 int8
+               x 2048 at n_pods = 2, 2 steps each of mode 0, mode 3 int8
                and mode 3 top-k through ``train.run_training``, in one
                process, over 2 gloo ranks sharing the card (one pod each;
                payloads staged through pinned host memory) and over 1
@@ -291,6 +291,24 @@ phase fails:
                peak memory beside the one process's; the compression
                kernels held to their plain versions on rank 0's step-1
                payload
+  24. dtensor  the LM step over a device mesh: qwen3-0.6b uncut (bf16
+               over float32 masters), batch 4 x 2048 at one pod, 3 steps
+               of mode 3 and of mode 3 int8, in one process and with
+               every leaf a DTensor on one NCCL rank's (1, 1, 1) ("pod",
+               "data", "model") mesh (the model's constraint sites, the
+               kernels through ``local_map``): losses, grad norms and
+               final parameters bitwise, launches per kernel equal;
+               qwen2-1.5b prefill of 8 x 2048 and 2 decode steps on the
+               mesh, logits bitwise; the dry run of the mode 3 cell on a
+               fake (1, 1, 1) mesh, its argument bytes equal to the real
+               state and batch's, its peak beside the real step's; the
+               dry run's CLI on qwen2-1.5b train_4k (16x16) and
+               jamba-v0.1-52b long_500k (2x16x16), on the CPU meanwhile
+
+Cut in depth or repetitions for the script's time limit, to make room
+for phase 24 (widths unchanged): phase 3's plain versions warm up
+once, not three times; phase 21's sequential loop runs the first 8 of
+the sweep's 32 seeds; phase 23 3 -> 2 steps a mode.
 
 It imports nothing of JAX or of the JAX package.  The line before the last
 is a JSON object with one record per kernel and float32 entry point (the
@@ -300,7 +318,8 @@ phase 18's 8-shard torus-4096 run; the duct entries add
 compression kernels add ``spmd_launches``, theirs in phase 20's sums; the
 dense duct entries add ``replicates_launches``, theirs in phase 21 (b);
 flash_attention and the compression kernels add ``train_ranks_launches``,
-theirs in phase 23's one-process runs);
+theirs in phase 23's one-process runs; the kernels of phase 24's mesh
+steps add ``dtensor_launches``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -772,9 +791,10 @@ def measure(label, run_kernel, run_plain, inputs, ops, hbm, *,
                         f"{tol} (max |difference| {err:.3g})")
         agree = f"max |difference| {err:.3g} within rtol, atol = {tol}"
     ms, ms_by = device_ms(run_kernel)
-    plain, plain_by = device_ms(run_plain, runs=plain_runs or 10)
+    plain, plain_by = device_ms(run_plain, runs=plain_runs or 10,
+                                warmup=1)
     call = call_ms(run_kernel)
-    plain_call = call_ms(run_plain, runs=plain_runs or 15)
+    plain_call = call_ms(run_plain, runs=plain_runs or 15, warmup=1)
     lib, lib_by = device_ms(library) if library is not None else (None, None)
     moved = (nbytes(*inputs) if read is None else read) + \
         (nbytes(*got) if written is None else written)
@@ -3343,6 +3363,11 @@ def serve_hook_cost():
               f"{on['wall_ms_per_window']:.3f}", flush=True)
 
 
+#: the virtual seconds of the full-width service runs (cut from 0.02 for
+#: the script's time limit; at 0.005 the bursty run serves nothing)
+SERVE_DEPTH = 0.01
+
+
 @phase("service")
 def service():
     """The live-service path on the card: (a) the dyadic serve scenarios
@@ -3356,9 +3381,9 @@ def service():
     launched = {}
     serve_oracle_on_card()
     serve_card_equals_cpu(launched)
-    # both runs at 0.01 virtual s (cut from 0.02 for the script's time
-    # limit)
-    base = ["--traffic", "bursty", "--churn", "2", "--duration", "0.01"]
+    # every run at SERVE_DEPTH virtual s
+    base = ["--traffic", "bursty", "--churn", "2", "--duration",
+            str(SERVE_DEPTH)]
     dense = serve_full_size("bursty churn 2 dense", base, launched)
     edge = serve_full_size("bursty churn 2 edge", base + ["--layout", "edge"],
                            launched)
@@ -3370,7 +3395,8 @@ def service():
     check(dense == edge, "bursty churn 2: dense and edge outputs differ")
     print("serve torus-4096 bursty churn 2: dense == edge (the whole "
           "run_service dict)", flush=True)
-    base = ["--traffic", "poisson", "--churn", "1", "--duration", "0.01"]
+    base = ["--traffic", "poisson", "--churn", "1", "--duration",
+            str(SERVE_DEPTH)]
     one = serve_full_size("poisson churn 1 unsharded", base, launched)
     eight = serve_full_size("poisson churn 1 8 shards",
                             base + ["--shards", "8"], launched)
@@ -3676,7 +3702,10 @@ ENTRIES = (
 #: EXPERIMENTS.md), cut from 0.05 virtual s to 0.00025 so that its
 #: sequential loop (32 runs, each launch-bound) fits the phase; that loop
 #: probes every 16 windows (a probe's place does not change a result)
-SWEEP = dict(procs=256, replicates=32, duration=0.00025, sequential_chunk=16)
+#: the sequential loop runs the first ``sequential_seeds`` of the batch's
+#: seeds (cut from all 32 for the script's time limit)
+SWEEP = dict(procs=256, replicates=32, duration=0.00025, sequential_chunk=16,
+             sequential_seeds=8)
 #: (a): seeds of phase 4's lossy 16-process torus that stop in different
 #: windows at 2**-8 virtual s (237 and 236), run one window a chunk so
 #: that the done probe reads each stop
@@ -3751,7 +3780,8 @@ def window_profile(argv):
 
 def replicate_sweep():
     """(a) The sweep through the CLI (``experiments.main``), its batched
-    results captured; the same seeds through the sequential loop; every
+    results captured; its first ``sequential_seeds`` seeds through the
+    sequential loop; every
     SimResult field equal; wall, duct launches a window and busy share of
     both."""
     argv = ["--engine", "torch", "--device", "cuda", "--topology", "torus",
@@ -3791,12 +3821,14 @@ def replicate_sweep():
                                                        SWEEP["procs"]),
         args.seed), experiments._sim_config(args, SWEEP["procs"]),
         chunk=SWEEP["sequential_chunk"], device="cuda")
+    few = SWEEP["sequential_seeds"]
     seq, seq_wall, seq_windows, seq_launches = batch_run(
-        "sweep sequential", seq_eng, seeds, sequential=True)
-    same_results("sweep: batched vs sequential", seq, batched)
+        "sweep sequential", seq_eng, seeds[:few], sequential=True)
+    same_results("sweep: batched vs sequential", seq, batched[:few])
     print(f"replicates sweep: batched == sequential, every SimResult field "
-          f"of {len(seeds)} seeds (quality included); wall {cli_wall:.2f}s "
-          f"batched, {seq_wall:.2f}s sequential", flush=True)
+          f"of the first {few} of {len(seeds)} seeds (quality included); "
+          f"wall {cli_wall:.2f}s batched ({len(seeds)} seeds), "
+          f"{seq_wall:.2f}s sequential ({few} seeds)", flush=True)
     procs = ["--procs", str(SWEEP["procs"])]
     for r in (SWEEP["replicates"], 1):
         line, _ = window_profile([*procs, "--replicates", str(r)])
@@ -4158,7 +4190,7 @@ def ranks():
 #: HBM3 (700 W), 78 s of them in the 2 gloo ranks, whose mode-0 step
 #: stages 2.38 GB a rank through the host (6.8 s a step)
 TRAIN_RANKS_ARCH, TRAIN_RANKS_PODS = "qwen3-0.6b", 2
-TRAIN_RANKS_B, TRAIN_RANKS_S, TRAIN_RANKS_STEPS = 4, 2048, 3
+TRAIN_RANKS_B, TRAIN_RANKS_S, TRAIN_RANKS_STEPS = 4, 2048, 2
 TRAIN_RANKS_MODES = ((0, None), (3, "int8"), (3, "topk"))
 
 
@@ -4389,6 +4421,269 @@ def train_ranks():
     return launched
 
 
+# ---------------------------------------------------------------------------
+# 24. dtensor: the LM step over a device mesh
+# ---------------------------------------------------------------------------
+#: phase 24: qwen3-0.6b uncut, batch 4 x 2048 at one pod, DT_STEPS steps of
+#: each mode; qwen2-1.5b served 8 x 2048 plus DT_SERVE_T decode steps
+DT_ARCH, DT_B, DT_S, DT_STEPS = "qwen3-0.6b", 4, 2048, 3
+DT_MODES = ((3, None), (3, "int8"))
+DT_SERVE_ARCH, DT_SERVE_B, DT_SERVE_P, DT_SERVE_T = "qwen2-1.5b", 8, 2048, 2
+#: the mesh of one NCCL rank, the reference's multi-pod axes
+DT_MESH = ((1, 1, 1), ("pod", "data", "model"))
+#: the dry run's command lines, each beside its record's time
+DT_CLI = (("qwen2-1.5b", "train_4k", "single"),
+          ("jamba-v0.1-52b", "long_500k", "multi"))
+
+
+def dt_spec(mode, comp):
+    return train.TrainSpec(
+        mode=AsyncMode(mode), compressor=comp,
+        adamw=AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=DT_STEPS))
+
+
+def dt_nbytes(tree) -> int:
+    """The bytes of the tensors of ``tree`` (a DTensor's local block)."""
+    from repro_torch.models.partitioning import is_dtensor
+    if isinstance(tree, dict):
+        return sum(dt_nbytes(v) for v in tree.values())
+    t = tree.to_local() if is_dtensor(tree) else tree
+    return t.numel() * t.element_size()
+
+
+def dt_train_run(mode, comp, dmesh=None):
+    """``DT_STEPS`` steps of ``make_train_step`` from the seed-0 state at one
+    pod: in one process, or with every leaf a DTensor on ``dmesh`` under
+    the rules (the pod over the "pod" axis's group).  Launches and routes
+    zeroed just before the steps and read just after.  Returns the
+    metrics, launches, routes, ms a step, peak memory, the argument bytes
+    (state and batch) and the final parameters' fingerprints."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import sharding
+    from repro_torch.models import partitioning
+    cfg = train.resolve_config(DT_ARCH)
+    spec = dt_spec(mode, comp)
+    src = SyntheticLM(DataConfig(cfg.vocab_size, DT_S, DT_B, seed=0))
+    batches = [{k: torch.as_tensor(v).cuda().reshape(1, DT_B, DT_S)
+                for k, v in src.batch_for_step(k).items()}
+               for k in range(DT_STEPS)]
+    torch.cuda.empty_cache()
+    state = train.init_train_state(cfg, spec, 1, seed=0, device="cuda")
+    ctx, step = [], train.make_train_step(cfg, spec, 1)
+    if dmesh is not None:
+        shape = mesh.Mesh(*DT_MESH)
+        rules = mesh.rules_for(shape, pod_stacked=True)
+        group = mesh.pod_group(dmesh, 1)
+        state = train.shard_train_state(state, cfg, spec, rules, dmesh)
+        batches = [train.shard_batch(b, cfg, rules, dmesh, 1)
+                   for b in batches]
+        step = train.make_train_step(
+            cfg, spec, 1, group,
+            param_specs=sharding.param_specs(lm.abstract_params(cfg), rules))
+        ctx = [partitioning.use_rules(rules), implicit_replication()]
+    arg_bytes = dt_nbytes(state) + dt_nbytes(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    history, t0 = [], time.perf_counter()
+    for c in ctx:
+        c.__enter__()
+    try:
+        for b in batches:
+            state, m = step(state, b)
+            history.append({k: float(v.full_tensor()
+                                     if partitioning.is_dtensor(v) else v)
+                            for k, v in m.items()})
+    finally:
+        for c in reversed(ctx):
+            c.__exit__(None, None, None)
+    torch.cuda.synchronize()
+    out = dict(history=history, launches=dict(K.LAUNCHES),
+               routes=dict(K.ROUTES),
+               ms=(time.perf_counter() - t0) * 1e3 / DT_STEPS,
+               peak=torch.cuda.max_memory_allocated(), arg_bytes=arg_bytes)
+    out["params"] = {k: fingerprint((v.to_local() if partitioning
+                                     .is_dtensor(v) else v)[0])
+                     for k, v in state["params"].items()}
+    del state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def dt_serve_run(model, prompts, tokens=None, dmesh=None):
+    """Prefill of ``prompts`` and ``DT_SERVE_T`` decode steps of the cast
+    ``model`` (greedy, or feeding ``tokens``), in one process or with the
+    weights, prompts and caches DTensors on ``dmesh`` by the serving rules
+    (the weights laid over it in place).  Returns (every step's logits'
+    fingerprint, the fed tokens, the launches)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import sharding
+    from repro_torch.models import partitioning
+    from repro_torch.models.partitioning import P
+    B, L = prompts.shape
+    ctx, place = [], (lambda t: t)
+    if dmesh is not None:
+        rules = mesh.rules_for(mesh.Mesh(*DT_MESH))
+        serve.shard_model(model, rules, dmesh)
+        tok = sharding.Sharding(dmesh, P(rules.roles["dp"] or None, None))
+        ctx = [partitioning.use_rules(rules), implicit_replication()]
+        place = tok.place
+
+    def whole(t):
+        return t.full_tensor() if partitioning.is_dtensor(t) else t
+
+    K.reset_launches()
+    prints, fed = [], []
+    for c in ctx:
+        c.__enter__()
+    try:
+        logits, caches = lm.prefill_step(model, place(prompts),
+                                         L + DT_SERVE_T)
+        prints.append(fingerprint(whole(logits)))
+        nxt = whole(logits).argmax(-1).to(prompts.dtype)
+        for i in range(DT_SERVE_T):
+            feed = nxt if tokens is None else tokens[i]
+            fed.append(feed)
+            nxt, logits, caches = lm.decode_step(model, place(feed), caches,
+                                                 L + i)
+            nxt = whole(nxt)
+            prints.append(fingerprint(whole(logits)))
+    finally:
+        for c in reversed(ctx):
+            c.__exit__(None, None, None)
+    torch.cuda.synchronize()
+    return prints, fed, dict(K.LAUNCHES)
+
+
+def dt_cli():
+    """The dry run's command lines, started together (CPU only: the dry
+    run touches no card); returns the processes and their start time."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = tempfile.mkdtemp()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", m, "--out", out],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for arch, shape, m in DT_CLI]
+    return procs, out, time.perf_counter()
+
+
+@phase("dtensor")
+def dtensor():
+    """The LM step over a device mesh on the card: (a) qwen3-0.6b uncut,
+    bf16 over float32 masters, batch 4 x 2048, ``DT_STEPS`` steps of mode
+    3 and of mode 3 int8, in one process and then with every leaf a
+    DTensor on one NCCL rank's (1, 1, 1) ("pod", "data", "model") mesh,
+    through the model's constraint sites and the kernels' ``local_map``:
+    losses, grad norms and final parameters equal bitwise, launches per
+    kernel equal; (b) qwen2-1.5b prefill of 8 x 2048 and 2 decode steps on
+    that mesh, logits bitwise the one process's; (c) the dry run of (a)'s
+    mode 3 cell on a fake (1, 1, 1) mesh: its argument bytes equal the
+    real state and batch's, its peak printed beside the real step's; (d)
+    the dry run's CLI on ``DT_CLI``'s cells (CPU, run meanwhile), each
+    record printed with its times.  Returns (a)'s and (b)'s mesh
+    launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    procs, out_dir, t_cli = dt_cli()
+    one = {case: dt_train_run(*case) for case in DT_MODES}
+    cfg = serve.resolve_config(DT_SERVE_ARCH, None)
+    model = lm.cast_params_for_compute(lm.LM(cfg, seed=0, device="cuda"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (DT_SERVE_B, DT_SERVE_P),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    serve_one = dt_serve_run(model, prompts)
+    got = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            tmp, "store"), rank=0, world_size=1)
+        try:
+            dmesh = mesh.device_mesh(mesh.Mesh(*DT_MESH))
+            for case in DT_MODES:
+                got[case] = dt_train_run(*case, dmesh=dmesh)
+            serve_mesh = dt_serve_run(model, prompts, serve_one[1], dmesh)
+        finally:
+            dist.destroy_process_group()
+    launched = {}
+    for case in DT_MODES:
+        label = f"dtensor mode {case[0]} {case[1] or 'plain'}"
+        a, b = got[case], one[case]
+        for key in ("loss", "grad_norm", "aux", "lr"):
+            x = [h[key] for h in a["history"]]
+            y = [h[key] for h in b["history"]]
+            check(x == y, f"{label}: {key} {x}, one process {y}")
+        differ = sorted(k for k in b["params"]
+                        if a["params"][k] != b["params"][k])
+        check(not differ, f"{label}: final parameters differ in {differ}")
+        la = {k: v for k, v in a["launches"].items() if v}
+        lb = {k: v for k, v in b["launches"].items() if v}
+        check(la == lb and a["routes"] == b["routes"],
+              f"{label}: launches {la} {a['routes']}, one process {lb} "
+              f"{b['routes']}")
+        check(la.get("flash_attention", 0) > 0,
+              f"{label}: no flash_attention launch on the mesh path")
+        for k, v in la.items():
+            launched[k] = launched.get(k, 0) + v
+        print(f"{label}: {DT_STEPS} steps on the (1, 1, 1) mesh == one "
+              f"process bitwise (losses "
+              f"{[round(h['loss'], 6) for h in a['history']]}, grad norms, "
+              f"{len(a['params'])} final parameters); launches {la}; "
+              f"{a['ms']:.1f} ms a step (one process {b['ms']:.1f}); peak "
+              f"{a['peak'] / 2 ** 30:.2f} GiB (one process "
+              f"{b['peak'] / 2 ** 30:.2f})", flush=True)
+    check(serve_mesh[0] == serve_one[0],
+          f"dtensor serve: logits fingerprints {serve_mesh[0]}, one process "
+          f"{serve_one[0]}")
+    check(serve_mesh[2] == serve_one[2],
+          f"dtensor serve: launches {serve_mesh[2]}, one process "
+          f"{serve_one[2]}")
+    for k, v in serve_mesh[2].items():
+        if v:
+            launched[k] = launched.get(k, 0) + v
+    print(f"dtensor serve {DT_SERVE_ARCH} {DT_SERVE_B} x {DT_SERVE_P}: "
+          f"prefill and {DT_SERVE_T} decode steps on the mesh, logits "
+          f"bitwise one process's; launches "
+          f"{ {k: v for k, v in serve_mesh[2].items() if v} }", flush=True)
+    # (c) the dry run of the mode 3 cell on a fake (1, 1, 1) mesh
+    real = got[DT_MODES[0]]
+    rec = dryrun.run_cell(
+        DT_ARCH, "train_4k", True, DT_MODES[0][0], DT_MODES[0][1],
+        cfg=train.resolve_config(DT_ARCH), mesh=mesh.Mesh(*DT_MESH),
+        shape=dataclasses.replace(dryrun.SHAPES["train_4k"],
+                                  global_batch=DT_B, seq_len=DT_S))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    check(rec["status"] == "ok", f"dtensor dry run: {rec.get('error')}")
+    check(rec["memory"]["argument_bytes"] == real["arg_bytes"],
+          f"dtensor dry run: argument bytes {rec['memory']['argument_bytes']}"
+          f", the real state and batch {real['arg_bytes']}")
+    print(f"dtensor dry run {DT_ARCH} train 4 x 2048 mode 3 on a fake (1, 1, "
+          f"1) mesh: argument bytes {rec['memory']['argument_bytes']} == the "
+          f"real state and batch's; peak {rec['memory']['peak_bytes']} "
+          f"bytes (the real step's max_memory_allocated {real['peak']}); "
+          f"flops {rec['flops']:.4e}; build {rec['build_s']} s, trace "
+          f"{rec['trace_s']} s", flush=True)
+    # (d) the CLI's records
+    for (arch, shape, m), proc in zip(DT_CLI, procs):
+        out, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"dtensor dry-run CLI {arch} {shape} "
+              f"{m}: exit {proc.returncode}\n{out[-2000:]}{err[-2000:]}")
+        name = "16x16" if m == "single" else "2x16x16"
+        with open(os.path.join(out_dir, f"{arch}__{shape}__{name}.json")) as f:
+            r = json.load(f)
+        print(f"dtensor dry-run CLI --arch {arch} --shape {shape} --mesh "
+              f"{m}: {r['status']}, flops {r.get('flops', 0):.4e}, memory "
+              f"{r.get('memory')}, collectives {r.get('collectives')}, build "
+              f"{r.get('build_s')} s, trace {r.get('trace_s')} s "
+              f"({time.perf_counter() - t_cli:.1f} s since both started)",
+              flush=True)
+    return launched
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4417,6 +4712,7 @@ def main():
     replicates_launched = replicates(hbm)
     ranks()
     train_ranks_launched = train_ranks()
+    dtensor_launched = dtensor()
     kernels_line = []
     for entry, kname, replaces in ENTRIES:
         rec = records[entry]
@@ -4441,7 +4737,9 @@ def main():
             **({"replicates_launches": replicates_launched[entry]}
                if replicates_launched.get(entry) else {}),
             **({"train_ranks_launches": train_ranks_launched[entry]}
-               if train_ranks_launched.get(entry) else {})))
+               if train_ranks_launched.get(entry) else {}),
+            **({"dtensor_launches": dtensor_launched[entry]}
+               if dtensor_launched.get(entry) else {})))
     print("phases: " + ", ".join(f"{p} {t:.1f}s" for p, t in PHASES))
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

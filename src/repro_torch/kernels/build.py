@@ -18,6 +18,7 @@ each launch in ``ROUTES`` under ``"<kernel>/<route>"``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -91,6 +92,7 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     ROUTES.clear()
+    FAKE_FLOPS.clear()
 
 
 def source_path(name: str) -> Path:
@@ -215,9 +217,46 @@ def launch(fn, tensors, scalars, device: torch.device, kernel: str,
         ROUTES[key] = ROUTES.get(key, 0) + 1
 
 
+#: the work of the shape functions since the last ``reset_launches()``:
+#: {kernel: operations the kernel would do on the inputs it was given},
+#: counted where a ``FakeTensor`` (the dry run's) takes the shape function
+FAKE_FLOPS: Dict[str, float] = {}
+
+
+def count_fake(kernel: str, flops: float) -> None:
+    """Count ``flops`` of ``kernel`` for a shape function's call."""
+    FAKE_FLOPS[kernel] = FAKE_FLOPS.get(kernel, 0.0) + float(flops)
+
+
+#: set within shape_functions(); module-wide, since autograd may run a
+#: backward on a thread of its own
+_SHAPES_ONLY = {"on": False}
+
+
+@contextlib.contextmanager
+def shape_functions():
+    """Within this context a meta tensor takes the kernels' shape
+    functions, as a ``FakeTensor`` does everywhere: the dry run's meta
+    DTensors.  Outside it a meta tensor raises, as any device but the
+    CPU and the card does."""
+    prev = _SHAPES_ONLY["on"]
+    _SHAPES_ONLY["on"] = True
+    try:
+        yield
+    finally:
+        _SHAPES_ONLY["on"] = prev
+
+
 def device_kind(t: torch.Tensor, what: str) -> str:
     """``"cpu"`` (the plain torch version) or ``"cuda"`` (the hand-written
-    kernel) for ``t``'s device; any other device raises."""
+    kernel) for ``t``'s device, or ``"fake"`` for a ``FakeTensor``, or a
+    meta tensor within ``shape_functions()`` (the dry run's; neither has
+    data): the kernel's shape function, which gives outputs of the right
+    shapes and dtypes and computes nothing.  Any other device raises."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    if isinstance(t, FakeTensor) or (t.device.type == "meta"
+                                     and _SHAPES_ONLY["on"]):
+        return "fake"
     kind = t.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(

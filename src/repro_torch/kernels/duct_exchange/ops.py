@@ -280,7 +280,11 @@ def duct_commit_torch(q_avail, q_touch, q_pay, head, size0, pb_cnt,
 
 
 def _device_kind(t: torch.Tensor) -> str:
-    return device_kind(t, "duct ops")
+    kind = device_kind(t, "duct ops")
+    if kind == "fake":
+        raise ValueError("the duct ops have no shape function: they run on "
+                         "the cpu or the card")
+    return kind
 
 
 @folds_replicates(3)

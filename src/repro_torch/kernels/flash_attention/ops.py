@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import device_kind
+from repro_torch.kernels.build import count_fake, device_kind
+from repro_torch.kernels.sharded import any_dtensor, on_mesh
 
 
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -34,8 +35,21 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 BACKWARD_CHUNK = 1024
 
 
+def flash_attention_shape(q, k, v, *, causal: bool = True):
+    """The shape function (a ``FakeTensor``, the dry run's): the output's
+    shape and dtype, and the kernel's work counted, nothing computed.  The
+    work is the reference's: both products over every key, 4 BK G S^2 hd
+    (its jnp attention masks the scores, it does not skip them)."""
+    BK, G, S, hd = q.shape
+    count_fake("flash_attention", 4.0 * BK * G * S * k.shape[1] * hd)
+    return torch.empty_like(q)
+
+
 def _forward(q, k, v, causal):
-    if device_kind(q, "flash_attention") == "cpu":
+    kind = device_kind(q, "flash_attention")
+    if kind == "fake":
+        return flash_attention_shape(q, k, v, causal=causal)
+    if kind == "cpu":
         return flash_attention_torch(q, k, v, causal=causal)
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda,
@@ -109,7 +123,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention in model layout.
 
     q: (B, S, KH, G, hd); k, v: (B, S, KH, hd).  Returns (B, S, KH, G, hd).
+    DTensor inputs run on every device's block (``kernels/sharded.py``):
+    batch, kv heads and query groups stay sharded, the sequence and the
+    head dim are replicated (causal rows are read by position).
     """
+    if any_dtensor(q, k, v):
+        return on_mesh(lambda a, b, c: flash_attention(a, b, c,
+                                                       causal=causal),
+                       (q, k, v), ("bskgd", "btkd", "btkd"), "bskgd",
+                       free="bkg")
     B, S, KH, G, hd = q.shape
     qk = q.permute(0, 2, 3, 1, 4).reshape(B * KH, G, S, hd).contiguous()
     kk = k.permute(0, 2, 1, 3).reshape(B * KH, S, hd).contiguous()

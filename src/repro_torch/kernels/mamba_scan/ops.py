@@ -23,7 +23,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import device_kind
+from repro_torch.kernels.build import count_fake, device_kind
+from repro_torch.kernels.sharded import any_dtensor, on_mesh
 
 #: steps between the states the forward saves for the backward: the CUDA
 #: kernels' kBound / kL (``kernel.backward_geometry`` checks it)
@@ -134,8 +135,28 @@ def mamba_scan_backward_torch(x: torch.Tensor, dt: torch.Tensor,
             dC.to(C.dtype), dA.to(A.dtype))
 
 
+def mamba_scan_shape(x, dt, B, C, A, bounds=False):
+    """The shape function (a ``FakeTensor``): y (Bb, S, di) in x's dtype,
+    h (Bb, di, N) float32 and, with ``bounds``, the saved states, nothing
+    computed.  The work counted: per step and state, the decay's product
+    and exp, the update's two products and add, and C's product and sum,
+    7 Bb S di N."""
+    Bb, S, di = x.shape
+    N = A.shape[-1]
+    count_fake("mamba_scan", 7.0 * Bb * S * di * N)
+    y = torch.empty_like(x)
+    h = x.new_empty((Bb, di, N), dtype=torch.float32)
+    if not bounds:
+        return y, h
+    from repro_torch.kernels.mamba_scan.kernel import saved_shape
+    return y, h, x.new_empty(saved_shape(Bb, S, di, N), dtype=torch.float32)
+
+
 def _forward(x, dt, B, C, A, bounds=False):
-    if device_kind(x, "mamba_scan") == "cpu":
+    kind = device_kind(x, "mamba_scan")
+    if kind == "fake":
+        return mamba_scan_shape(x, dt, B, C, A, bounds=bounds)
+    if kind == "cpu":
         return mamba_scan_torch(x, dt, B, C, A, bounds=bounds)
     from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
     return mamba_scan_cuda(*(t.contiguous() for t in (x, dt, B, C, A)),
@@ -148,7 +169,12 @@ def mamba_scan_backward(x, dt, B, C, A, dy, dh_final=None, hbound=None):
     only; another dtype raises) for a CUDA tensor.  ``hbound``: the
     forward's saved states, or None (then both run the forward for
     them)."""
-    if device_kind(x, "mamba_scan_backward") == "cpu":
+    kind = device_kind(x, "mamba_scan_backward")
+    if kind == "fake":
+        Bb, S, di = x.shape
+        count_fake("mamba_scan_backward", 14.0 * Bb * S * di * A.shape[-1])
+        return tuple(torch.empty_like(t) for t in (x, dt, B, C, A))
+    if kind == "cpu":
         return mamba_scan_backward_torch(x, dt, B, C, A, dy, dh_final,
                                          hbound)
     from repro_torch.kernels.mamba_scan.kernel import (
@@ -196,7 +222,13 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     inputs, its backward dispatched the same way; where autograd records
     the call (grad enabled, an input requiring grad), the forward also
     saves the states every SAVED_EVERY steps for it, and otherwise (the
-    serving prefill) writes nothing more."""
+    serving prefill) writes nothing more.  DTensor inputs run on every
+    device's block (``kernels/sharded.py``): batch and the inner channels
+    di stay sharded, the sequence and N are replicated."""
+    if any_dtensor(x, dt, B, C, A):
+        return on_mesh(mamba_scan, (x, dt, B, C, A),
+                       ("bsc", "bsc", "bsn", "bsn", "cn"), ("bsc", "bcn"),
+                       free="bc")
     bounds = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, dt, B, C, A))
     return _MambaScan.apply(x, dt, B, C, A, bounds)

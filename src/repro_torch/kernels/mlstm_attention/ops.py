@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import device_kind
+from repro_torch.kernels.build import count_fake, device_kind
+from repro_torch.kernels.sharded import any_dtensor, on_mesh
 
 
 def mlstm_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -143,7 +144,14 @@ def mlstm_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _forward(q, k, v, F, I):
-    if device_kind(q, "mlstm_attention") == "cpu":
+    kind = device_kind(q, "mlstm_attention")
+    if kind == "fake":
+        # the shape function: the output, and the work of the reference's
+        # parallel form (both products over every key, 4 B H S^2 hd)
+        B, S, H, hd = q.shape
+        count_fake("mlstm_attention", 4.0 * B * H * S * S * hd)
+        return torch.empty_like(q)
+    if kind == "cpu":
         return mlstm_attention_plain(q, k, v, F, I)
     from repro_torch.kernels.mlstm_attention.kernel import (
         mlstm_attention_cuda,
@@ -166,7 +174,14 @@ def mlstm_attention_backward(q, k, v, F, I, dh):
     backward for a CPU tensor, the ``mlstm_attention_backward`` kernel
     (bf16 or float32 q, k, v, dh with float32 F and I) for a CUDA
     tensor."""
-    if device_kind(q, "mlstm_attention_backward") == "cpu":
+    kind = device_kind(q, "mlstm_attention_backward")
+    if kind == "fake":
+        B, S, H, hd = q.shape
+        count_fake("mlstm_attention_backward", 8.0 * B * H * S * S * hd)
+        fdt = torch.promote_types(F.dtype, torch.float32)
+        return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+                torch.empty_like(F, dtype=fdt), torch.empty_like(I, dtype=fdt))
+    if kind == "cpu":
         return mlstm_attention_backward_plain(q, k, v, F, I, dh)
     from repro_torch.kernels.mlstm_attention.kernel import (
         mlstm_attention_backward_cuda,
@@ -200,5 +215,11 @@ def mlstm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the plain torch version for a CPU tensor, the CUDA kernel for a CUDA
     tensor (bf16 or float32 q, k, v with float32 F and I; another dtype
     raises).  Differentiable in all five inputs, its backward dispatched
-    the same way."""
+    the same way.  DTensor inputs run on every device's block
+    (``kernels/sharded.py``): batch and heads stay sharded, the sequence
+    and the head dim are replicated."""
+    if any_dtensor(q, k, v, F, I):
+        return on_mesh(mlstm_attention, (q, k, v, F, I),
+                       ("bshd", "bshd", "bshd", "bsh", "bsh"), "bshd",
+                       free="bh")
     return _MLSTMAttention.apply(q, k, v, F, I)

@@ -21,7 +21,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import device_kind
+from repro_torch.kernels.build import count_fake, device_kind
+from repro_torch.kernels.sharded import any_dtensor, on_mesh
 
 #: fl(1/127): the reciprocal XLA multiplies by
 RECIP_127 = torch.tensor(1.0, dtype=torch.float32) / 127.0
@@ -79,8 +80,20 @@ def dequantize_torch(q: torch.Tensor, scale: torch.Tensor,
 def quantize_blocks(x: torch.Tensor, *, residual: bool = False):
     """The kernel's contract, x: (nb, block) -> (q, scale[, residual]),
     dispatched on x's device: the plain torch version for a CPU tensor,
-    the CUDA kernel for a CUDA tensor."""
-    if device_kind(x, "quantize") == "cpu":
+    the CUDA kernel for a CUDA tensor, the shape function for a
+    ``FakeTensor``.  A DTensor runs on every device's rows
+    (``kernels/sharded.py``), each row whole."""
+    if any_dtensor(x):
+        return on_mesh(lambda t: quantize_blocks(t, residual=residual),
+                       (x,), ("rc",), ("rc", "ro", "rc")[:2 + residual],
+                       free="r")
+    kind = device_kind(x, "quantize")
+    if kind == "fake":
+        count_fake("quantize", 4.0 * x.numel())
+        q = torch.empty_like(x, dtype=torch.int8)
+        scale = x.new_empty((x.shape[0], 1), dtype=torch.float32)
+        return (q, scale, torch.empty_like(x)) if residual else (q, scale)
+    if kind == "cpu":
         return quantize_torch(x, residual=residual)
     from repro_torch.kernels.quantize.kernel import quantize_cuda
     return quantize_cuda(x.contiguous(), residual=residual)
@@ -89,8 +102,22 @@ def quantize_blocks(x: torch.Tensor, *, residual: bool = False):
 def dequantize_blocks(q: torch.Tensor, scale: torch.Tensor,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``q * scale`` (or ``fma(q, scale, out)`` into ``out``), dispatched
-    on q's device."""
-    if device_kind(q, "dequantize") == "cpu":
+    on q's device (a ``FakeTensor``: the shape function).  DTensors run on
+    every device's rows (``kernels/sharded.py``)."""
+    if any_dtensor(q, scale, out):
+        if out is None:
+            return on_mesh(dequantize_blocks, (q, scale), ("rc", "ro"), "rc",
+                           free="r")
+        res = on_mesh(lambda a, b, c: dequantize_blocks(a, b, c.clone()),
+                      (q, scale, out), ("rc", "ro", "rc"), "rc", free="r")
+        out.copy_(res)
+        return out
+    kind = device_kind(q, "dequantize")
+    if kind == "fake":
+        count_fake("dequantize", 2.0 * q.numel())
+        return torch.empty_like(q, dtype=torch.float32) if out is None \
+            else out
+    if kind == "cpu":
         return dequantize_torch(q, scale, out)
     from repro_torch.kernels.quantize.kernel import dequantize_cuda
     return dequantize_cuda(q.contiguous(), scale.contiguous(), out)

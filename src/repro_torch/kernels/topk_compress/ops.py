@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import device_kind
+from repro_torch.kernels.build import count_fake, device_kind
+from repro_torch.kernels.sharded import any_dtensor, on_mesh
 
 
 def topk_compress_torch(x: torch.Tensor, k: int):
@@ -26,8 +27,18 @@ def topk_compress_torch(x: torch.Tensor, k: int):
 def topk_compress_blocks(x: torch.Tensor, k: int):
     """The kernel's contract, x: (nb, block) -> (values, indices),
     dispatched on x's device: the plain torch version for a CPU tensor,
-    the CUDA kernel for a CUDA tensor."""
-    if device_kind(x, "topk_compress") == "cpu":
+    the CUDA kernel for a CUDA tensor, the shape function for a
+    ``FakeTensor``.  A DTensor runs on every device's rows
+    (``kernels/sharded.py``), each row whole."""
+    if any_dtensor(x):
+        return on_mesh(lambda t: topk_compress_blocks(t, k), (x,), ("rc",),
+                       ("rk", "rk"), free="r")
+    kind = device_kind(x, "topk_compress")
+    if kind == "fake":
+        count_fake("topk_compress", 2.0 * x.numel())
+        return (x.new_empty((x.shape[0], k)),
+                x.new_empty((x.shape[0], k), dtype=torch.int32))
+    if kind == "cpu":
         return topk_compress_torch(x, k)
     from repro_torch.kernels.topk_compress.kernel import topk_compress_cuda
     return topk_compress_cuda(x.contiguous(), k)

@@ -33,11 +33,18 @@ send and receive take host tensors), from a pool of pinned buffers kept
 by size, dtype and role, so a training step that gathers every leaf pins
 no fresh memory.  A failed send, receive or reduction raises.
 
-The production meshes are shapes only (``Mesh``: ``.shape``,
+The production meshes are shapes (``Mesh``: ``.shape``,
 ``.axis_names``): ``rules_for`` and the spec rules of
-``launch/sharding.py`` read only the axis sizes.  The reference's
-``shard_map`` wrapper has no counterpart: a caller over ranks runs its
-body on its own blocks and calls these collectives itself.
+``launch/sharding.py`` read only the axis sizes.  :func:`device_mesh` lays
+such a mesh over the ranks of a process group as a
+``torch.distributed`` ``DeviceMesh`` with its shape and axis names, the
+counterpart of ``jax.sharding.Mesh`` over devices: the LM step runs on it
+with every leaf a ``DTensor`` (``launch/sharding.py``), over NCCL ranks on
+cards, gloo ranks on the CPU, or the ``fake`` backend, whose collectives
+do nothing, for the dry run (``launch/dryrun.py``).  The reference's
+``shard_map`` has its counterpart in ``local_map``
+(``kernels/sharded.py``); the sharded engine's ranks run their bodies on
+their own blocks and call these collectives themselves.
 """
 from __future__ import annotations
 
@@ -74,6 +81,68 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 def make_debug_mesh(shape=(2, 2), axes=("data", "model")) -> Mesh:
     """A small mesh for tests."""
     return Mesh(shape, axes)
+
+
+def device_mesh(mesh: Mesh, pg=None):
+    """``mesh`` laid over the ranks of ``pg`` (``None``: the default
+    process group, which the caller has initialized) as a ``DeviceMesh``
+    with its shape and axis names, ranks in row-major order.  NCCL ranks
+    hold CUDA tensors; gloo ranks and the ``fake`` backend's (the dry
+    run's: one process standing for every rank, whose collectives move
+    nothing) hold CPU ones, which the dry run's fake tensors are."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    if not dist.is_initialized():
+        raise RuntimeError("device_mesh needs an initialized "
+                           "torch.distributed process group")
+    shape = tuple(mesh.shape.values())
+    n = math.prod(shape)
+    world = dist.get_world_size(pg)
+    if world != n:
+        raise ValueError(f"a mesh of {shape} over {mesh.axis_names} needs "
+                         f"{n} ranks; the group has {world}")
+    backend = dist.get_backend(pg)
+    kind = "cuda" if backend == "nccl" else "cpu"
+    ranks = torch.arange(n)
+    if pg is not None:
+        ranks = torch.tensor(dist.get_process_group_ranks(pg))
+    return DeviceMesh(kind, ranks.reshape(shape),
+                      mesh_dim_names=mesh.axis_names)
+
+
+def init_fake_group(world_size: int, rank: int = 0) -> None:
+    """The ``fake`` backend's default group of ``world_size`` ranks in this
+    one process, as rank ``rank``: collectives return at once and move
+    nothing, so a ``DeviceMesh`` of hundreds of ranks costs nothing (the
+    dry run's stand-in for the reference's forced host devices).  A
+    default group that is there already is destroyed first."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+
+
+def pod_group(dmesh, n_pods: int) -> "RankGroup":
+    """The pod axis of ``dmesh`` (a ``DeviceMesh`` with a ``"pod"`` dim)
+    as the :class:`RankGroup` training's pods split over: this rank's
+    pods stay local, and the cross-pod reductions of
+    ``core/collectives.py`` run over the pod dim's subgroup (the ranks
+    that share this rank's data and model coordinates)."""
+    import torch.distributed as dist
+    pg = dmesh["pod"].get_group()
+    backend = dist.get_backend(pg)
+    # the fake backend's ranks (the dry run's) hold meta tensors
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if backend == "nccl" else
+              torch.device("meta") if backend == "fake" else
+              torch.device("cpu"))
+    size = dist.get_world_size(pg)
+    if n_pods % size:
+        raise ValueError(f"{n_pods} pods do not split over the pod axis's "
+                         f"{size} ranks")
+    return RankGroup(pg, backend, n_pods, device, dist.get_rank(pg), size)
 
 
 #: name of the axis the sharded engine partitions the population over
@@ -331,8 +400,27 @@ class RankGroup:
         """Every rank's ``x`` concatenated along ``dim`` in rank order:
         the blocks of every rank, in the one-process order.  The ranks'
         parts land in one buffer, rank after rank, which along dimension 0
-        is the concatenation itself."""
+        is the concatenation itself.  A DTensor (the pod dim of a leaf
+        laid over the data and model axes) gathers its local block, which
+        the pod group's ranks hold at the same data and model
+        coordinates, and stays laid out as it was."""
         import torch.distributed as dist
+
+        from repro_torch.models.partitioning import is_dtensor
+        if is_dtensor(x):
+            from torch.distributed.tensor import DTensor
+            if any(p.is_shard() and p.dim == dim for p in x.placements):
+                raise ValueError(f"dim {dim} is sharded over the mesh; the "
+                                 "pod group gathers an unsharded dim")
+            got = self.all_gather(x.to_local(), dim)
+            shape = list(x.shape)
+            shape[dim] *= self.size
+            stride = [1] * len(shape)
+            for d in range(len(shape) - 2, -1, -1):
+                stride[d] = stride[d + 1] * shape[d + 1]
+            return DTensor.from_local(got, x.device_mesh, x.placements,
+                                      run_check=False, shape=torch.Size(shape),
+                                      stride=tuple(stride))
         t0 = time.perf_counter()
         buf = self._out(x)
         flat = self._buffer((self.size, *buf.shape), buf.dtype)

@@ -77,6 +77,67 @@ def make_decode_step(model: lm.LM, write_idx: int):
     return decode_step
 
 
+def shard_model(model: lm.LM, rules, dmesh) -> lm.LM:
+    """Lay every weight of the serving ``model`` over ``dmesh`` by the
+    reference's spec of its leaf (``sharding.param_specs`` of the stacked
+    layout; layer ``i``'s weight takes its period position's spec without
+    the period entry), IN PLACE: each rank keeps its block of the weight
+    it holds whole.  Returns ``model``."""
+    from repro_torch.launch.sharding import Sharding, param_specs
+    from repro_torch.models.partitioning import P
+    from repro_torch.models.transformer import block_specs
+    pspecs = param_specs(lm.abstract_params(model.cfg), rules)
+    n_pos = len(block_specs(model.cfg))
+    for mod_name, module in model.named_modules():
+        for pname, p in list(module._parameters.items()):
+            parts = f"{mod_name}.{pname}".lstrip(".").split(".")
+            if parts[0] == "stack":
+                key = "/".join(["stack", str(int(parts[2]) % n_pos)]
+                               + parts[3:])
+                spec = P(*pspecs[key][1:])
+            else:
+                spec = pspecs["/".join(parts)]
+            module._parameters[pname] = torch.nn.Parameter(
+                Sharding(dmesh, spec).place(p.detach()), requires_grad=False)
+    return model
+
+
+def bind_stacked(model: lm.LM, leaves) -> lm.LM:
+    """Make ``model``'s weights views of ``leaves``, the reference's
+    stacked {path: leaf} layout (``lm.init_params``), IN PLACE: layer
+    ``i`` reads period ``i // n_pos`` of its position's leaves, a DTensor
+    leaf whose period dim the spec rules shard first made whole over the
+    mesh (``partitioning.unshard_dim``), as the reference's scan reads its
+    stacked weights.  Returns ``model``."""
+    from repro_torch.models.partitioning import unshard_dim
+    from repro_torch.models.transformer import block_specs
+    n_pos = len(block_specs(model.cfg))
+    layers_of = {}
+    for mod_name, module in model.named_modules():
+        for pname in list(module._parameters):
+            parts = f"{mod_name}.{pname}".lstrip(".").split(".")
+            if parts[0] != "stack":
+                w = leaves["/".join(parts)]
+            else:
+                i = int(parts[2])
+                key = "/".join(["stack", str(i % n_pos)] + parts[3:])
+                if key not in layers_of:
+                    layers_of[key] = unshard_dim(leaves[key], 0).unbind(0)
+                w = layers_of[key][i // n_pos]
+            module._parameters[pname] = torch.nn.Parameter(
+                w, requires_grad=False)
+    return model
+
+
+def shard_caches(caches, cfg, rules, dmesh):
+    """The per-layer decode ``caches`` laid over ``dmesh`` by
+    ``cache_specs``: a cache each rank holds whole keeps its block, a
+    DTensor one (a prefill's on the mesh) is redistributed."""
+    from repro_torch.launch.sharding import place, shardings_from_specs
+    return place(caches, shardings_from_specs(
+        cache_specs(cfg, caches, rules), dmesh))
+
+
 # ---------------------------------------------------------------------------
 # Cache spec rules
 # ---------------------------------------------------------------------------

@@ -88,6 +88,7 @@ from repro_torch.data.synthetic import DataConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh
 from repro_torch.models import lm
+from repro_torch.models.partitioning import laid_like
 from repro_torch.optim import adamw as adamw_mod
 from repro_torch.optim import outer as outer_mod
 from repro_torch.optim.adamw import AdamWConfig
@@ -153,6 +154,89 @@ def init_train_state(cfg, spec: TrainSpec, n_pods: int = 1, *,
     return state
 
 
+def abstract_train_state(cfg, spec: TrainSpec, n_pods: int = 1) -> Dict:
+    """``init_train_state``'s leaves as meta tensors, their shapes and
+    dtypes, built under ``FakeTensorMode``: nothing is allocated (the
+    reference's ``abstract_train_state``, ``jax.eval_shape``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+    with FakeTensorMode():
+        fake = init_train_state(cfg, spec, n_pods, device="cpu")
+    return meta(fake)
+
+
+def state_specs(cfg, spec: TrainSpec, rules) -> Dict:
+    """The specs of the pod-stacked train state under ``rules`` (pod-
+    stacked ones, ``rules_for(..., pod_stacked=True)``), as the
+    reference's dry run lays it: every leaf of the parameters, moments,
+    ``others``, ``residuals`` and ``outer`` by ``param_specs`` behind a
+    "pod" entry, the moments' step counter ("pod",), the step counter
+    replicated.  On a mesh without a "pod" axis the pod entries are None
+    (the reference's ``strip_pod``)."""
+    from repro_torch.launch.sharding import (param_specs, strip_axis,
+                                             with_pod_dim)
+    from repro_torch.models.partitioning import P
+    pspecs = with_pod_dim(param_specs(lm.abstract_params(cfg), rules))
+    multi = "pod" in rules.mesh.axis_names
+    specs = {"params": pspecs,
+             "opt": {"m": pspecs, "v": pspecs,
+                     "step": P("pod" if multi else None)},
+             "step": P()}
+    if spec.mode == AsyncMode.BEST_EFFORT:
+        specs["others"] = pspecs
+        if spec.compressor:
+            specs["residuals"] = pspecs
+    if spec.mode in (AsyncMode.ROLLING_BARRIER, AsyncMode.FIXED_BARRIER):
+        specs["outer"] = {"anchor": pspecs, "momentum": pspecs}
+    return specs if multi else strip_axis(specs)
+
+
+def state_mesh(dmesh):
+    """The mesh the train state's DTensors live on: ``dmesh``'s ("data",
+    "model") axes where it has a "pod" axis (the pods are split over the
+    pod group instead, ``mesh.pod_group``), else ``dmesh``."""
+    if "pod" in dmesh.mesh_dim_names:
+        return dmesh["data", "model"]
+    return dmesh
+
+
+def shard_train_state(state, cfg, spec: TrainSpec, rules, dmesh) -> Dict:
+    """``state`` (this rank's pods of a pod-stacked train state, each
+    leaf whole: every rank made it from one seed) as DTensors laid out by
+    ``state_specs`` on ``state_mesh(dmesh)``: each rank keeps its block."""
+    from repro_torch.launch.sharding import (place, shardings_from_specs,
+                                             strip_axis)
+    specs = strip_axis(state_specs(cfg, spec, rules))
+    return place(state, shardings_from_specs(specs, state_mesh(dmesh)))
+
+
+def shard_batch(batch, cfg, rules, dmesh, n_pods: int) -> Dict:
+    """This rank's pods of a step's batch as DTensors by
+    ``make_batch_specs`` on ``state_mesh(dmesh)``."""
+    from repro_torch.launch.sharding import (place, shardings_from_specs,
+                                             strip_axis)
+    specs = strip_axis(make_batch_specs(cfg, rules, n_pods))
+    return place(batch, shardings_from_specs(
+        {k: specs[k] for k in batch}, state_mesh(dmesh)))
+
+
+def make_batch_specs(cfg, rules, n_pods: int) -> Dict:
+    """Specs of the pod-stacked batch: pods over "pod" (where the mesh has
+    it), each pod's rows over "data"."""
+    from repro_torch.models.modality import frontend_input_name
+    from repro_torch.models.partitioning import P
+    pod = "pod" if "pod" in rules.mesh.axis_names else None
+    specs = {"tokens": P(pod, "data", None), "labels": P(pod, "data", None)}
+    if cfg.frontend:
+        specs[frontend_input_name(cfg)] = P(pod, "data", None, None)
+    return specs
+
+
 # ---------------------------------------------------------------------------
 # Compression along the pod-stacked dim
 # ---------------------------------------------------------------------------
@@ -173,6 +257,13 @@ def _compressed_total(g: torch.Tensor, res: torch.Tensor, comp,
     return total[:1]
 
 
+def _readable(t: torch.Tensor) -> bool:
+    """Whether ``t``'s value can be read: not a meta tensor (nor a DTensor
+    of one), the dry run's."""
+    from repro_torch.models.partitioning import is_dtensor
+    return (t.to_local() if is_dtensor(t) else t).device.type != "meta"
+
+
 def _pod_mean(x: torch.Tensor, group: Optional[mesh.RankGroup]
               ) -> torch.Tensor:
     """The mean over every pod of ``x`` (pods along dim 0), (1, ...)."""
@@ -182,16 +273,17 @@ def _pod_mean(x: torch.Tensor, group: Optional[mesh.RankGroup]
 # ---------------------------------------------------------------------------
 # Train step
 # ---------------------------------------------------------------------------
-def pod_grads(params: Tree, batch: Tree, cfg):
+def pod_grads(params: Tree, batch: Tree, cfg, param_specs=None):
     """Gradients of ``lm.loss_fn`` at one pod's leaves (float32, each the
     leaf's shape) and its metrics {"ce", "aux"}; microbatched over
-    ``cfg.grad_accum`` as the reference's scan is."""
+    ``cfg.grad_accum`` as the reference's scan is.  ``param_specs`` pins
+    the compute casts (``lm.cast_leaves``)."""
     def grads_of(mb):
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
-        loss, metrics = lm.loss_fn(leaves, mb, cfg)
+        loss, metrics = lm.loss_fn(leaves, mb, cfg, param_specs)
         grads = torch.autograd.grad(loss, list(leaves.values()))
-        return (dict(zip(leaves, grads)),
+        return ({k: laid_like(g, leaves[k]) for k, g in zip(leaves, grads)},
                 {k: v.detach() for k, v in metrics.items()})
 
     A = cfg.grad_accum
@@ -264,8 +356,19 @@ def make_update(spec: TrainSpec, n_pods: int = 1,
         # ---- outer sync for modes 1/2 ----------------------------------
         if mode in (AsyncMode.ROLLING_BARRIER, AsyncMode.FIXED_BARRIER):
             period = spec.outer.sync_period
-            if int(state["step"]) % period == period - 1:
-                outer = state["outer"]
+            outer = state["outer"]
+            if not _readable(state["step"]):
+                # the dry run's meta counter: the reference's in-graph
+                # select, every leaf computed and chosen by the step
+                new_p, new_o = outer_mod.maybe_outer_step(
+                    params, outer, state["step"] % period == period - 1,
+                    lambda t: {k: _pod_mean(v, group).expand_as(v)
+                               for k, v in t.items()}, spec.outer)
+                for k in params:
+                    params[k].copy_(new_p[k])
+                    outer["anchor"][k].copy_(new_o["anchor"][k])
+                    outer["momentum"][k].copy_(new_o["momentum"][k])
+            elif int(state["step"]) % period == period - 1:
                 mean_delta = {
                     k: _pod_mean(a - params[k].float(), group).expand_as(a)
                     for k, a in outer["anchor"].items()}
@@ -286,13 +389,22 @@ def make_update(spec: TrainSpec, n_pods: int = 1,
 
 
 def make_train_step(cfg, spec: TrainSpec, n_pods: int = 1,
-                    group: Optional[mesh.RankGroup] = None):
+                    group: Optional[mesh.RankGroup] = None,
+                    param_specs=None):
     """``train_step(state, batch)``: batch {"tokens", "labels"}
     (pods, B / n_pods, S): every pod, or over ``group`` this rank's pods
     (pods ``[group.lo, group.lo + group.per)`` of the step's batch).  Each
     pod's gradients at its own parameters on its slice of the batch, then
     ``make_update``'s step; the state is updated in place.  Returns
-    (state, metrics)."""
+    (state, metrics).
+
+    The same step runs over a device mesh: with every leaf a DTensor on
+    the ("data", "model") axes (``launch/sharding.py``), the pods over
+    ``group`` (``mesh.pod_group``), under the rules
+    (``partitioning.use_rules``) and ``implicit_replication``, the
+    model's constraint sites redistribute the activations and the kernels
+    run on every device's block; ``param_specs`` ({path: P}, the
+    unstacked leaves') pins the compute casts, as in the reference."""
     update = make_update(spec, n_pods, group)
     pods = local_pods(n_pods, group)
 
@@ -306,7 +418,8 @@ def make_train_step(cfg, spec: TrainSpec, n_pods: int = 1,
         ces, auxes = [], []
         for p in range(pods):
             g, m = pod_grads({k: v[p] for k, v in params.items()},
-                             {k: v[p] for k, v in batch.items()}, cfg)
+                             {k: v[p] for k, v in batch.items()}, cfg,
+                             param_specs)
             for k in params:
                 grads[k].append(g.pop(k))
             ces.append(m["ce"])

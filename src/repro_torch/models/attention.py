@@ -11,8 +11,11 @@ kernels and on a CPU tensor their plain torch versions.  So scores,
 probabilities and the accumulator stay in float32 and only the output is
 rounded to the compute dtype, where the reference model also rounds the
 scores and the probabilities to it (ROADMAP Queue 3, known differences).
-The reference's sharding constraints are no-ops on one device and are
-left out.
+The reference's sharding constraints are kept (``partitioning.constrain``):
+on DTensors under rules they redistribute, on plain tensors they do
+nothing.  The decode step writes the new token's k/v into the cache in
+place (``kernels.sharded.write_at``: on a DTensor cache, only the device
+whose block holds the position writes).
 """
 from __future__ import annotations
 
@@ -23,7 +26,10 @@ from torch import nn
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.sharded import write_at
 from repro_torch.models import layers
+from repro_torch.models.partitioning import (constrain, merge_dims,
+                                             split_dim)
 
 #: keys per flash-decoding chunk of the plain version (the reference
 #: kernel's default); the CUDA kernel plans its own split of the keys
@@ -38,22 +44,22 @@ def project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
     B, S, _ = x.shape
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     dt = x.dtype
-    q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    q = layers.matmul(x, p["wq"].to(dt))
+    k = layers.matmul(x, p["wk"].to(dt))
+    v = layers.matmul(x, p["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KH, hd)
-    v = v.reshape(B, S, KH, hd)
+    q = split_dim(q, 2, (H, hd))
+    k = split_dim(k, 2, (KH, hd))
+    v = split_dim(v, 2, (KH, hd))
     if cfg.qk_norm:
         q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
-    return q.reshape(B, S, KH, H // KH, hd), k, v
+    return split_dim(q, 2, (KH, H // KH)), k, v
 
 
 def attention_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor
@@ -64,9 +70,16 @@ def attention_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor
     gradient).  Returns (y, (k, v)): k/v seed the decode cache."""
     B, S, _ = x.shape
     q, k, v = project_qkv(p, x, cfg, positions)
+    if cfg.num_kv_heads <= 4:
+        # the reference's sequence-parallel attention for few kv heads:
+        # q's rows over tp, k and v replicated over it
+        q = constrain(q, "dp", "tp", None, None, None)
+        k = constrain(k, "dp", None, None, None)
+        v = constrain(v, "dp", None, None, None)
     out = flash_attention(q, k, v, causal=True)
-    out = out.reshape(B, S, cfg.num_heads * cfg.hd)
-    return out @ p["wo"].to(x.dtype), (k, v)
+    out = merge_dims(out, 2, (B, S, cfg.num_heads * cfg.hd))
+    out = constrain(out, "dp", None, "tp")
+    return layers.matmul(out, p["wo"].to(x.dtype)), (k, v)
 
 
 class Attention(nn.Module):
@@ -106,13 +119,14 @@ class Attention(nn.Module):
         positions = torch.full((B, 1), write_idx, dtype=torch.int32,
                                device=x.device)
         q, k_new, v_new = project_qkv(self._parameters, x, cfg, positions)
-        cache["k"][:, write_idx] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][:, write_idx] = v_new[:, 0].to(cache["v"].dtype)
-        k, v = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+        write_at(cache["k"], write_idx, k_new[:, 0], dim=1)
+        write_at(cache["v"], write_idx, v_new[:, 0], dim=1)
+        k = constrain(cache["k"].to(q.dtype), "dp", "sp", None, None)
+        v = constrain(cache["v"].to(q.dtype), "dp", "sp", None, None)
         out = decode_attention(q[:, 0].contiguous(), k, v,
                                kv_len=write_idx + 1, bc=DECODE_CHUNK)
-        out = out.reshape(B, 1, cfg.num_heads * cfg.hd)
-        return out @ self.wo.to(x.dtype)
+        out = merge_dims(out, 1, (B, 1, cfg.num_heads * cfg.hd))
+        return layers.matmul(out, self.wo.to(x.dtype))
 
 
 def init_kv_cache(cfg, batch: int, seq: int, dtype=torch.bfloat16,

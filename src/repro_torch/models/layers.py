@@ -16,6 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.sharded import any_dtensor, on_mesh
+from repro_torch.models.partitioning import fsdp_gather
+
 
 def param(t: torch.Tensor) -> nn.Parameter:
     """A weight of the serving path's modules: no gradient (training runs
@@ -98,14 +101,45 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for activations x (..., k) and a weight w (k, n).  On
+    DTensors the product runs on every device's block
+    (``kernels.sharded.on_mesh``): w is gathered over every mesh dim but
+    the rules' tensor-parallel axis (FSDP's weight gather: the "data"
+    axis, and every axis under ``dp_only``), the output dim keeps w's
+    tensor-parallel split (column-parallel; a sequence split over that
+    mesh dim is gathered, as in sequence parallelism), x's leading dims
+    keep theirs on the other mesh dims, and a contraction dim that both
+    split over a mesh dim left stays split, the output a pending sum over
+    it (row-parallel); otherwise it is gathered.  So DTensor's own search
+    over the strategies of a product of two split dims is never run.
+    Plain tensors: ``x @ w`` itself."""
+    if not any_dtensor(x, w):
+        return x @ w
+    w = fsdp_gather(w)
+    lead = "abcdefgh"[:x.ndim - 1]
+    return on_mesh(lambda ww, xx: xx @ ww, (w, x), ("kn", lead + "k"),
+                   lead + "n", free=lead + "n", summed="k")
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid(x)``; on a DTensor, elementwise on every device's
+    block (``kernels.sharded.on_mesh``): DTensor has no strategy for its
+    backward."""
+    if not any_dtensor(x):
+        return F.logsigmoid(x)
+    lay = "abcdefgh"[:x.ndim]
+    return on_mesh(F.logsigmoid, (x,), (lay,), lay, free=lay)
+
+
 def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: ``(silu(x @ gate) * (x @ up)) @ down`` in x's dtype; ``p``
     maps "gate", "up", "down" to (in, out) weights, as in the reference,
     so ``x @ w``."""
     dt = x.dtype
-    gate = x @ p["gate"].to(dt)
-    up = x @ p["up"].to(dt)
-    return (F.silu(gate) * up) @ p["down"].to(dt)
+    gate = matmul(x, p["gate"].to(dt))
+    up = matmul(x, p["up"].to(dt))
+    return matmul(F.silu(gate) * up, p["down"].to(dt))
 
 
 class MLP(nn.Module):
@@ -132,6 +166,14 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,
           compute_dtype) -> torch.Tensor:
+    """``table[tokens]`` in ``compute_dtype``.  On DTensors the lookup
+    runs on every device's block (``kernels.sharded.on_mesh``): the
+    tokens keep their batch and sequence sharding, the table is gathered
+    whole (the reference's partitioner replicates it for the gather too),
+    so its gradient is a local scatter-add."""
+    if any_dtensor(table, tokens):
+        return on_mesh(lambda tk, tb: tb[tk], (tokens, table),
+                       ("bs", "vd"), "bsd", free="bs").to(compute_dtype)
     return table[tokens].to(compute_dtype)
 
 
@@ -142,6 +184,6 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return x.float() @ table.float().T
+        return matmul(x.float(), table.float().T)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev

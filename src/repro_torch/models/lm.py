@@ -18,6 +18,7 @@ respect to those leaves.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -25,8 +26,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import sharded
 from repro_torch.models import layers
 from repro_torch.models.modality import frontend_input_name, splice_frontend
+from repro_torch.models.partitioning import (constrain, constrain_spec,
+                                             unshard_dim)
 from repro_torch.models.transformer import Stack, block_specs, stack_forward
 from repro_torch.pytree import flatten, unflatten
 
@@ -160,27 +164,56 @@ def abstract_params(cfg) -> Dict[str, torch.Tensor]:
             for k, (s, d) in shapes.items()}
 
 
-def cast_leaves(params: Dict[str, torch.Tensor], cfg
+def param_count(cfg) -> int:
+    """The parameters of ``cfg``'s LM (every leaf of ``abstract_params``;
+    nothing is allocated)."""
+    return sum(math.prod(v.shape) for v in abstract_params(cfg).values())
+
+
+def active_param_count(cfg) -> int:
+    """The parameters one token uses: all of them, less, in an MoE, the
+    routed experts' weights it is not sent to (``1 - k / E`` of every
+    ``(E, ...)`` or, stacked, ``(P, E, ...)`` FFN weight), as the
+    reference counts them."""
+    shapes = abstract_params(cfg)
+    total = sum(math.prod(v.shape) for v in shapes.values())
+    if cfg.num_experts == 0:
+        return total
+    moe_frac = 1.0 - cfg.experts_per_tok / cfg.num_experts
+    inactive = 0.0
+    for path, leaf in shapes.items():
+        names = path.split("/")
+        if ("ffn" in names and names[-1] in ("gate", "up", "down")
+                and leaf.ndim >= 3 and cfg.num_experts in leaf.shape[:2]):
+            inactive += math.prod(leaf.shape) * moe_frac
+    return int(total - inactive)
+
+
+def cast_leaves(params: Dict[str, torch.Tensor], cfg, specs=None
                 ) -> Dict[str, torch.Tensor]:
     """One cast of the float32 leaves to ``cfg.dtype`` under the
     reference's rule (every leaf of two or more dims, router excepted);
-    differentiable, so gradients reach the float32 masters."""
+    differentiable, so gradients reach the float32 masters.  Each cast is
+    pinned to its leaf's spec in ``specs`` ({path: P}, or None), as the
+    reference pins it (``constrain_spec``: nothing for a plain tensor)."""
     cd = getattr(torch, cfg.dtype)
     if cd == torch.float32:
         return params
-    return {k: v.to(cd) if v.dtype == torch.float32 and _cast_rule(k, v.ndim)
+    specs = specs or {}
+    return {k: constrain_spec(v.to(cd), specs.get(k))
+            if v.dtype == torch.float32 and _cast_rule(k, v.ndim)
             else v for k, v in params.items()}
 
 
 def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor, cfg,
-            frontend_embeds: Optional[torch.Tensor] = None
+            frontend_embeds: Optional[torch.Tensor] = None, param_specs=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward, differentiable.  ``params``: {path: leaf} in
     the reference's layout (``init_params``); tokens (B, S);
     frontend_embeds (B, P, d) or None.  Returns (logits (B, S, V) float32,
     the stack's aux loss, float32).  The counterpart of the reference's
-    ``lm.forward``."""
-    tree = unflatten(cast_leaves(params, cfg))
+    ``lm.forward``; ``param_specs`` ({path: P}) pins the casts."""
+    tree = unflatten(cast_leaves(params, cfg, param_specs))
     B, S = tokens.shape
     x = embed_inputs(tree["embed"], tokens, cfg, frontend_embeds,
                      getattr(torch, cfg.dtype))
@@ -189,11 +222,13 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor, cfg,
     x, aux = stack_forward(tree["stack"], x, cfg, positions)
     x = layers.rms_norm(x, tree["final_norm"], cfg.norm_eps)
     table = tree["embed"] if cfg.tie_embeddings else tree["unembed"]
-    return layers.unembed(table, x), aux
+    logits = constrain(layers.unembed(table, x), "dp", None, "tp")
+    return logits, aux
 
 
 def loss_fn(params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
-            cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            cfg, param_specs=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy (logsumexp minus the gold logit, averaged
     over the tokens whose label is >= 0) plus the aux loss.  batch:
     {"tokens", "labels"} (B, S), and the frontend input (B, P, d) under
@@ -201,10 +236,10 @@ def loss_fn(params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
     (ce + aux, {"ce", "aux"}), as the reference's ``lm.loss_fn``."""
     logits, aux = forward(params, batch["tokens"], cfg,
                           batch.get(frontend_input_name(cfg))
-                          if cfg.frontend else None)
+                          if cfg.frontend else None, param_specs)
     labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    logz = sharded.logsumexp_last(logits)
+    gold = sharded.gather_last(logits, labels.clamp(min=0))
     mask = (labels >= 0).float()
     ce = ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
     return ce + aux, {"ce": ce, "aux": aux}
@@ -244,4 +279,6 @@ def decode_step(model: LM, tokens: torch.Tensor, caches: Caches,
     x = layers.embed(model.embed, tokens, model.compute_dtype)
     x = model.stack.decode(x, caches, write_idx)
     logits = model._logits(x)
-    return logits.argmax(dim=-1).to(tokens.dtype), logits, caches
+    # the vocabulary whole on every device for the argmax (a DTensor's)
+    nxt = unshard_dim(logits, -1).argmax(dim=-1).to(tokens.dtype)
+    return nxt, logits, caches

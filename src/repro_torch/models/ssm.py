@@ -20,8 +20,10 @@ forwards build the decode state only when ``return_state`` asks for it
 (training never does).  The functions take the reference's leaf dicts
 ({"in_proj", "conv_w", ...}), as ``attention_forward`` does; the
 ``Mamba``, ``MLSTM`` and ``SLSTM`` modules hold one layer's leaves.  The
-reference's sharding constraints are no-ops on one device and are left
-out.
+reference's sharding constraints are kept (``partitioning.constrain``):
+on DTensors under rules they redistribute, on plain tensors they do
+nothing; its constraints inside the jnp chunk scan (di over tp) are the
+scan kernel's placements on the mesh (``kernels/sharded.py``).
 """
 from __future__ import annotations
 
@@ -34,7 +36,9 @@ from torch import nn
 
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.mlstm_attention import mlstm_attention
+from repro_torch.kernels.sharded import any_dtensor, on_mesh
 from repro_torch.models import layers
+from repro_torch.models.partitioning import constrain, merge_dims, split_dim
 
 
 def _mamba_dims(cfg):
@@ -94,9 +98,9 @@ def _ssm_params(p, x: torch.Tensor, cfg, compute_dtype):
     """The projections of the conv output x (B, S, di): dt (B, S, di), B
     and C (B, S, N), all float32."""
     _, di, N, _, dt_rank = _mamba_dims(cfg)
-    proj = (x @ p["x_proj"].to(compute_dtype)).float()
+    proj = layers.matmul(x, p["x_proj"].to(compute_dtype)).float()
     dt, Bm, Cm = proj.split([dt_rank, N, N], dim=-1)
-    dt = dt @ p["dt_proj"].float() + p["dt_bias"].float()
+    dt = layers.matmul(dt, p["dt_proj"].float()) + p["dt_bias"].float()
     # jax.nn.softplus is logaddexp(x, 0)
     dt = torch.logaddexp(dt, torch.zeros((), device=dt.device))
     return dt, Bm, Cm
@@ -112,8 +116,9 @@ def mamba_scan_inputs(p, x: torch.Tensor, cfg):
     cast from its float32 master (``lm.cast_leaves``), and the casts pass
     its gradient back to the master, as the reference's do."""
     cd = x.dtype
-    xz = x @ p["in_proj"].to(cd)
+    xz = layers.matmul(x, p["in_proj"].to(cd))
     xin, z = xz.chunk(2, dim=-1)
+    xin = constrain(xin, "dp", None, "tp")
     xc = F.silu(_causal_conv(xin, p["conv_w"].to(cd), p["conv_b"].to(cd)))
     dt, Bm, Cm = _ssm_params(p, xc, cfg, cd)
     A = (-torch.exp(p["A_log"])).float()
@@ -134,7 +139,7 @@ def mamba_forward(p, x: torch.Tensor, cfg, return_state: bool = False):
     xf = xc.float()
     y, h = mamba_scan(xf, dt, Bm, Cm, A)
     y = y + p["D"].float() * xf
-    out = (y.to(cd) * F.silu(z)) @ p["out_proj"].to(cd)
+    out = layers.matmul(y.to(cd) * F.silu(z), p["out_proj"].to(cd))
     if not return_state:
         return out
     tail = F.pad(xin, (0, 0, max(0, dconv - 1 - S), 0))[:, -(dconv - 1):]
@@ -149,7 +154,7 @@ def mamba_decode(p, x: torch.Tensor, state: Dict[str, torch.Tensor],
     summed in float32 and rounded once, as the reference's einsum is (its
     prefill adds the taps in the compute dtype instead)."""
     cd = x.dtype
-    xin, z = (x @ p["in_proj"].to(cd)).chunk(2, dim=-1)
+    xin, z = layers.matmul(x, p["in_proj"].to(cd)).chunk(2, dim=-1)
     window = torch.cat([state["conv"].to(cd), xin], dim=1)  # (B, dconv, di)
     conv = (window.float() * p["conv_w"].to(cd).float()).sum(1).to(cd)
     xc = F.silu(conv + p["conv_b"].to(cd))[:, None]
@@ -163,7 +168,7 @@ def mamba_decode(p, x: torch.Tensor, state: Dict[str, torch.Tensor],
     state["h"].copy_(h)
     y = torch.einsum("bdn,bn->bd", h, Cm[:, 0])[:, None] \
         + p["D"].float() * xf
-    return (y.to(cd) * F.silu(z)) @ p["out_proj"].to(cd)
+    return layers.matmul(y.to(cd) * F.silu(z), p["out_proj"].to(cd))
 
 
 def init_mamba_state(cfg, batch: int, dtype=torch.bfloat16,
@@ -235,14 +240,16 @@ def _mlstm_qkv_gates(p, x: torch.Tensor, cfg):
     _, di, H, hd = _mlstm_dims(cfg)
     cd = x.dtype
     B, S, _ = x.shape
-    xm, z = (x @ p["up_proj"].to(cd)).chunk(2, dim=-1)
+    xm, z = layers.matmul(x, p["up_proj"].to(cd)).chunk(2, dim=-1)
+    xm = constrain(xm, "dp", None, "tp")
     xc = F.silu(_causal_conv(xm, p["conv_w"].to(cd), p["conv_b"].to(cd)))
-    q = (xc @ p["wq"].to(cd)).reshape(B, S, H, hd)
-    k = (xc @ p["wk"].to(cd)).reshape(B, S, H, hd) * _k_scale(hd, cd)
-    v = (xm @ p["wv"].to(cd)).reshape(B, S, H, hd)
-    gates = xc.float() @ p["w_if"].float() + p["b_if"].float()
+    q = split_dim(layers.matmul(xc, p["wq"].to(cd)), 2, (H, hd))
+    k = split_dim(layers.matmul(xc, p["wk"].to(cd)), 2,
+                  (H, hd)) * _k_scale(hd, cd)
+    v = split_dim(layers.matmul(xm, p["wv"].to(cd)), 2, (H, hd))
+    gates = layers.matmul(xc.float(), p["w_if"].float()) + p["b_if"].float()
     log_i, f_pre = gates.chunk(2, dim=-1)           # (B, S, H)
-    return q, k, v, log_i, F.logsigmoid(f_pre), z, xm
+    return q, k, v, log_i, layers.log_sigmoid(f_pre), z, xm
 
 
 def mlstm_forward(p, x: torch.Tensor, cfg, return_state: bool = False):
@@ -262,7 +269,8 @@ def mlstm_forward(p, x: torch.Tensor, cfg, return_state: bool = False):
     Fc = torch.cumsum(log_f, dim=1)
     h = mlstm_attention(q, k, v, Fc, log_i)
     h = layers.head_rms_norm(h, p["out_norm"], cfg.norm_eps)
-    out = (h.reshape(B, S, di) * F.silu(z)) @ p["down_proj"].to(cd)
+    out = layers.matmul(merge_dims(h, 2, (B, S, di)) * F.silu(z),
+                        p["down_proj"].to(cd))
     if not return_state:
         return out
     D_end = Fc[:, -1:] - Fc + log_i                 # (B, S, H)
@@ -286,18 +294,19 @@ def mlstm_decode(p, x: torch.Tensor, state: Dict[str, torch.Tensor],
     _, di, H, hd = _mlstm_dims(cfg)
     B = x.shape[0]
     cd = x.dtype
-    xm, z = (x @ p["up_proj"].to(cd)).chunk(2, dim=-1)
+    xm, z = layers.matmul(x, p["up_proj"].to(cd)).chunk(2, dim=-1)
     window = torch.cat([state["conv"].to(cd), xm], dim=1)   # (B, 4, di)
     conv = (window.float() * p["conv_w"].to(cd).float()).sum(1).to(cd)
     xc = F.silu(conv + p["conv_b"].to(cd))                   # (B, di)
     state["conv"].copy_(window[:, 1:])
-    q = (xc @ p["wq"].to(cd)).reshape(B, H, hd).float()
-    k = ((xc @ p["wk"].to(cd)).reshape(B, H, hd)
+    q = split_dim(layers.matmul(xc, p["wq"].to(cd)), 1, (H, hd)).float()
+    k = (split_dim(layers.matmul(xc, p["wk"].to(cd)), 1, (H, hd))
          * _k_scale(hd, cd)).float()
-    v = (xm[:, 0] @ p["wv"].to(cd)).reshape(B, H, hd).float()
-    gates = xc.float() @ p["w_if"].float() + p["b_if"].float()
+    v = split_dim(layers.matmul(xm[:, 0], p["wv"].to(cd)), 1,
+                  (H, hd)).float()
+    gates = layers.matmul(xc.float(), p["w_if"].float()) + p["b_if"].float()
     log_i, f_pre = gates.chunk(2, dim=-1)                    # (B, H)
-    log_f = F.logsigmoid(f_pre)
+    log_f = layers.log_sigmoid(f_pre)
     m = state["m"]
     m_new = torch.maximum(log_f + m, log_i)
     f_sc = torch.exp(log_f + m - m_new)[..., None]
@@ -313,8 +322,8 @@ def mlstm_decode(p, x: torch.Tensor, state: Dict[str, torch.Tensor],
                         torch.exp(-m_new))
     h = layers.head_rms_norm((num / den[..., None]).to(cd), p["out_norm"],
                              cfg.norm_eps)
-    h = h.reshape(B, 1, di) * F.silu(z)
-    return h @ p["down_proj"].to(cd)
+    h = merge_dims(h, 1, (B, 1, di)) * F.silu(z)
+    return layers.matmul(h, p["down_proj"].to(cd))
 
 
 def init_mlstm_state(cfg, batch: int, dtype=torch.bfloat16,
@@ -367,7 +376,7 @@ def _slstm_step(r: torch.Tensor, pre_x: torch.Tensor,
     state."""
     rec = torch.einsum("bhd,ghde->gbhe", state["h"], r)
     i_pre, f_pre, z_pre, o_pre = (pre_x + rec).unbind(0)
-    log_f = F.logsigmoid(f_pre)
+    log_f = layers.log_sigmoid(f_pre)
     m_new = torch.maximum(log_f + state["m"], i_pre)
     i_sc = torch.exp(i_pre - m_new)
     f_sc = torch.exp(log_f + state["m"] - m_new)
@@ -382,8 +391,8 @@ def _gate_inputs(p, x: torch.Tensor, H: int, hd: int) -> torch.Tensor:
     laid out (S, 4, B, H, hd) for the steps."""
     cd = x.dtype
     B, S, _ = x.shape
-    xw = x @ p["w"].to(cd) + p["b"].to(cd)
-    return xw.float().reshape(B, S, 4, H, hd).permute(1, 2, 0, 3, 4)
+    xw = layers.matmul(x, p["w"].to(cd)) + p["b"].to(cd)
+    return split_dim(xw.float(), 2, (4, H, hd)).permute(1, 2, 0, 3, 4)
 
 
 def slstm_forward(p, x: torch.Tensor, cfg, return_state: bool = False):
@@ -394,35 +403,72 @@ def slstm_forward(p, x: torch.Tensor, cfg, return_state: bool = False):
     input, or writing its output into a buffer, would make a zero or a
     copy of the whole (S, ...) gradient at every step of the backward).
     With ``return_state`` also the final state {"c", "n", "h", "m"} (B,
-    H, hd) float32."""
+    H, hd) float32.  On DTensors the loop runs on every device's block
+    (``kernels.sharded.on_mesh``: batch and heads stay sharded, the
+    recurrence's head dims are gathered), so its steps are local ops,
+    not one DTensor dispatch each."""
     B, S, d = x.shape
     H = cfg.num_heads
     hd = d // H
-    r = p["r"].float()
-    state = init_slstm_state(cfg, B, device=x.device)
+    r, pre = p["r"].float(), _gate_inputs(p, x, H, hd)
+    if any_dtensor(r, pre):
+        hs, c, n, hh, m = on_mesh(_slstm_loop, (r, pre), ("ghde", "sgbhd"),
+                                  ("bshd", "bhd", "bhd", "bhd", "bhd"),
+                                  free="bh")
+    else:
+        hs, c, n, hh, m = _slstm_loop(r, pre)
+    h = layers.head_rms_norm(hs.to(x.dtype), p["out_norm"], cfg.norm_eps)
+    out = merge_dims(h, 2, (B, S, d))
+    if not return_state:
+        return out
+    return out, {"c": c, "n": n, "h": hh, "m": m}
+
+
+def _slstm_loop(r: torch.Tensor, pre: torch.Tensor):
+    """The sLSTM recurrence from the empty state.  r (4, H, hd, hd)
+    float32; pre (S, 4, B, H, hd) the gate inputs (``_gate_inputs``).
+    Returns (every step's h stacked (B, S, H, hd), and the final c, n, h,
+    m (B, H, hd))."""
+    B, H, hd = pre.shape[2:]
+    shape = (B, H, hd)
+    f32 = dict(dtype=torch.float32, device=pre.device)
+    state = {"c": torch.zeros(shape, **f32), "n": torch.zeros(shape, **f32),
+             "h": torch.zeros(shape, **f32),
+             "m": torch.full(shape, M_INIT, **f32)}
     hs = []
-    for pre_t in _gate_inputs(p, x, H, hd).unbind(0):
+    for pre_t in pre.unbind(0):
         state = _slstm_step(r, pre_t, state)
         hs.append(state["h"])
-    hs = torch.stack(hs, dim=1)                     # (B, S, H, hd)
-    h = layers.head_rms_norm(hs.to(x.dtype), p["out_norm"], cfg.norm_eps)
-    out = h.reshape(B, S, d)
-    return (out, state) if return_state else out
+    return (torch.stack(hs, dim=1), state["c"], state["n"], state["h"],
+            state["m"])
 
 
 def slstm_decode(p, x: torch.Tensor, state: Dict[str, torch.Tensor],
                  cfg) -> torch.Tensor:
     """Single-token step.  x: (B, 1, d); state {"c", "n", "h", "m"} (B, H,
-    hd) float32, updated IN PLACE (the reference returns a new state)."""
+    hd) float32, updated IN PLACE (the reference returns a new state).
+    On DTensors the step runs on every device's block, as the prefill's
+    loop does (``slstm_forward``)."""
     B, _, d = x.shape
     H = cfg.num_heads
     hd = d // H
-    new = _slstm_step(p["r"].float(), _gate_inputs(p, x, H, hd)[0], state)
+    r, pre = p["r"].float(), _gate_inputs(p, x, H, hd)[0]
+    names = ("c", "n", "h", "m")
+    if any_dtensor(r, pre, *state.values()):
+        def step(r, pre, *st):
+            out = _slstm_step(r, pre, dict(zip(names, st)))
+            return tuple(out[k] for k in names)
+        new = dict(zip(names, on_mesh(
+            step, (r, pre, *(state[k] for k in names)),
+            ("ghde", "gbhd", "bhd", "bhd", "bhd", "bhd"), ("bhd",) * 4,
+            free="bh")))
+    else:
+        new = _slstm_step(r, pre, state)
     for name, t in new.items():
         state[name].copy_(t)
     h = layers.head_rms_norm(new["h"].to(x.dtype), p["out_norm"],
                              cfg.norm_eps)
-    return h.reshape(B, 1, d)
+    return merge_dims(h, 1, (B, 1, d))
 
 
 def init_slstm_state(cfg, batch: int, device="cuda"

@@ -31,6 +31,7 @@ from repro_torch.models.attention import (
     init_kv_cache,
 )
 from repro_torch.models.moe import MoE, apply_moe
+from repro_torch.models.partitioning import constrain, laid_like, unshard_dim
 from repro_torch.models.ssm import (
     MLSTM,
     SLSTM,
@@ -89,11 +90,19 @@ def ffn_forward(p, x: torch.Tensor, cfg, ffn: str
         return x, None
     h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     if ffn in ("mlp", "ffn43"):
-        return x + layers.apply_mlp(p["ffn"], h), None
+        return x + laid_like(layers.apply_mlp(p["ffn"], h), x), None
     if ffn == "moe":
         y, aux = apply_moe(p["ffn"], h, cfg)
-        return x + y, aux
+        return x + laid_like(y, x), aux
     raise ValueError(ffn)
+
+
+def _residual_constrain(x: torch.Tensor, cfg) -> torch.Tensor:
+    """The reference's constraint on the residual stream: batch over dp,
+    and the sequence over sp where ``cfg.seq_sharded_residual``."""
+    if cfg.seq_sharded_residual:
+        return constrain(x, "dp", ("sp",), None)
+    return constrain(x, "dp", None, None)
 
 
 def block_forward(p, x: torch.Tensor, cfg, spec: Tuple[str, str],
@@ -109,6 +118,7 @@ def block_forward(p, x: torch.Tensor, cfg, spec: Tuple[str, str],
     build no state), in the reference's order.  Differentiable for every
     block."""
     mixer, ffn = spec
+    x = _residual_constrain(x, cfg)
     h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     cache = None
     if mixer == "attn":
@@ -121,8 +131,10 @@ def block_forward(p, x: torch.Tensor, cfg, spec: Tuple[str, str],
             y, cache = y
     else:
         raise ValueError(mixer)
-    x, aux = ffn_forward(p, x + y, cfg, ffn)
-    return x, aux, cache
+    # the residual keeps its layout: a branch's output is laid out as it
+    # (``laid_like``: a row-parallel product's pending sum reduce-scattered)
+    x, aux = ffn_forward(p, x + laid_like(y, x), cfg, ffn)
+    return _residual_constrain(x, cfg), aux, cache
 
 
 def _block_output(p, x, cfg, spec, positions):
@@ -148,8 +160,8 @@ def stack_forward(stack, x: torch.Tensor, cfg, positions: torch.Tensor
     specs = block_specs(cfg)
 
     def unbind(tree):
-        return {k: unbind(v) if isinstance(v, dict) else v.unbind(0)
-                for k, v in tree.items()}
+        return {k: unbind(v) if isinstance(v, dict)
+                else unshard_dim(v, 0).unbind(0) for k, v in tree.items()}
 
     def layer(tree, i):
         return {k: layer(v, i) if isinstance(v, dict) else v[i]
@@ -208,7 +220,8 @@ class Block(nn.Module):
         h = layers.rms_norm(x, self.mixer_norm, self.cfg.norm_eps)
         y = (self.mixer.decode(h, cache, write_idx) if mixer == "attn"
              else self.mixer.decode(h, cache))
-        return ffn_forward(layers.leaves(self), x + y, self.cfg, ffn)[0]
+        return ffn_forward(layers.leaves(self), x + laid_like(y, x),
+                           self.cfg, ffn)[0]
 
 
 class Stack(nn.Module):

@@ -34,6 +34,20 @@ import torch
 from repro_torch.kernels.quantize import dequantize_blocks, quantize_blocks
 from repro_torch.kernels.topk_compress import topk_compress_blocks
 
+#: one letter a leaf dim, for the layouts of ``kernels.sharded.on_mesh``
+_DIMS = "abcdefgh"
+
+
+def _on_mesh(fn, tensors, layouts, out_layouts, free):
+    """``fn(*tensors)``; on DTensors, on every device's block
+    (``kernels.sharded.on_mesh``): the ``free`` dims (whole rows) keep
+    their sharding, the dims a row spans are replicated, so each device
+    encodes or decodes whole rows exactly as one process does."""
+    from repro_torch.kernels.sharded import any_dtensor, on_mesh
+    if not any_dtensor(*tensors):
+        return fn(*tensors)
+    return on_mesh(fn, tensors, layouts, out_layouts, free)
+
 
 @dataclasses.dataclass(frozen=True)
 class TopKCompressor:
@@ -47,7 +61,16 @@ class TopKCompressor:
     def encode(self, leaf: torch.Tensor):
         """Returns ({"values", "indices"}, residual): the k largest |x|
         of each row (float32 values, int32 row-local indices) and the
-        leaf with them zeroed, in the leaf's dtype."""
+        leaf with them zeroed, in the leaf's dtype.  A DTensor leaf
+        encodes its rows (dim 0) where they lie."""
+        L = _DIMS[:leaf.ndim]
+        row = L[0] + "k" if leaf.ndim >= 2 else "k"
+        vals, idx, res = _on_mesh(self._encode, (leaf,), (L,),
+                                  (row, row, L),
+                                  free=L[0] if leaf.ndim >= 2 else "")
+        return {"values": vals, "indices": idx}, res
+
+    def _encode(self, leaf: torch.Tensor):
         if leaf.ndim >= 2:
             rows = leaf.reshape(leaf.shape[0], -1) if leaf.ndim > 2 else leaf
         else:
@@ -58,12 +81,21 @@ class TopKCompressor:
         residual = residual.reshape(leaf.shape).to(leaf.dtype)
         if leaf.ndim < 2:
             vals, idx = vals[0], idx[0]
-        return {"values": vals, "indices": idx}, residual
+        return vals, idx, residual
 
     def decode_sum(self, gathered, shape, dtype) -> torch.Tensor:
         """gathered: payload with a leading pod dim.  The dense sum of
-        every pod's selected values, pod by pod."""
-        vals, idx = gathered["values"], gathered["indices"]
+        every pod's selected values, pod by pod (on DTensors, each
+        device's rows)."""
+        L = _DIMS[:len(shape)]
+        row = "p" + L[0] + "k" if len(shape) >= 2 else "pk"
+        return _on_mesh(
+            lambda v, i: self._decode_sum(v, i, shape, dtype),
+            (gathered["values"], gathered["indices"]), (row, row), L,
+            free=L[0] if len(shape) >= 2 else "")
+
+    def _decode_sum(self, vals, idx, shape, dtype) -> torch.Tensor:
+        shape = (vals.shape[1], *shape[1:]) if vals.ndim >= 3 else shape
         if vals.ndim >= 3:  # (P, R, k) row-wise
             R = vals.shape[1]
             dense = torch.zeros((R, math.prod(shape[1:])),
@@ -88,13 +120,24 @@ class Int8Compressor:
     def encode(self, leaf: torch.Tensor):
         """Returns ({"q" int8, "scale" float32}, residual in the leaf's
         dtype): q and scale (..., 1) of the leaf's shape for ndim >= 2,
-        (nb, block) and (nb, 1) for a 1-D leaf."""
+        (nb, block) and (nb, 1) for a 1-D leaf.  A DTensor leaf encodes
+        its rows (every dim but the last) where they lie; a 1-D leaf is
+        made whole first."""
+        L = _DIMS[:leaf.ndim]
+        if leaf.ndim >= 2:
+            outs, free = (L, L[:-1] + "z", L), L[:-1]
+        else:
+            outs, free = ("xy", "xz", L), ""
+        q, scale, res = _on_mesh(self._encode, (leaf,), (L,), outs, free)
+        return {"q": q, "scale": scale}, res
+
+    def _encode(self, leaf: torch.Tensor):
         xf = leaf.float()
         if leaf.ndim >= 2:
             q, scale, res = quantize_blocks(
                 xf.reshape(-1, leaf.shape[-1]), residual=True)
-            return ({"q": q.reshape(leaf.shape),
-                     "scale": scale.reshape(*leaf.shape[:-1], 1)},
+            return (q.reshape(leaf.shape),
+                    scale.reshape(*leaf.shape[:-1], 1),
                     res.reshape(leaf.shape).to(leaf.dtype))
         flat = xf.reshape(-1)
         pad = (-flat.numel()) % self.block
@@ -102,12 +145,25 @@ class Int8Compressor:
         q, scale, res = quantize_blocks(padded.reshape(-1, self.block),
                                         residual=True)
         residual = res.reshape(-1)[:flat.numel()].reshape(leaf.shape)
-        return {"q": q, "scale": scale}, residual.to(leaf.dtype)
+        return q, scale, residual.to(leaf.dtype)
 
     def decode_sum(self, gathered, shape, dtype) -> torch.Tensor:
         """gathered: {"q", "scale"} with a leading pod dim.  The sum of the
-        pods' ``q * scale``, pod by pod (``fma(q, scale, acc)``)."""
+        pods' ``q * scale``, pod by pod (``fma(q, scale, acc)``; on
+        DTensors, each device's rows)."""
         q, scale = gathered["q"], gathered["scale"]
+        L = _DIMS[:len(shape)]
+        rowwise = tuple(q.shape[1:]) == tuple(shape) and len(shape) >= 2
+        if rowwise:
+            ins, free = ("p" + L, "p" + L[:-1] + "z"), L[:-1]
+        else:
+            ins, free = ("pxy", "pxz"), ""
+        return _on_mesh(
+            lambda a, b: self._decode_sum(
+                a, b, tuple(a.shape[1:]) if rowwise else shape, dtype),
+            (q, scale), ins, L, free)
+
+    def _decode_sum(self, q, scale, shape, dtype) -> torch.Tensor:
         total = None
         for p in range(q.shape[0]):
             qp = q[p].reshape(-1, q.shape[-1])

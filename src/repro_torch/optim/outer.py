@@ -45,3 +45,25 @@ def outer_step(params: Tree, outer_state: Dict[str, Tree], mean_delta: Tree,
               for k, a in outer_state["anchor"].items()}
     new_params = {k: anchor[k].to(p.dtype) for k, p in params.items()}
     return new_params, {"anchor": anchor, "momentum": mom}
+
+
+def maybe_outer_step(params: Tree, outer_state: Dict[str, Tree], do_sync,
+                     pod_mean_fn, cfg: OuterConfig):
+    """The conditional outer sync of the reference: the delta ``anchor -
+    params`` averaged over the pods by ``pod_mean_fn`` (a
+    ``collectives.pod_mean`` bound to the pod dim), one ``outer_step``,
+    and ``where(do_sync, synced, old)`` for every leaf: the update is
+    always computed and selected only on a sync step.  ``do_sync`` is a
+    bool or a bool tensor.  Returns (params, outer_state), new trees."""
+    delta = {k: a - params[k].float()
+             for k, a in outer_state["anchor"].items()}
+    synced_p, synced_o = outer_step(params, outer_state, pod_mean_fn(delta),
+                                    cfg)
+
+    def sel(new: Tree, old: Tree) -> Tree:
+        return {k: torch.where(torch.as_tensor(do_sync, device=o.device),
+                               new[k], o) for k, o in old.items()}
+
+    return sel(synced_p, params), {
+        "anchor": sel(synced_o["anchor"], outer_state["anchor"]),
+        "momentum": sel(synced_o["momentum"], outer_state["momentum"])}

@@ -504,3 +504,149 @@ def train_cases(rank, world, payload):
         ckpt["logs"] = logs
     return dict(results=out, stats=stats, ckpt=ckpt,
                 negative=train_negative_cases(world))
+
+
+# ---------------------------------------------------------------------------
+# the LM step over a (2, 2, 2) device mesh: every leaf a DTensor
+# ---------------------------------------------------------------------------
+#: the debug mesh of the DTensor cases, over 8 ranks
+DT_MESH = ((2, 2, 2), ("pod", "data", "model"))
+#: the train cases: (arch, mode, compressor), at 2 pods, B x S, steps
+DT_TRAIN = (("deepseek-moe-16b", 3, None), ("deepseek-moe-16b", 3, "int8"))
+DT_PODS, DT_B, DT_S, DT_STEPS = 2, 8, 32, 2
+#: the serve cases: prompt length, decode steps, batch; jamba's cache length
+DT_P, DT_T, DT_SB, DT_LONG_S = 16, 2, 8, 64
+
+
+def dt_batches(cfg):
+    """Each step's batch, (pods, B / pods, S), from one stream."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    src = SyntheticLM(DataConfig(cfg.vocab_size, DT_S, DT_B, seed=2))
+    return [{k: torch.as_tensor(v).reshape(DT_PODS, -1, DT_S)
+             for k, v in src.batch_for_step(k).items()}
+            for k in range(DT_STEPS)]
+
+
+def dt_train(arch, mode, comp, dmesh=None):
+    """``DT_STEPS`` steps from the seed-0 state at ``DT_PODS`` pods: in
+    one process, or (``dmesh``) with every leaf a DTensor over it, the pods
+    over its pod group.  Returns (the whole state, every step's metrics
+    as floats), each leaf gathered whole on every rank."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import sharding, train
+    from repro_torch.models import lm, partitioning
+    cfg, spec = train_cfg(arch), train_spec(mode, comp)
+    state = train.init_train_state(cfg, spec, DT_PODS, device="cpu")
+    batches = dt_batches(cfg)
+    if dmesh is None:
+        step = train.make_train_step(cfg, spec, DT_PODS)
+        metrics = []
+        for b in batches:
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        return state, metrics
+    shape = mesh.Mesh(*DT_MESH)
+    rules = mesh.rules_for(shape, pod_stacked=True)
+    group = mesh.pod_group(dmesh, DT_PODS)
+    lo, per = group.lo, group.per
+
+    def mine(tree):
+        if isinstance(tree, dict):
+            return {k: mine(v) for k, v in tree.items()}
+        return tree[lo:lo + per].clone()
+
+    state = train.shard_train_state(
+        {k: v if k == "step" else mine(v) for k, v in state.items()},
+        cfg, spec, rules, dmesh)
+    step = train.make_train_step(
+        cfg, spec, DT_PODS, group,
+        param_specs=sharding.param_specs(lm.abstract_params(cfg), rules))
+    metrics = []
+    with partitioning.use_rules(rules), implicit_replication():
+        for b in batches:
+            state, m = step(state, train.shard_batch(
+                {k: v[lo:lo + per] for k, v in b.items()}, cfg, rules,
+                dmesh, DT_PODS))
+            metrics.append({k: float(v.full_tensor() if partitioning
+                                     .is_dtensor(v) else v)
+                            for k, v in m.items()})
+
+    def whole(tree, path=""):
+        if isinstance(tree, dict):
+            return {k: whole(v, path + k + "/") for k, v in tree.items()}
+        t = tree.full_tensor() if partitioning.is_dtensor(tree) else tree
+        return t if path == "step/" else group.all_gather(t, 0)
+
+    return whole(state), metrics
+
+
+def dt_serve(arch, params_np, toks, long_context, dmesh=None):
+    """Prefill of ``toks[:, :DT_P]`` and ``DT_T`` teacher-forced decode
+    steps of the port's float32 LM carried from ``params_np``: in one
+    process, or (``dmesh``) with the weights, the tokens and the caches
+    DTensors over it by the serving rules (``long_context``: the cache's
+    sequence over every axis, of ``DT_LONG_S`` positions).  Returns
+    {"steps": [prefill logits (None where the prompt ran in one process),
+    each decode step's (next token, logits)], whole; "k_local": the local
+    shape of the first attention layer's k cache (None in one process)}."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import interop
+    from repro_torch.launch import serve, sharding
+    from repro_torch.models import lm, partitioning
+    from repro_torch.models.partitioning import P
+    cfg = train_cfg(arch)
+    model = interop.params_from_numpy(params_np, cfg, "cpu")
+    cache_len = DT_LONG_S if long_context else DT_P + DT_T
+    toks = torch.as_tensor(toks)
+
+    def whole(t):
+        return t.full_tensor() if partitioning.is_dtensor(t) else t
+
+    out = []
+    if dmesh is None:
+        logits, caches = lm.prefill_step(model, toks[:, :DT_P], cache_len)
+        out.append(logits)
+        for i in range(DT_T):
+            nxt, logits, caches = lm.decode_step(
+                model, toks[:, DT_P + i:DT_P + i + 1], caches, DT_P + i)
+            out.append((nxt, logits))
+        return {"steps": out, "k_local": None}
+    rules = mesh.rules_for(mesh.Mesh(*DT_MESH), long_context=long_context)
+    dp = rules.roles["dp"] or None
+    tok_sh = sharding.Sharding(dmesh, P(dp, None))
+    with partitioning.use_rules(rules), implicit_replication():
+        if long_context:
+            # the prompt's caches made in one process, then split
+            _, caches = lm.prefill_step(model, toks[:, :DT_P], cache_len)
+            out.append(None)
+            serve.shard_model(model, rules, dmesh)
+            caches = serve.shard_caches(caches, cfg, rules, dmesh)
+        else:
+            serve.shard_model(model, rules, dmesh)
+            logits, caches = lm.prefill_step(
+                model, tok_sh.place(toks[:, :DT_P]), cache_len)
+            out.append(whole(logits))
+            caches = serve.shard_caches(caches, cfg, rules, dmesh)
+        for i in range(DT_T):
+            nxt, logits, caches = lm.decode_step(
+                model, tok_sh.place(toks[:, DT_P + i:DT_P + i + 1]),
+                caches, DT_P + i)
+            out.append((whole(nxt), whole(logits)))
+    k = next(c["k"] for c in caches if "k" in c)
+    return {"steps": out, "k_local": tuple(k.to_local().shape)}
+
+
+def dtensor_cases(rank, world, payload):
+    """Every DTensor case of ``payload`` on the (2, 2, 2) mesh over the 8
+    ranks: the train cases ({"train": [(arch, mode, compressor)]}), then
+    the serve cases ({"serve": {name: (arch, params, tokens,
+    long_context)}}).  Rank 0 returns them."""
+    dmesh = mesh.device_mesh(mesh.Mesh(*DT_MESH))
+    out = {"train": {case: dt_train(*case, dmesh=dmesh)
+                     for case in payload["train"]},
+           "serve": {name: dt_serve(*args, dmesh=dmesh)
+                     for name, args in payload["serve"].items()}}
+    return out if rank == 0 else None
+

@@ -263,7 +263,9 @@ def test_port_imports_neither_jax_nor_repro():
              for f in files if f.endswith(".py")]
     paths.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(paths) > 15
-    for module in ("launch/mesh.py", "runtime/engine_sharded.py"):
+    for module in ("launch/mesh.py", "runtime/engine_sharded.py",
+                   "launch/dryrun.py", "launch/sharding.py",
+                   "kernels/sharded.py"):
         assert os.path.join(root, module) in paths, module
     bad = []
     for path in paths:
